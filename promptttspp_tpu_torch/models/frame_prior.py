@@ -1,0 +1,34 @@
+"""Frame prior network, eval mode.
+
+Counterpart of ``promptttspp_tpu/models/frame_prior.py`` (absolute
+positional encoding): PE + ChannelLayerNorm, then n_layers of
+[conv k -> exact GELU -> residual -> ChannelLayerNorm] over [B, Tf, C].
+"""
+
+from __future__ import annotations
+
+import torch.nn as nn
+import torch.nn.functional as F
+
+from promptttspp_tpu_torch.nn.embedding import PositionalEncoding
+from promptttspp_tpu_torch.nn.layers import ChannelLayerNorm, Conv1d
+
+
+class FramePriorNetwork(nn.Module):
+    def __init__(self, hidden_channels: int, n_layers: int,
+                 kernel_size: int):
+        super().__init__()
+        self.embed = PositionalEncoding(hidden_channels)
+        self.norm_emb = ChannelLayerNorm(hidden_channels)
+        self.convs = nn.ModuleList(
+            Conv1d(hidden_channels, hidden_channels, kernel_size)
+            for _ in range(n_layers))
+        self.norms = nn.ModuleList(
+            ChannelLayerNorm(hidden_channels) for _ in range(n_layers))
+
+    def forward(self, x, mask):
+        """x [B, Tf, C]; mask float [B, Tf, 1]."""
+        x = self.norm_emb(self.embed(x * mask))
+        for conv, norm in zip(self.convs, self.norms):
+            x = norm(x + F.gelu(conv(x * mask)))
+        return x * mask
