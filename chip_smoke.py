@@ -24,8 +24,27 @@ Phases (any failure exits non-zero and prints no result line):
    run with the kernels and again with every kernel replaced by its plain
    version, and the waveforms are compared.
 5. Print request wall time and real-time factor, the kernels' times from
-   CUDA events beside their bounds and their plain versions' times, a
-   device-time profile of one request, and the ``kernels`` JSON line.
+   CUDA events beside their bounds and their plain versions' times, and a
+   device-time profile of one request.
+6. Hold kernel K3 (``amp_block``, a whole AMPBlock in one launch) against
+   its plain version at the 12 AMPBlock shapes of a 640-frame request, and
+   time it beside the three ``amp_layer`` calls the serving path makes for
+   the same block and beside its bound. The serving path does not call K3.
+7. Serving paths, each driven with the launch counts set to 0 just before
+   and read just after: speculative requests (bucket predicted at 10
+   frames per phone, no mispredict); a forced mispredict (5 frames per
+   phone: one re-dispatch, the two-phase wav); a request's input staging
+   (every host -> device copy) behind a spin kernel, which must still run
+   when the staging returns; three ``synthesize_async`` requests, the third
+   conditioned on a reference wav, queued before the first is resolved (the
+   dispatch makes no synchronizing CUDA call, each result equals its
+   ``synthesize`` result);
+   ``synthesize_streaming`` with chunk 256 and halo 16, with and without a
+   64-frame first chunk (time to first chunk, launches per chunk, the
+   stitched stream against the batched wav in the interior);
+   ``vocoder_mode="chunked"`` against batched; and a request conditioned on
+   a 3 s, 24 kHz reference wav.
+8. Print the ``kernels`` JSON line, the GPU line and the result line.
 
 float32 throughout: TF32 is switched off for cuDNN convolutions and cuBLAS
 matrix products, so the plain versions are full float32 references.
@@ -58,6 +77,14 @@ K2_TOL = dict(atol=5e-5, rtol=1e-3)  # tests/test_pallas_amp.py:51
 # kernel vs plain wav of a whole request: float32 with another summation
 # order in each of 36 AMPLayers and the final activation; tanh-bounded
 WAV_ATOL = 1e-3
+# streamed or chunked wav against the batched one, away from the edges
+# (tests/test_infer.py:334-370)
+STREAM_ATOL = 5e-3
+CHUNK, HALO, FIRST_CHUNK = 256, 16, 64
+N_TURNS = 4  # alternated runs of each of two serving variants
+# a spin kernel queued before a request's inputs are staged: 1e9 clock
+# cycles, about 0.5 s at the H100's 1.98 GHz, far longer than the staging
+SPIN_CYCLES = 1_000_000_000
 
 PHONES, PROMPT_LEN, FRAMES, N_REQUESTS, N_TIMED = 64, 32, 640, 3, 7
 
@@ -103,6 +130,13 @@ def k2_cost(B, T, C, k):
     flops = 2 * B * T * C * AA_FLOPS + 2 * (2 * k * C + 1) * B * T * C \
         + B * T * C
     return nbytes, flops
+
+
+def k3_cost(B, T, C, k, n_layers):
+    """A whole AMPBlock: x read and y written once, every layer's two conv
+    weights and four per-channel vectors; the layers' operations."""
+    nbytes = (2 * B * T * C + n_layers * (2 * k * C * C + 4 * C)) * 4
+    return nbytes, n_layers * k2_cost(B, T, C, k)[1]
 
 
 def stage_shapes(voc_cfg, frames):
@@ -264,8 +298,7 @@ def main() -> int:
     samples = FRAMES * 240
     audio_s = samples / flagship.VOCODER["sampling_rate"]
 
-    k1.antialias_snake.launches = 0
-    k2.amp_layer.launches = 0
+    _zero_counts(k1, k2)
     walls = []
     for i in range(N_REQUESTS):
         t0 = time.perf_counter()
@@ -276,9 +309,11 @@ def main() -> int:
         if w.shape != (samples,) or not np.isfinite(w).all():
             failures.append(f"request {i}: wav shape {w.shape}, finite "
                             f"{bool(np.isfinite(w).all())}")
-    launches = {"antialias_snake": k1.antialias_snake.launches,
-                "amp_layer": k2.amp_layer.launches}
-    expect = {"antialias_snake": N_REQUESTS, "amp_layer": 72 * N_REQUESTS}
+    launches = _counts(k1, k2)
+    # the serving path runs an AMPBlock as three amp_layer calls, as the
+    # JAX package does: K3 is not on it
+    expect = {"antialias_snake": N_REQUESTS, "amp_layer": 72 * N_REQUESTS,
+              "amp_block": 0}
     print(f"phase 4: {N_REQUESTS} requests, launches {launches} "
           f"(expected {expect})", flush=True)
     if launches != expect:
@@ -288,14 +323,12 @@ def main() -> int:
     det = dict(use_max=True, noise_scale=0.0, seed=7, x_T=x_T,
                zero_noise=True)
     wav_k, mel_k = synth.synthesize(seqs, prompts, **det)
-    before = {"antialias_snake": k1.antialias_snake.launches,
-              "amp_layer": k2.amp_layer.launches}
+    before = _counts(k1, k2)
     with mock.patch.object(k2, "amp_layer", k2.amp_layer_plain), \
             mock.patch.object(k1, "antialias_snake",
                               k1.antialias_snake_plain):
         wav_p, mel_p = synth.synthesize(seqs, prompts, **det)
-    if {"antialias_snake": k1.antialias_snake.launches,
-            "amp_layer": k2.amp_layer.launches} != before:
+    if _counts(k1, k2) != before:
         failures.append("a kernel launched while its plain version was "
                         "patched in")
     wav_err = float(np.abs(wav_k[0] - wav_p[0]).max())
@@ -328,6 +361,13 @@ def main() -> int:
           flush=True)
     profile_request(synth, seqs, prompts, gpu, steady)
 
+    # -- phase 6: K3 against its plain version ------------------------------
+    k3_row = phase_k3(k2, randn, voc_cfg, gpu, failures)
+
+    # -- phase 7: the serving paths --------------------------------------------
+    phase_serving(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
+                  gpu, failures)
+
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -347,6 +387,16 @@ def main() -> int:
              library_ms=None,
              per=f"sum over the 36 AMPLayers of one {FRAMES}-frame request "
                  "(72 launches)"),
+        dict(name="amp_block", route="cuda",
+             source="promptttspp_tpu_torch/csrc/amp_block.cu",
+             replaces="promptttspp_tpu/ops/pallas/amp.py:348",
+             launches=launches["amp_block"], max_abs_err=k3_row["err"],
+             ms=k3_row["ms"],
+             plain_ms=k3_row["plain_ms"], bound_ms=k3_row["bound_ms"],
+             bound_by=k3_row["bound_by"], library_ms=None,
+             amp_layer_x3_ms=k3_row["layers_ms"],
+             per=f"sum over the 12 AMPBlocks of one {FRAMES}-frame request "
+                 "(12 launches); the serving path does not call it"),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -355,6 +405,315 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phase_k3(k2, randn, voc_cfg, gpu, failures):
+    """K3 at every AMPBlock shape of a request against its plain version,
+    timed beside the three amp_layer calls of the serving path."""
+    import math
+
+    import torch
+
+    row = dict(err=0.0, ms=0.0, plain_ms=0.0, layers_ms=0.0, bound_ms=0.0,
+               bytes_ms=0.0)
+    for C, T in stage_shapes(voc_cfg, FRAMES):
+        for k, dils in zip(voc_cfg["resblock_kernel_sizes"],
+                           voc_cfg["resblock_dilations"]):
+            dils = tuple(dils)
+            # conv gain capped at 1 (tests/test_torch_cuda.py::_block_args)
+            ws = min(0.05, 1.0 / math.sqrt(k * C))
+            x = 0.3 * randn(1, T, C)
+            params = tuple((0.2 * randn(C), ws * randn(C, C, k),
+                            0.1 * randn(C), 0.2 * randn(C),
+                            ws * randn(C, C, k), 0.1 * randn(C))
+                           for _ in dils)
+
+            def layers():
+                h = x
+                for p, d in zip(params, dils):
+                    h = k2.amp_layer(h, *p, d)
+                return h
+
+            y = k2.amp_block(x, params, dils)
+            ref = k2.amp_block_plain(x, params, dils)
+            torch.cuda.synchronize()
+            err = (y - ref).abs().max().item()
+            row["err"] = max(row["err"], err)
+            if not torch.allclose(y, ref, **K2_TOL):
+                failures.append(f"K3 C={C} T={T} k={k}: max abs err "
+                                f"{err:.3g}")
+            ms = cuda_ms(lambda: k2.amp_block(x, params, dils), iters=5)
+            lms = cuda_ms(layers, iters=5)
+            plain = cuda_ms(lambda: k2.amp_block_plain(x, params, dils),
+                            iters=2)
+            nbytes, flops = k3_cost(1, T, C, k, len(dils))
+            bms, by = bound_ms(nbytes, flops)
+            for key, v in (("ms", ms), ("plain_ms", plain),
+                           ("layers_ms", lms), ("bound_ms", bms),
+                           ("bytes_ms", nbytes / HBM_BYTES_PER_S * 1e3)):
+                row[key] += v
+            print(f"[{gpu}] phase 6: K3 amp_block C={C} T={T} k={k} "
+                  f"d={dils}: err {err:.3g}; kernel {ms:.4f} ms, 3 x "
+                  f"amp_layer {lms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by})", flush=True)
+    row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["bound_ms"]
+                       else "operations")
+    print(f"[{gpu}] phase 6: K3, 12 AMPBlocks of a {FRAMES}-frame request: "
+          f"kernel {row['ms']:.3f} ms, 3 x amp_layer {row['layers_ms']:.3f} "
+          f"ms, plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
+          f"ms ({row['bound_by']}), max abs err {row['err']:.3g}",
+          flush=True)
+    return row
+
+
+def _counts(k1, k2):
+    return {"antialias_snake": k1.antialias_snake.launches,
+            "amp_layer": k2.amp_layer.launches,
+            "amp_block": k2.amp_block.launches}
+
+
+def _zero_counts(k1, k2):
+    k1.antialias_snake.launches = 0
+    k2.amp_layer.launches = 0
+    k2.amp_block.launches = 0
+
+
+def _reference_wav(seconds=3.0, sr=24000, seed=5):
+    """A seeded voiced stand-in recording: 8 harmonics of a gliding
+    120-220 Hz fundamental with a syllable envelope, plus noise."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 170 + 50 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    wav = sum(np.sin(h * phase) / h for h in range(1, 9))
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t) ** 2
+    return (0.15 * env * wav + 0.005 * rng.randn(t.size)).astype(np.float32)
+
+
+def phase_serving(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
+                  gpu, failures):
+    """The serving paths beyond the two-phase request, each checked and
+    driven with the launch counts set to 0 just before and read after."""
+    import numpy as np
+    import torch
+
+    from promptttspp_tpu_torch.ops.mel import MelSpectrogramTransform
+
+    samples = FRAMES * 240
+    per_request = {"antialias_snake": 1, "amp_layer": 72, "amp_block": 0}
+    tok = synth.tokenizer
+    kw = dict(use_max=True, noise_scale=0.0)
+
+    def run(label, fn, expect):
+        _zero_counts(k1, k2)
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        got = _counts(k1, k2)
+        print(f"[{gpu}] phase 7: {label}: wall {wall * 1e3:.1f} ms, "
+              f"launches {got}", flush=True)
+        if got != expect:
+            failures.append(f"{label}: launches {got} != {expect}")
+        return out, wall
+
+    def times(n):
+        return {k: v * n for k, v in per_request.items()}
+
+    def same(label, a, b, atol=0.0):
+        err = float(np.abs(a.astype(np.float64) - b).max())
+        if a.shape != b.shape or not err <= atol:
+            failures.append(f"{label}: shape {a.shape} vs {b.shape}, max "
+                            f"abs err {err:.3g} (tol {atol})")
+        return err
+
+    # two-phase references, seeds 0-2
+    ref = [synth.synthesize(seqs, prompts, seed=i, **kw)[0][0]
+           for i in range(3)]
+
+    # speculative (the 640-frame bucket predicted, no pre-pass) and
+    # two-phase requests in turns: the host's launch rate, which sets the
+    # wall time, drifts within a call
+    spec = Synthesizer(model, vocoder, tokenizer=tok, device=synth.device,
+                       speculative=True, spec_frames_per_phone=10.0,
+                       to_mel=MelSpectrogramTransform())
+    walls = {"two-phase": [], "speculative": []}
+    err = 0.0
+    for i in range(N_TURNS):
+        order = [("two-phase", synth), ("speculative", spec)]
+        for name, sy in (order if i % 2 == 0 else order[::-1]):
+            (wavs, _), wall = run(
+                f"{name} request {i}",
+                lambda: sy.synthesize(seqs, prompts, seed=i % 3, **kw),
+                times(1))
+            walls[name].append(wall)
+            err = max(err, same(f"{name} request {i} vs two-phase",
+                                wavs[0], ref[i % 3]))
+    med = {k: float(np.median(v)) * 1e3 for k, v in walls.items()}
+    diff = [round((b - a) * 1e3, 1)
+            for a, b in zip(walls["two-phase"], walls["speculative"])]
+    print(f"[{gpu}] phase 7: {N_TURNS} turns, median wall two-phase "
+          f"{med['two-phase']:.1f} ms, speculative {med['speculative']:.1f} "
+          f"ms (speculative minus two-phase, per turn: {diff} ms); "
+          f"spec_requests {spec.spec_requests}, spec_mispredicts "
+          f"{spec.spec_mispredicts}; vs two-phase max abs err {err:.3g}",
+          flush=True)
+    if spec.spec_mispredicts != 0:
+        failures.append(f"{spec.spec_mispredicts} mispredicts at 10 frames "
+                        "per phone")
+
+    # forced mispredict: 5 frames per phone predicts 320 frames
+    short = Synthesizer(model, vocoder, tokenizer=tok, device=synth.device,
+                        speculative=True, spec_frames_per_phone=5.0)
+    (wavs, _), _ = run("forced mispredict (320 -> 640 frames)",
+                       lambda: short.synthesize(seqs, prompts, seed=1, **kw),
+                       times(2))
+    err = same("mispredict vs two-phase", wavs[0], ref[1])
+    print(f"[{gpu}] phase 7: mispredicts {short.spec_mispredicts} of "
+          f"{short.spec_requests}; re-dispatched wav vs two-phase max abs "
+          f"err {err:.3g}", flush=True)
+    if short.spec_mispredicts != 1:
+        failures.append(f"forced mispredict: {short.spec_mispredicts} "
+                        "re-dispatches")
+
+    # the two-phase reference-wav request (it also puts the mel
+    # filterbank and the STFT window on the device once)
+    ref_synth = Synthesizer(model, vocoder, tokenizer=tok,
+                            device=synth.device,
+                            to_mel=MelSpectrogramTransform())
+    ref_wav = _reference_wav()
+    ref.append(ref_synth.synthesize(seqs, reference_wavs=[ref_wav], seed=0,
+                                    **kw)[0][0])
+
+    # a request's host -> device copies (phones, prompt ids, the reference
+    # wav and its mel) are all made when its inputs are staged
+    # (Synthesizer._request); staged behind a spin kernel, they must be
+    # queued while the spin still runs, not wait for it
+    torch.cuda.synchronize()
+    spin = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    spin[0].record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    spin[1].record()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        spec._request(seqs, prompts, None, None, True, 0.0, 0)
+        spec._request(seqs, None, None, [ref_wav], True, 0.0, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t_stage = time.perf_counter() - t0
+    spinning = not spin[1].query()
+    spin[1].synchronize()
+    spin_ms = spin[0].elapsed_time(spin[1])
+    print(f"[{gpu}] phase 7: inputs of a prompted and a reference-wav "
+          f"request staged in {t_stage * 1e3:.2f} ms behind a "
+          f"{spin_ms:.1f} ms spin kernel, which was "
+          f"{'still' if spinning else 'NO LONGER'} running", flush=True)
+    if not spinning:
+        failures.append(f"staging a request's inputs took "
+                        f"{t_stage * 1e3:.1f} ms, past the {spin_ms:.1f} ms "
+                        "spin queued before it")
+
+    # synthesize_async: two prompted requests and one conditioned on a
+    # reference wav, queued, then resolved in order
+    def queued():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handles = [spec.synthesize_async(seqs, prompts, seed=i, **kw)
+                       for i in range(2)]
+            handles.append(spec.synthesize_async(
+                seqs, reference_wavs=[ref_wav], seed=0, **kw))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        t_queue = time.perf_counter() - t0
+        return t_queue, [h.result()[0][0] for h in handles]
+
+    (t_queue, outs), wall = run("3 x synthesize_async (one reference-wav)",
+                                queued, times(3))
+    errs = [same(f"async request {i} vs synthesize", o, ref[r])
+            for i, (o, r) in enumerate(zip(outs, (0, 1, 3)))]
+    print(f"[{gpu}] phase 7: async: 3 requests (the third conditioned on a "
+          f"reference wav) queued in {t_queue * 1e3:.1f} ms with no "
+          f"synchronizing call, all resolved after {wall * 1e3:.1f} ms "
+          f"({wall / 3 * 1e3:.1f} ms per request); vs synthesize max abs "
+          f"err {max(errs):.3g}", flush=True)
+
+    # streaming, with and without the first-chunk ramp, in turns
+    stream_synths = {first: Synthesizer(
+        model, vocoder, tokenizer=tok, device=synth.device,
+        chunk_frames=CHUNK, halo_frames=HALO, first_chunk_frames=first)
+        for first in (None, FIRST_CHUNK)}
+    ttfc = {first: [] for first in stream_synths}
+    totals = {first: [] for first in stream_synths}
+    n_chunks, errs = {}, {first: 0.0 for first in stream_synths}
+    margin = HALO * 240
+    for i in range(N_TURNS):
+        order = list(stream_synths) if i % 2 == 0 \
+            else list(stream_synths)[::-1]
+        for first in order:
+            _zero_counts(k1, k2)
+            t0 = time.perf_counter()
+            gen = stream_synths[first].synthesize_streaming(
+                seqs, prompts, seed=0, **kw)
+            chunks, per_chunk = [], []
+            while True:
+                before = _counts(k1, k2)
+                try:
+                    chunks.append(next(gen))
+                except StopIteration as stop:
+                    flens = stop.value
+                    break
+                if len(chunks) == 1:
+                    ttfc[first].append(time.perf_counter() - t0)
+                after = _counts(k1, k2)
+                per_chunk.append({k: after[k] - before[k] for k in after})
+            totals[first].append(time.perf_counter() - t0)
+            n_chunks[first] = len(chunks)
+            stream = np.concatenate(chunks, axis=1)[0, : int(flens[0]) * 240]
+            errs[first] = max(errs[first], same(
+                f"stream (first {first}) vs batched, interior",
+                stream[margin:-margin], ref[0][margin:-margin],
+                STREAM_ATOL))
+            if any(c != per_request for c in per_chunk):
+                failures.append(f"streaming launches per chunk {per_chunk}")
+    for first in stream_synths:
+        print(f"[{gpu}] phase 7: streaming chunk {CHUNK} halo {HALO} first "
+              f"{first}: {n_chunks[first]} chunks, time to first chunk "
+              f"median {np.median(ttfc[first]) * 1e3:.1f} ms "
+              f"({[round(t * 1e3, 1) for t in ttfc[first]]}), total median "
+              f"{np.median(totals[first]) * 1e3:.1f} ms; launches per chunk "
+              f"{per_request}; stream vs batched interior max abs err "
+              f"{errs[first]:.3g}", flush=True)
+
+    # chunked vocoding against batched
+    chunked = Synthesizer(model, vocoder, tokenizer=tok, device=synth.device,
+                          vocoder_mode="chunked", chunk_frames=CHUNK,
+                          halo_frames=HALO)
+    (wavs, _), _ = run("chunked vocoder request",
+                       lambda: chunked.synthesize(seqs, prompts, seed=0,
+                                                  **kw), times(1))
+    margin = HALO * 240
+    err = same("chunked vs batched, interior", wavs[0][margin:-margin],
+               ref[0][margin:-margin], STREAM_ATOL)
+    print(f"[{gpu}] phase 7: chunked vs batched interior max abs err "
+          f"{err:.3g}", flush=True)
+
+    # reference-wav conditioning
+    (wavs, _), wall = run(
+        "reference-wav request (3 s, 24 kHz)",
+        lambda: ref_synth.synthesize(seqs, reference_wavs=[ref_wav], seed=0,
+                                     **kw), times(1))
+    w = wavs[0]
+    err = same("reference-wav request vs its first run", w, ref[3])
+    print(f"[{gpu}] phase 7: reference-wav request: wav {w.shape}, rms "
+          f"{np.sqrt(np.mean(w ** 2)):.4f}, wall {wall * 1e3:.1f} ms; vs "
+          f"its first run max abs err {err:.3g}", flush=True)
+    if w.shape != (samples,) or not np.isfinite(w).all():
+        failures.append(f"reference-wav request: wav {w.shape}, finite "
+                        f"{bool(np.isfinite(w).all())}")
 
 
 def profile_request(synth, seqs, prompts, gpu, wall_s):

@@ -13,11 +13,13 @@ phoneme embedding (``phoneme_embedding`` -> ``phoneme_emb``) and BERT
 
 - Dense ``kernel [in, out]`` -> ``weight [out, in]``
 - Conv1d ``kernel [K, in/g, out]`` -> ``weight [out, in/g, K]``
+- Conv2d ``kernel [kh, kw, in, out]`` -> ``weight [out, in, kh, kw]``
 - ConvTranspose ``kernel_t [K, in, out]`` -> ``weight [in, out, K]``
 - LayerNorm/BatchNorm ``scale`` -> ``weight``; ``embedding`` -> ``weight``
 - batch_stats ``mean``/``var`` -> ``running_mean``/``running_var`` (plus
   torch's ``num_batches_tracked``)
-- everything else (bias, gamma, beta, alpha, pos_bias_u/v) by name
+- everything else (bias, gamma, beta, alpha, pos_bias_u/v, the GRU's
+  torch-named ``weight_ih_l0`` ..., ``gst_embs``) by name
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ import torch
 # the reference's ModuleList names among the ported modules
 _LIST_MODULES = {"encoders", "layers", "convs", "norms", "upsamples", "mrfs",
                  "noise_convs", "mlp", "adaptor", "residual_layers"}
-# subtrees of the JAX model that the port does not have yet
-NOT_PORTED = ("reference_encoder",)
+# subtrees of the JAX model that the port does not have: none
+NOT_PORTED = ()
 
 _BERT_PARTS = {
     "attention_self": "attention.self",
@@ -90,6 +92,8 @@ def _param(name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
             return "weight", arr.T
         if arr.ndim == 3:
             return "weight", arr.transpose(2, 1, 0)
+        if arr.ndim == 4:
+            return "weight", arr.transpose(3, 2, 0, 1)
         raise ValueError(f"unexpected kernel rank {arr.shape}")
     if name == "kernel_t":
         return "weight", arr.transpose(1, 2, 0)

@@ -19,7 +19,10 @@
 // staged x and 2x-rate s tiles. Phase 2 gives each thread a 4 x 4
 // register tile of outputs and accumulates over (tap, input channel) with
 // the 4 weights as one float4 load (weights stay L2-resident, at most
-// 2.9 MB per conv) and 4 broadcast A reads from shared memory.
+// 2.9 MB per conv) and 4 broadcast A reads from shared memory. The weights
+// are prepared once per tensor and may have left L2 since their last use,
+// so every block first prefetches its share of them into L2; the dependent
+// weight loads of phase 2 then hit L2 even in the first wave of blocks.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -77,6 +80,16 @@ aa_conv_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
   const int t0 = blockIdx.x * g.tt;
   const int co0 = blockIdx.y * g.cot;
   const size_t batch = (size_t)blockIdx.z * T * C;
+
+  {  // this block's share of the weights' 128-byte lines into L2
+    const size_t lines = ((size_t)k * C * C * sizeof(float) + 127) / 128;
+    const size_t blocks = (size_t)gridDim.x * gridDim.y * gridDim.z;
+    const size_t b =
+        blockIdx.x + gridDim.x * (blockIdx.y + (size_t)gridDim.y * blockIdx.z);
+    const char* wb = reinterpret_cast<const char*>(w);
+    for (size_t i = b * THREADS + tid; i < lines; i += blocks * THREADS)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(wb + i * 128));
+  }
 
   // Phase 1: A[l][c] = AA(x)[a0 + l][c] for a0 + l in [0, T), else 0.
   const int a0 = t0 - g.hc;   // sample of A row 0

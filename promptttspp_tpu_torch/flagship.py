@@ -24,6 +24,7 @@ from promptttspp_tpu_torch.models.frame_prior import FramePriorNetwork
 from promptttspp_tpu_torch.models.phoneme_embedding import PhonemeEmbedding
 from promptttspp_tpu_torch.models.prompt_encoder import PromptEncoder
 from promptttspp_tpu_torch.models.prompttts import PromptTTSMDNDurCFG
+from promptttspp_tpu_torch.models.style_encoder import StyleEncoder
 from promptttspp_tpu_torch.models.variance_adaptor import (
     MDNPredictor, Predictor, VarianceAdaptor)
 from promptttspp_tpu_torch.nn.conformer import ConformerEncoder
@@ -140,7 +141,8 @@ def _model_from_config(cfg: Mapping, bert_config: BertConfig):
     dp, pp, fp = (va["duration_predictor"], va["pitch_predictor"],
                   va["frame_prior_network"])
     dec, dn = cfg["decoder"], cfg["decoder"]["denoise_fn"]
-    pr, sm = cfg["prompt_encoder"], cfg["style_mdn"]
+    pr, sm, ref = (cfg["prompt_encoder"], cfg["style_mdn"],
+                   cfg["reference_encoder"])
     return PromptTTSMDNDurCFG(
         phoneme_emb=PhonemeEmbedding(pe["num_vocab"], pe["channels"]),
         encoder=ConformerEncoder(
@@ -158,6 +160,11 @@ def _model_from_config(cfg: Mapping, bert_config: BertConfig):
                              va["pitch_emb"]["kernel_size"]),
             frame_prior_network=FramePriorNetwork(
                 fp["hidden_channels"], fp["n_layers"], fp["kernel_size"])),
+        reference_encoder=StyleEncoder(
+            ref["idim"], ref["gst_tokens"], ref.get("gst_token_dim", 256),
+            ref["gst_heads"], ref["conv_layers"], ref["conv_chans_list"],
+            ref["conv_kernel_size"], ref["conv_stride"], ref["gru_layers"],
+            ref["gru_units"]),
         prompt_encoder=PromptEncoder(bert_config, pr["mid_channels"],
                                      pr["out_channels"]),
         decoder=GaussianDiffusion(
@@ -172,8 +179,9 @@ def _model_from_config(cfg: Mapping, bert_config: BertConfig):
 
 def build_model(cfg: Mapping = MODEL, device="cuda", seed: int = 0,
                 bert_config: BertConfig = BERT_BASE):
-    """PromptTTS++ (prompt branch) from a config of ``MODEL``'s shape, with
-    random weights drawn from ``seed``, in eval mode on ``device``."""
+    """PromptTTS++ (prompt and reference branches) from a config of
+    ``MODEL``'s shape, with random weights drawn from ``seed``, in eval mode
+    on ``device``."""
     dev = resolve_device(device)
     return _seeded(dev, seed, lambda: _model_from_config(cfg, bert_config))
 

@@ -1,15 +1,30 @@
-"""Synthesis: phoneme ids + style prompt -> waveform, two-phase batched path.
+"""Synthesis: phoneme ids + a style prompt or a reference recording ->
+waveform.
 
-Counterpart of ``promptttspp_tpu/infer.py::Synthesizer.synthesize`` on its
-two-phase path (duration pre-pass, then the full pass): phones padded to a
-phone bucket (quantum 16), prompts to a token bucket (16); the pre-pass
-picks the frame bucket (quantum 128, capped at 2048); ``model.infer`` ->
-F0 zero-phase lowpass (fs 100, 20 Hz) over the whole padded bucket and vuv
-gating -> mel denormalization -> F0-aware BigVGAN (deterministic source)
--> optional PCM16.
+Counterpart of ``promptttspp_tpu/infer.py::Synthesizer``. A request pads
+its phones to a phone bucket (quantum 16), its prompts to a token bucket
+(16) or its reference mels to a frame bucket; then ``model.infer`` at a
+frame bucket (quantum 128, capped at 2048) -> F0 zero-phase lowpass (fs 100,
+20 Hz) over the whole padded bucket and vuv gating -> mel denormalization ->
+F0-aware BigVGAN (deterministic source) -> optional PCM16.
 
-Speculative and asynchronous serving, streaming, chunked/sharded vocoding
-and the reference-audio branch are not ported yet.
+How the frame bucket is chosen:
+
+- two-phase (default): a duration pre-pass and one readback of its frame
+  counts pick the bucket, then the full pass runs;
+- speculative (``speculative=True``): the bucket is predicted on the host
+  from the phone count (``spec_frames_per_phone``, or a per-phone duration
+  table) and the full pass is queued at once. Nothing on the dispatch path
+  reads a device tensor back: the launches queue on the device's current
+  stream and ``synthesize_async`` returns a handle. Its ``result()`` makes
+  the one readback of the audio together with the unclipped duration sums,
+  and re-dispatches at the true bucket when they overflow the prediction.
+
+Vocoding is batched (one call over the utterance batch) or chunked
+(``vocoder_mode="chunked"``: fixed-size chunks with halo context folded into
+the batch axis); ``synthesize_streaming`` yields the waveform chunk by chunk
+(``vocoders/streaming.py``). Sharded vocoding and the frame-sharded decode
+need several GPUs and are not ported; neither is XLA-style prewarm.
 """
 
 from __future__ import annotations
@@ -22,36 +37,115 @@ import torch
 from promptttspp_tpu_torch.data.batching import bucket_shape
 from promptttspp_tpu_torch.ops.filters import lowpass_filter
 from promptttspp_tpu_torch.platform import resolve_device
+from promptttspp_tpu_torch.vocoders.streaming import (
+    vocode_chunked, vocode_streaming)
+
+
+class _PendingRequest:
+    """Handle of a dispatched speculative request (``synthesize_async``):
+    its launches are queued; ``result()`` makes the one readback, checks
+    the bucket prediction and re-dispatches on overflow."""
+
+    def __init__(self, synth, n_items, resolve):
+        self._synth = synth
+        self._n = n_items
+        self._resolve = resolve
+
+    @torch.inference_mode()
+    def result(self) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+        """-> (wavs, mels) exactly like ``synthesize``."""
+        _, host = self._resolve()
+        return self._synth._split(self._n, *host)
 
 
 class Synthesizer:
     def __init__(self, model, vocoder=None,
                  mel_stats: Optional[Dict] = None, tokenizer=None,
-                 phone_quantum: int = 16, frame_quantum: int = 128,
-                 max_frames_cap: int = 2048, upsample: int = 240,
+                 to_mel=None, phone_quantum: int = 16,
+                 frame_quantum: int = 128, max_frames_cap: int = 2048,
+                 vocoder_mode: str = "batched", chunk_frames: int = 256,
+                 halo_frames: int = 16,
+                 first_chunk_frames: Optional[int] = None,
+                 upsample: int = 240, speculative: bool = False,
+                 spec_frames_per_phone: float = 10.0,
+                 spec_duration_table: Optional[np.ndarray] = None,
+                 spec_duration_std: Optional[np.ndarray] = None,
+                 spec_margin: float = 3.0, spec_rate_margin: float = 0.2,
                  return_int16: bool = False, device="cuda"):
         """model / vocoder: the port's modules; they are moved to
         ``device`` and put in eval mode. ``device`` defaults to ``cuda`` and
-        raises if no GPU is present."""
+        raises if no GPU is present. ``to_mel``: a
+        ``ops/mel.py::MelSpectrogramTransform`` for reference wavs.
+
+        vocoder_mode: "batched" or "chunked" (``chunk_frames`` with
+        ``halo_frames`` of context; ``first_chunk_frames`` shrinks the first
+        streamed chunk).
+
+        speculative: predict the frame bucket on the host instead of running
+        the duration pre-pass (see the module docstring); counters
+        ``spec_requests`` and ``spec_mispredicts``. With
+        ``spec_duration_table`` / ``spec_duration_std`` (expected frames and
+        std per phone id) the prediction is sum(mean) * (1 +
+        ``spec_rate_margin``) + ``spec_margin`` * sqrt(sum(std^2)); without,
+        ``spec_frames_per_phone`` times the longest phone count. The
+        diffusion noise is drawn at the bucket shape, so a larger predicted
+        bucket gives another (equally valid) sample than the exact one.
+
+        return_int16: quantize the waveform to PCM16 on the device."""
+        if vocoder_mode not in ("batched", "chunked"):
+            raise ValueError(f"vocoder_mode {vocoder_mode!r}: 'batched' or "
+                             "'chunked' (sharded vocoding is not ported)")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.vocoder = (None if vocoder is None
                         else vocoder.to(self.device).eval())
         self.mel_stats = mel_stats or {"mean": 0.0, "std": 1.0}
         self.tokenizer = tokenizer
+        self.to_mel = to_mel
         self.phone_quantum = phone_quantum
         self.frame_quantum = frame_quantum
         self.max_frames_cap = max_frames_cap
+        self.vocoder_mode = vocoder_mode
+        self.chunk_frames = chunk_frames
+        self.halo_frames = halo_frames
+        self.first_chunk_frames = first_chunk_frames
         self.upsample = upsample
+        self.speculative = speculative
+        self.spec_frames_per_phone = float(spec_frames_per_phone)
+        self.spec_duration_table = self.spec_duration_std = None
+        if spec_duration_table is not None:
+            tbl = np.asarray(spec_duration_table, np.float64).copy()
+            tbl[0] = 0.0  # the pad id contributes no frames
+            std = (np.zeros_like(tbl) if spec_duration_std is None
+                   else np.asarray(spec_duration_std, np.float64).copy())
+            std[0] = 0.0
+            self.spec_duration_table, self.spec_duration_std = tbl, std
+        self.spec_margin = float(spec_margin)
+        self.spec_rate_margin = float(spec_rate_margin)
         self.return_int16 = return_int16
+        self.spec_requests = 0
+        self.spec_mispredicts = 0
 
-    def _pad_phonemes(self, seqs: Sequence[Sequence[int]]):
+    # ------------------------------------------------------------ inputs
+    def _to(self, arr):
+        """Host array -> device tensor. A GPU copy is staged in pinned
+        memory, so it is queued without waiting for the device."""
+        t = torch.as_tensor(arr)
+        if t.device.type == "cpu" and self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _pad_phonemes_host(self, seqs: Sequence[Sequence[int]]):
         Tp = bucket_shape(max(len(s) for s in seqs), self.phone_quantum)
         phoneme = np.zeros((len(seqs), Tp), np.int64)
         lens = np.zeros((len(seqs),), np.int64)
         for i, s in enumerate(seqs):
             phoneme[i, : len(s)] = s
             lens[i] = len(s)
+        return phoneme, lens
+
+    def _pad_phonemes(self, seqs: Sequence[Sequence[int]]):
+        phoneme, lens = self._pad_phonemes_host(seqs)
         return self._to(phoneme), self._to(lens)
 
     def _encode_prompts(self, prompts: Sequence[str]):
@@ -65,11 +159,92 @@ class Synthesizer:
         mask_p[:, : ids.shape[1]] = mask
         return self._to(ids_p), self._to(mask_p)
 
-    def _to(self, arr):
-        return torch.as_tensor(arr).to(self.device, non_blocking=True)
+    def _pad_ref_mels(self, mels):
+        """Raw log-mels [T, n_mels] (host arrays, or tensors on the device)
+        -> normalized with the global stats and zero-padded to a frame
+        bucket, on the device: ([B, Tf, n_mels], lengths [B]). Host mels
+        are padded on the host and copied at once."""
+        lens = [int(m.shape[0]) for m in mels]
+        shape = (len(mels), bucket_shape(max(lens), self.frame_quantum),
+                 int(mels[0].shape[1]))
+        if all(isinstance(m, torch.Tensor) and m.device == self.device
+               for m in mels):
+            raw = torch.zeros(shape, device=self.device)
+            for i, m in enumerate(mels):
+                raw[i, : lens[i]] = m
+        else:
+            host = np.zeros(shape, np.float32)
+            for i, m in enumerate(mels):
+                host[i, : lens[i]] = np.asarray(m, np.float32)
+            raw = self._to(host)
+        lens_t = self._to(np.asarray(lens, np.int64))
+        valid = torch.arange(shape[1], device=self.device)[None, :, None] \
+            < lens_t[:, None, None]
+        mean, std = self.mel_stats["mean"], self.mel_stats["std"]
+        return torch.where(valid, (raw - mean) / std, 0.0), lens_t
+
+    def _wav_mels(self, wavs) -> List[torch.Tensor]:
+        if self.to_mel is None:
+            raise ValueError("a to_mel transform is required for wavs")
+        return [self.to_mel.to_mel(self._to(np.asarray(w, np.float32)))
+                for w in wavs]
+
+    @torch.inference_mode()
+    def wav_to_mel(self, wav: np.ndarray) -> np.ndarray:
+        """24 kHz wav [Ts] -> raw log-mel [T, n_mels]."""
+        return self._wav_mels([wav])[0].cpu().numpy()
+
+    def _request(self, phoneme_seqs, prompts, reference_mels,
+                 reference_wavs, use_max, noise_scale, seed):
+        """-> (host phonemes, host lengths, request dict of device inputs)
+        for exactly one of prompts / reference_mels / reference_wavs."""
+        n_cond = sum(c is not None
+                     for c in (prompts, reference_mels, reference_wavs))
+        if n_cond != 1:
+            raise ValueError("exactly one of prompts / reference_mels / "
+                             "reference_wavs must be given")
+        phoneme, plens = self._pad_phonemes_host(phoneme_seqs)
+        req = dict(phoneme=self._to(phoneme), plens=self._to(plens),
+                   prompt_ids=None, prompt_mask=None, ref_mel=None,
+                   ref_lens=None, use_max=use_max, noise_scale=noise_scale,
+                   seed=seed)
+        if prompts is not None:
+            req["prompt_ids"], req["prompt_mask"] = \
+                self._encode_prompts(prompts)
+        else:
+            if reference_wavs is not None:
+                reference_mels = self._wav_mels(reference_wavs)
+            req["ref_mel"], req["ref_lens"] = \
+                self._pad_ref_mels(reference_mels)
+        return phoneme, plens, req
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
+
+    # ------------------------------------------------------------ passes
+    def _frame_bucket(self, req) -> int:
+        """Two-phase: duration pre-pass, one readback, frame bucket."""
+        frame_lens = self.model.infer_frame_lengths(
+            req["phoneme"], req["plens"], req["prompt_ids"],
+            req["prompt_mask"], req["ref_mel"], req["ref_lens"],
+            use_max=req["use_max"], noise_scale=0.0,
+            style_generator=self._generator(req["seed"]))
+        return min(bucket_shape(int(frame_lens.max()), self.frame_quantum),
+                   self.max_frames_cap)
+
+    def _acoustic(self, req, max_frames: int, x_T=None,
+                  zero_noise: bool = False):
+        """model.infer + F0 post + mel denormalization -> (mel_denorm, f0,
+        frame_lengths, raw_frame_lengths), all on the device."""
+        mel, flens, log_cf0, vuv, raw = self.model.infer(
+            req["phoneme"], req["plens"], max_frames, req["prompt_ids"],
+            req["prompt_mask"], req["ref_mel"], req["ref_lens"],
+            use_max=req["use_max"], noise_scale=req["noise_scale"],
+            style_generator=self._generator(req["seed"]),
+            diffusion_generator=self._generator(req["seed"] + 1), x_T=x_T,
+            zero_noise=zero_noise)
+        f0, mel_denorm = self._postprocess(mel, log_cf0, vuv)
+        return mel_denorm, f0, flens, raw
 
     def _postprocess(self, mel, log_cf0, vuv):
         """F0 smoothing + vuv gating and mel denormalization."""
@@ -79,51 +254,210 @@ class Synthesizer:
         mel_denorm = mel * self.mel_stats["std"] + self.mel_stats["mean"]
         return f0, mel_denorm
 
-    @torch.inference_mode()
-    def synthesize(self, phoneme_seqs: Sequence[Sequence[int]],
-                   prompts: Sequence[str], use_max: bool = True,
-                   noise_scale: float = 0.5, seed: int = 0,
-                   return_mels: bool = True, x_T=None,
-                   zero_noise: bool = False
-                   ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
-        """-> (list of wav arrays, list of mel [T, 80] arrays). ``x_T``
-        [B, frame_bucket, 80] and ``zero_noise`` make the decode
-        deterministic (parity checks)."""
-        phoneme, plens = self._pad_phonemes(phoneme_seqs)
-        prompt_ids, prompt_mask = self._encode_prompts(prompts)
-
-        frame_lens = self.model.infer_frame_lengths(
-            phoneme, plens, prompt_ids, prompt_mask, use_max=use_max,
-            noise_scale=0.0, style_generator=self._generator(seed))
-        max_frames = min(bucket_shape(int(frame_lens.max()),
-                                      self.frame_quantum),
-                         self.max_frames_cap)
-
-        if x_T is not None:
-            x_T = torch.as_tensor(x_T, dtype=torch.float32,
-                                  device=self.device)
-        mel, flens, log_cf0, vuv = self.model.infer(
-            phoneme, plens, max_frames, prompt_ids, prompt_mask,
-            use_max=use_max, noise_scale=noise_scale,
-            style_generator=self._generator(seed),
-            diffusion_generator=self._generator(seed + 1), x_T=x_T,
-            zero_noise=zero_noise)
-        f0, mel_denorm = self._postprocess(mel, log_cf0, vuv)
-
-        wav_np = None
-        if self.vocoder is not None:
+    def _vocode(self, mel_denorm, f0):
+        if self.vocoder_mode == "chunked":
+            wav = vocode_chunked(self.vocoder, mel_denorm, f0,
+                                 chunk_frames=self.chunk_frames,
+                                 halo_frames=self.halo_frames,
+                                 upsample=self.upsample, deterministic=True)
+        else:
             wav = self.vocoder(mel_denorm, f0, deterministic=True)
-            if self.return_int16:
-                wav = torch.clamp(torch.round(wav * 32767.0), -32768.0,
-                                  32767.0).to(torch.int16)
-            wav_np = wav.cpu().numpy()
-        mel_np = mel_denorm.cpu().numpy() if return_mels else None
-        flens_np = flens.cpu().numpy()
+        if self.return_int16:
+            wav = torch.clamp(torch.round(wav * 32767.0), -32768.0,
+                              32767.0).to(torch.int16)
+        return wav
+
+    def _full_pass(self, req, max_frames: int, x_T=None,
+                   zero_noise: bool = False):
+        """text -> wav queued on the device -> (wav, mel_denorm,
+        frame_lengths, raw_frame_lengths)."""
+        mel_denorm, f0, flens, raw = self._acoustic(req, max_frames, x_T,
+                                                    zero_noise)
+        wav = None if self.vocoder is None else self._vocode(mel_denorm, f0)
+        return wav, mel_denorm, flens, raw
+
+    def _readback(self, *tensors):
+        """Device -> host copies of ``tensors`` (None stays None), all
+        queued first, then one wait for the device."""
+        host = [None if t is None else t.to("cpu", non_blocking=True)
+                for t in tensors]
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return [None if h is None else h.numpy() for h in host]
+
+    def _split(self, n_items, wav_np, mel_np, flens_np):
         wavs, mels = [], []
-        for i in range(len(phoneme_seqs)):
+        for i in range(n_items):
             n = int(flens_np[i])
-            if return_mels:
+            if mel_np is not None:
                 mels.append(mel_np[i, :n])
             if wav_np is not None:
                 wavs.append(wav_np[i, : n * self.upsample, 0])
         return wavs, mels
+
+    # ------------------------------------------------------- speculative
+    def _predict_frames(self, phoneme: np.ndarray, plens: np.ndarray) -> int:
+        """Host-side frame-bucket prediction for speculative dispatch.
+
+        With a per-phone duration table: the sum of the request's per-phone
+        means times (1 + ``spec_rate_margin``) plus ``spec_margin``
+        standard deviations of the sum; ids outside the table count
+        ``spec_frames_per_phone``. Without one: ``spec_frames_per_phone``
+        times the longest phone count."""
+        if self.spec_duration_table is not None:
+            n = len(self.spec_duration_table)
+            known = phoneme < n
+            safe = np.where(known, phoneme, 0)
+            mean = np.where(known & (phoneme > 0),
+                            self.spec_duration_table[safe],
+                            np.where(phoneme > 0, self.spec_frames_per_phone,
+                                     0.0)).sum(axis=1)
+            var = np.where(known, self.spec_duration_std[safe] ** 2,
+                           0.0).sum(axis=1)
+            frames = float(np.max(mean * (1.0 + self.spec_rate_margin)
+                                  + self.spec_margin * np.sqrt(var)))
+        else:
+            frames = float(np.max(plens)) * self.spec_frames_per_phone
+        return min(bucket_shape(max(1, int(np.ceil(frames))),
+                                self.frame_quantum), self.max_frames_cap)
+
+    def _speculative(self, phoneme, plens, run):
+        """Speculative dispatch. ``run(bucket)`` queues a pass at a frame
+        bucket and returns (device outputs, device tensors to read back,
+        the unclipped duration sums last). The pass is queued at once at
+        the predicted bucket, with no readback. Returns ``resolve()``,
+        which makes the one readback and, when the duration sums overflow
+        the prediction, runs the pass again at the true bucket (right, just
+        slower for this request) -> (device outputs, host arrays of the
+        other read-back tensors)."""
+        self.spec_requests += 1
+        pred = self._predict_frames(phoneme, plens)
+        out, back = run(pred)
+
+        def resolve():
+            host = self._readback(*back)
+            true_max = int(host[-1].max())
+            if true_max <= pred or pred >= self.max_frames_cap:
+                return out, host[:-1]
+            self.spec_mispredicts += 1
+            again, back_again = run(min(
+                bucket_shape(true_max, self.frame_quantum),
+                self.max_frames_cap))
+            return again, self._readback(*back_again)[:-1]
+
+        return resolve
+
+    def _dispatch_speculative(self, n_items, phoneme, plens, req,
+                              return_mels) -> _PendingRequest:
+        """Queue the full pass at the predicted bucket; no readback."""
+        def run(max_frames):
+            wav, mel, flens, raw = self._full_pass(req, max_frames)
+            return None, (wav, mel if return_mels else None, flens, raw)
+
+        return _PendingRequest(self, n_items,
+                               self._speculative(phoneme, plens, run))
+
+    # --------------------------------------------------------------- API
+    @torch.inference_mode()
+    def synthesize_async(self, phoneme_seqs: Sequence[Sequence[int]],
+                         prompts: Optional[Sequence[str]] = None,
+                         reference_mels=None, reference_wavs=None,
+                         use_max: bool = True, noise_scale: float = 0.5,
+                         seed: int = 0,
+                         return_mels: bool = False) -> _PendingRequest:
+        """Queue a speculative request without waiting for the device; the
+        handle's ``result()`` makes the one readback and returns (wavs,
+        mels) like ``synthesize``. Submitting request N+1 before resolving
+        request N keeps the device busy while N's audio comes back.
+
+        Requires ``speculative=True``, a vocoder and
+        ``vocoder_mode="batched"``."""
+        if not (self.speculative and self.vocoder is not None
+                and self.vocoder_mode == "batched"):
+            raise ValueError("synthesize_async requires speculative=True, "
+                             "a vocoder and vocoder_mode='batched'")
+        phoneme, plens, req = self._request(
+            phoneme_seqs, prompts, reference_mels, reference_wavs, use_max,
+            noise_scale, seed)
+        return self._dispatch_speculative(len(phoneme_seqs), phoneme, plens,
+                                          req, return_mels)
+
+    @torch.inference_mode()
+    def synthesize(self, phoneme_seqs: Sequence[Sequence[int]],
+                   prompts: Optional[Sequence[str]] = None,
+                   reference_mels=None, reference_wavs=None,
+                   use_max: bool = True, noise_scale: float = 0.5,
+                   seed: int = 0, return_mels: bool = True, x_T=None,
+                   zero_noise: bool = False
+                   ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+        """Synthesize with exactly one of style-prompt strings, raw log-mel
+        references [T, n_mels] or 24 kHz reference wavs -> (list of wav
+        arrays, list of mel [T, n_mels] arrays; [] when ``return_mels`` is
+        False). ``x_T`` [B, frame_bucket, n_mels] and ``zero_noise`` make
+        the decode deterministic (parity checks); ``x_T`` must match the
+        exact frame bucket, so both take the two-phase path."""
+        phoneme, plens, req = self._request(
+            phoneme_seqs, prompts, reference_mels, reference_wavs, use_max,
+            noise_scale, seed)
+        n = len(phoneme_seqs)
+        if (self.speculative and self.vocoder is not None
+                and self.vocoder_mode == "batched" and x_T is None
+                and not zero_noise):
+            return self._dispatch_speculative(n, phoneme, plens, req,
+                                              return_mels).result()
+        max_frames = self._frame_bucket(req)
+        if x_T is not None:
+            x_T = torch.as_tensor(x_T, dtype=torch.float32,
+                                  device=self.device)
+        wav, mel, flens, _ = self._full_pass(req, max_frames, x_T,
+                                             zero_noise)
+        host = self._readback(wav, mel if return_mels else None, flens)
+        return self._split(n, *host)
+
+    def synthesize_streaming(self, phoneme_seqs: Sequence[Sequence[int]],
+                             prompts: Optional[Sequence[str]] = None,
+                             reference_mels=None, reference_wavs=None,
+                             use_max: bool = True, noise_scale: float = 0.5,
+                             seed: int = 0):
+        """Generator of waveform chunks [B, width * upsample] (numpy) as
+        they are computed: one acoustic pass (text -> denormalized mel and
+        gated F0, the diffusion decode included), then the vocoder chunk by
+        chunk with halo context and a phase-continuous NSF source, so the
+        stitched stream equals the batched waveform in the interior. With
+        ``speculative=True`` the acoustic pass skips the duration pre-pass
+        as ``synthesize`` does.
+
+        The generator's return value (``StopIteration.value``) is the
+        per-item frame lengths: item i's stream is
+        ``flens[i] * upsample`` samples long."""
+        if self.vocoder is None:
+            raise ValueError("streaming requires a vocoder")
+        with torch.inference_mode():
+            phoneme, plens, req = self._request(
+                phoneme_seqs, prompts, reference_mels, reference_wavs,
+                use_max, noise_scale, seed)
+            if self.speculative:
+                def run(max_frames):
+                    mel_denorm, f0, flens, raw = self._acoustic(req,
+                                                                max_frames)
+                    return (mel_denorm, f0), (flens, raw)
+
+                (mel_denorm, f0), (flens_np,) = self._speculative(
+                    phoneme, plens, run)()
+            else:
+                mel_denorm, f0, flens, _ = self._acoustic(
+                    req, self._frame_bucket(req))
+                flens_np, = self._readback(flens)
+            chunks = vocode_streaming(
+                self.vocoder, mel_denorm, f0,
+                chunk_frames=self.chunk_frames, halo_frames=self.halo_frames,
+                upsample=self.upsample,
+                first_chunk_frames=self.first_chunk_frames,
+                deterministic=True)
+        while True:
+            with torch.inference_mode():
+                wav = next(chunks, None)
+                if wav is None:
+                    return flens_np
+                wav = wav[:, :, 0].cpu().numpy()
+            yield wav

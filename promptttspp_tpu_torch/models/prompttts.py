@@ -1,12 +1,15 @@
-"""PromptTTS++ top model, inference on the prompt branch.
+"""PromptTTS++ top model, inference.
 
 Counterpart of ``promptttspp_tpu/models/prompttts.py::PromptTTSMDNDurCFG``
 (``infer``, ``infer_cond``, ``infer_frame_lengths``,
-``_style_from_prompt_dist``): phoneme embedding -> conformer; BERT prompt
-encoder -> L2 normalize -> style MDN -> style vector (most probable or
-sampled component, plus ``noise_scale`` x sigma x eps) -> L2 normalize;
-phone features + style -> variance adaptor -> diffusion decoder. The
-reference-audio branch (``StyleEncoder``) is not ported yet.
+``_style_from_prompt_dist``): phoneme embedding -> conformer; a style vector
+from exactly one of two branches -> variance adaptor -> diffusion decoder.
+
+- Prompt branch: BERT prompt encoder -> L2 normalize -> style MDN -> style
+  vector (most probable or sampled component, plus ``noise_scale`` x sigma
+  x eps) -> L2 normalize.
+- Reference branch: reference mel [B, Tf, 80] + lengths -> GST style
+  encoder (``models/style_encoder.py``) -> L2 normalize.
 """
 
 from __future__ import annotations
@@ -31,12 +34,14 @@ class PromptTTSMDNDurCFG(nn.Module):
     ``norm_style_emb: true``, MDN heads in float32."""
 
     def __init__(self, phoneme_emb: nn.Module, encoder: nn.Module,
-                 variance_adaptor: nn.Module, prompt_encoder: nn.Module,
-                 decoder: nn.Module, style_mdn: nn.Module):
+                 variance_adaptor: nn.Module, reference_encoder: nn.Module,
+                 prompt_encoder: nn.Module, decoder: nn.Module,
+                 style_mdn: nn.Module):
         super().__init__()
         self.phoneme_emb = phoneme_emb
         self.encoder = encoder
         self.variance_adaptor = variance_adaptor
+        self.reference_encoder = reference_encoder
         self.prompt_encoder = prompt_encoder
         self.decoder = decoder
         self.style_mdn = style_mdn
@@ -63,44 +68,60 @@ class PromptTTSMDNDurCFG(nn.Module):
             style = mu_sel + sigma * eps * noise_scale
         return l2_normalize(style)
 
-    def _prompt_style(self, prompt_ids, prompt_mask, use_max, noise_scale,
-                      generator):
+    def _style(self, prompt_ids, prompt_mask, reference_mel, ref_lengths,
+               use_max, noise_scale, generator):
+        """-> [B, 1, C] style vector from exactly one of the prompt (ids +
+        mask) and the reference mel (+ lengths)."""
+        if (prompt_ids is None) == (reference_mel is None):
+            raise ValueError("exactly one of prompt_ids / reference_mel "
+                             "must be given")
+        if reference_mel is not None:
+            return l2_normalize(self.reference_encoder(reference_mel,
+                                                       ref_lengths))
         style = l2_normalize(self.prompt_encoder(prompt_ids, prompt_mask))
         log_pi, log_sigma, mu = self.style_mdn(style.float())
         return self._style_from_prompt_dist(log_pi, log_sigma, mu, use_max,
                                             noise_scale, generator)
 
     def infer_cond(self, phoneme, phone_lengths, max_frames: int,
-                   prompt_ids, prompt_mask, use_max: bool = True,
+                   prompt_ids=None, prompt_mask=None, reference_mel=None,
+                   ref_lengths=None, use_max: bool = True,
                    noise_scale: float = 1.0, style_generator=None):
         """Everything before the diffusion decoder -> (cond [B,Tf,C],
         frame_lengths, frame_mask, log_cf0, vuv, raw_frame_lengths)."""
         x, phone_mask = self._encode_phones(phoneme, phone_lengths)
-        x = x + self._prompt_style(prompt_ids, prompt_mask, use_max,
-                                   noise_scale, style_generator)
+        x = x + self._style(prompt_ids, prompt_mask, reference_mel,
+                            ref_lengths, use_max, noise_scale,
+                            style_generator)
         return self.variance_adaptor.infer(x, phone_mask, max_frames)
 
-    def infer(self, phoneme, phone_lengths, max_frames: int, prompt_ids,
-              prompt_mask, use_max: bool = True, noise_scale: float = 1.0,
+    def infer(self, phoneme, phone_lengths, max_frames: int, prompt_ids=None,
+              prompt_mask=None, reference_mel=None, ref_lengths=None,
+              use_max: bool = True, noise_scale: float = 1.0,
               style_generator=None, diffusion_generator=None, x_T=None,
               zero_noise: bool = False):
         """-> (mel [B,max_frames,80], frame_lengths [B], log_cf0
-        [B,max_frames,1], vuv [B,max_frames,1])."""
-        x, frame_lengths, frame_mask, log_cf0, vuv, _ = self.infer_cond(
+        [B,max_frames,1], vuv [B,max_frames,1], raw_frame_lengths [B]).
+        The raw lengths are the unclipped duration sums: speculative serving
+        reads them to detect a frame-bucket overflow (infer.py)."""
+        x, frame_lengths, frame_mask, log_cf0, vuv, raw = self.infer_cond(
             phoneme, phone_lengths, max_frames, prompt_ids, prompt_mask,
-            use_max, noise_scale, style_generator)
+            reference_mel, ref_lengths, use_max, noise_scale,
+            style_generator)
         mel = self.decoder.inference(x, x_T=x_T, zero_noise=zero_noise,
                                      generator=diffusion_generator)
         mel = mel * frame_mask[:, :, None].to(mel.dtype)
-        return mel, frame_lengths, log_cf0, vuv
+        return mel, frame_lengths, log_cf0, vuv, raw
 
-    def infer_frame_lengths(self, phoneme, phone_lengths, prompt_ids,
-                            prompt_mask, use_max: bool = True,
+    def infer_frame_lengths(self, phoneme, phone_lengths, prompt_ids=None,
+                            prompt_mask=None, reference_mel=None,
+                            ref_lengths=None, use_max: bool = True,
                             noise_scale: float = 0.0, style_generator=None):
         """Duration-only pre-pass -> total frames per item [B]."""
         x, phone_mask = self._encode_phones(phoneme, phone_lengths)
-        x = x + self._prompt_style(prompt_ids, prompt_mask, use_max,
-                                   noise_scale, style_generator)
+        x = x + self._style(prompt_ids, prompt_mask, reference_mel,
+                            ref_lengths, use_max, noise_scale,
+                            style_generator)
         pmask = phone_mask[:, :, None].to(x.dtype)
         log_duration = self.variance_adaptor.duration_predictor \
             .infer_log_duration(x, pmask)

@@ -1,7 +1,9 @@
-"""Relative-position multi-head attention ('new' 2T-1 variant), eval mode.
+"""Relative-position multi-head attention ('new' 2T-1 variant) and the GST
+token cross-attention, eval mode.
 
 Counterpart of ``promptttspp_tpu/nn/attention.py``
-(``RelPositionMultiHeadedAttention``): Transformer-XL scores
+(``RelPositionMultiHeadedAttention``, ``GSTCrossAttention``). The
+relative-position attention takes Transformer-XL scores
 ``(q + u) k^T + rel_shift((q + v) p^T)`` over sqrt(d_k), masked with the
 dtype's minimum and re-zeroed so fully padded rows give zeros, not NaNs. Masks are boolean [B, Tq, Tk] (True = attend).
 """
@@ -62,3 +64,32 @@ class RelPositionMultiHeadedAttention(nn.Module):
         x = masked_softmax(scores, mask) @ v
         x = x.transpose(1, 2).reshape(x.shape[0], -1, self.h * self.d_k)
         return self.linear_out(x)
+
+
+class GSTCrossAttention(nn.Module):
+    """GST token cross-attention (counterpart of
+    ``promptttspp_tpu/nn/attention.py::GSTCrossAttention``): distinct query
+    and key/value input widths, and the reference's scale 1/sqrt(d_k * h)
+    (not 1/sqrt(d_k))."""
+
+    def __init__(self, n_head: int, q_dim: int, kv_dim: int, n_feat: int):
+        super().__init__()
+        self.h, self.d_k = n_head, n_feat // n_head
+        self.linear_q = nn.Linear(q_dim, n_feat)
+        self.linear_k = nn.Linear(kv_dim, n_feat)
+        self.linear_v = nn.Linear(kv_dim, n_feat)
+        self.linear_out = nn.Linear(n_feat, n_feat)
+
+    def _split(self, x):
+        return x.reshape(x.shape[0], -1, self.h, self.d_k).transpose(1, 2)
+
+    def forward(self, ref_emb, gst_emb):
+        """ref_emb [B, 1, q_dim]; gst_emb [B, n_tokens, kv_dim]
+        -> [B, 1, n_feat]."""
+        q = self._split(self.linear_q(ref_emb))
+        k = self._split(self.linear_k(gst_emb))
+        v = self._split(self.linear_v(gst_emb))
+        score = torch.softmax(q @ k.transpose(-1, -2)
+                              / math.sqrt(self.d_k * self.h), dim=-1)
+        o = (score @ v).transpose(1, 2).reshape(ref_emb.shape[0], 1, -1)
+        return self.linear_out(o)

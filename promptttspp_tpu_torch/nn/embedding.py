@@ -2,8 +2,9 @@
 
 Counterpart of ``promptttspp_tpu/nn/embedding.py``: the absolute encoding
 the frame prior uses and the 'new' relative encoding of the conformer.
-Tables are numpy float32 constants, as in the JAX package, copied to the
-input's device.
+Tables are numpy float32 constants, as in the JAX package, copied to each
+device once per length: a copy from host memory waits for the device's
+queue, so a request must not make one on every call.
 """
 
 from __future__ import annotations
@@ -46,6 +47,14 @@ def rel_sinusoid_table(length: int, d_model: int) -> np.ndarray:
     return np.concatenate([pos[::-1], neg[1:]], axis=0)
 
 
+@functools.lru_cache(maxsize=32)
+def _device_table(table, length: int, d_model: int, device: torch.device):
+    # a plain (not inference-mode) tensor, so a later autograd use may
+    # read it
+    with torch.inference_mode(False):
+        return torch.as_tensor(table(length, d_model), device=device)
+
+
 class PositionalEncoding(nn.Module):
     """x * sqrt(d) + PE."""
 
@@ -54,8 +63,8 @@ class PositionalEncoding(nn.Module):
         self.d_model = d_model
 
     def forward(self, x):
-        pe = torch.as_tensor(sinusoid_table(x.shape[1], self.d_model),
-                             device=x.device)
+        pe = _device_table(sinusoid_table, x.shape[1], self.d_model,
+                           x.device)
         return x * math.sqrt(self.d_model) + pe[None]
 
 
@@ -67,6 +76,6 @@ class RelPositionalEncoding(nn.Module):
         self.d_model = d_model
 
     def forward(self, x):
-        pos_emb = torch.as_tensor(
-            rel_sinusoid_table(x.shape[1], self.d_model), device=x.device)
+        pos_emb = _device_table(rel_sinusoid_table, x.shape[1],
+                                self.d_model, x.device)
         return x * math.sqrt(self.d_model), pos_emb[None]

@@ -8,8 +8,10 @@ come from scipy as float32, with ``nyquist = fs // 2``.
 The IIR runs without a loop over samples: with zero initial state the
 filter is linear and time-invariant, so ``y = H x`` with the
 lower-triangular Toeplitz matrix of its impulse response. The response is
-computed on the host in float64 from the float32 coefficients; the product
-runs on the input's device.
+computed on the host in float64 from the float32 coefficients, and the
+matrix is built on the input's device once per (filter, length): a copy
+from host memory waits for the device's queue, so a request must not make
+one on every call. The product runs on the input's device.
 """
 
 from __future__ import annotations
@@ -36,15 +38,26 @@ def impulse_response(b, a, length: int) -> np.ndarray:
                                  np.asarray(a, np.float64), impulse)
 
 
+@functools.lru_cache(maxsize=16)
+def _toeplitz_t(b_bytes: bytes, a_bytes: bytes, T: int, dtype, device):
+    """Transposed [T, T] Toeplitz matrix of the impulse response."""
+    b = np.frombuffer(b_bytes, np.float32)
+    a = np.frombuffer(a_bytes, np.float32)
+    with torch.inference_mode(False):
+        h = torch.as_tensor(impulse_response(b, a, T), dtype=dtype,
+                            device=device)
+        idx = torch.arange(T, device=device)
+        lag = idx[:, None] - idx[None, :]
+        H = torch.where(lag >= 0, h[lag.clamp(min=0)],
+                        torch.zeros_like(h[0]))
+        return H.T.contiguous()
+
+
 def lfilter(x: torch.Tensor, b, a) -> torch.Tensor:
     """Zero-state IIR filter along the last axis of x [..., T]."""
-    T = x.shape[-1]
-    h = torch.as_tensor(impulse_response(b, a, T), dtype=x.dtype,
-                        device=x.device)
-    idx = torch.arange(T, device=x.device)
-    lag = idx[:, None] - idx[None, :]
-    H = torch.where(lag >= 0, h[lag.clamp(min=0)], torch.zeros_like(h[0]))
-    return x @ H.T
+    return x @ _toeplitz_t(np.asarray(b, np.float32).tobytes(),
+                           np.asarray(a, np.float32).tobytes(), x.shape[-1],
+                           x.dtype, x.device)
 
 
 def filtfilt(x: torch.Tensor, b, a) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Kernel K2: one BigVGAN AMPLayer, ``y = x + conv2(AA2(conv1(AA1(x))))``.
+"""Kernels K2 and K3: one BigVGAN AMPLayer, and a whole AMPBlock.
 
-Replaces ``promptttspp_tpu/ops/pallas/amp.py::fused_amp_layer`` (one-layer
+K2, ``amp_layer``: ``y = x + conv2(AA2(conv1(AA1(x))))``. Replaces
+``promptttspp_tpu/ops/pallas/amp.py::fused_amp_layer`` (one-layer
 ``fused_amp_block``, Pallas body ``_kernel``). AA is the anti-aliased Snake
 of kernel K1; conv1 is a k-tap SAME conv with dilation d, conv2 a k-tap
 SAME conv; both C x C with bias.
@@ -19,16 +20,30 @@ input to [0, T) (edge replication, which for the second launch is exactly
 "conv1's output replicated before AA2"), and the conv reads zeros outside
 [0, T).
 
-What bounds it: the channel mix, 4*k*C^2 flops per time step and layer
-(~2.6e11 flops per 640-frame request over the 36 layers) against ~1 GB of
-x/y traffic, so on an H100 in float32 it is bound by operations. This first
-version computes in float32 on the CUDA cores (no tensor cores) for both
-``conv_precision`` settings, which meets the tolerances of both; bf16
-``wgmma`` is later work.
+K3, ``amp_block``: the chained form of ``fused_amp_block`` (n_layers > 1),
+a whole AMPBlock in one launch of ``csrc/amp_block.cu``. It equals the chain
+of AMPLayers (``amp_block_plain``). A block keeps its time tile plus the
+summed halo of the chain, the running layer output and conv1's output in
+shared memory (or an L2-resident global scratch where they do not fit),
+narrows the valid region stage by stage and writes only its tile. Like the
+JAX package, the vocoder does not call it: ``vocoders/bigvgan.py::AMPBlock``
+runs one K2 call per layer.
 
-``amp_layer`` launches the kernel for a CUDA tensor and runs the plain
-PyTorch version only for a tensor on the CPU. Its launch count goes up by
-one per kernel launch, two per layer.
+What bounds both: the channel mix, 4*k*C^2 flops per time step and layer
+(~2.6e11 flops per 640-frame request over the 36 layers) against ~1 GB of
+x/y traffic, so on an H100 in float32 they are bound by operations. Both
+compute in float32 on the CUDA cores (no tensor cores) for both
+``conv_precision`` settings, which meets the tolerances of both; bf16
+``wgmma`` is later work. Both take the conv weights in the kernel layout
+[k, C_in, C_out], prepared once per weight tensor (``kernel_weight``; change
+weights under ``torch.no_grad()``, not through ``w.data``); K2's blocks
+first prefetch them into L2, where a layout prepared long before may no
+longer be.
+
+``amp_layer`` and ``amp_block`` launch their kernels for a CUDA tensor and
+run the plain PyTorch versions only for a tensor on the CPU. Their launch
+counts go up by one per kernel launch: two per layer for K2, one per block
+for K3.
 """
 
 from __future__ import annotations
@@ -42,6 +57,12 @@ from promptttspp_tpu_torch.nn.layers import conv1d_same
 from promptttspp_tpu_torch.ops.kernels import _build
 from promptttspp_tpu_torch.ops.kernels.snake import antialias_snake_plain
 
+# the shapes K3 takes: every AMPBlock of the flagship vocoder and of
+# tests/test_pallas_amp.py's block cases
+AMP_BLOCK_CHANNELS = (32, 64, 128, 256)
+AMP_BLOCK_KERNEL_SIZES = (3, 7, 11)
+AMP_BLOCK_DILATIONS = ((1, 3, 5), (1, 3))
+
 
 def amp_layer_plain(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int):
     """Plain PyTorch version. w* are torch conv weights [C, C, k]."""
@@ -50,30 +71,69 @@ def amp_layer_plain(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int):
     return x + h
 
 
+def amp_block_plain(x, layer_params, dilations):
+    """Plain PyTorch version: the chain of ``amp_layer_plain`` calls."""
+    for params, d in zip(layer_params, dilations):
+        x = amp_layer_plain(x, *params, d)
+    return x
+
+
+def kernel_weight(w: torch.Tensor) -> torch.Tensor:
+    """Torch conv weight [C_out, C_in, k] -> the kernels' [k, C_in, C_out]
+    (one tap's weights for a run of output channels are contiguous).
+    Computed once per weight tensor and kept on it. It is computed again
+    after every change that ``w``'s version counter or storage shows: an
+    in-place op on ``w`` (under ``torch.no_grad()`` too, as
+    ``load_state_dict`` makes), a new ``w.data``, a move. An in-place write
+    into ``w.data`` (``w.data.copy_(...)``) bypasses the version counter
+    and is not seen: change weights under ``torch.no_grad()`` instead."""
+    key = (None if w.is_inference() else w._version, w.data_ptr(), w.device)
+    cached = getattr(w, "_kernel_layout", None)
+    if cached is not None and cached[0] == key and key[0] is not None:
+        return cached[1]
+    w_k = w.detach().permute(2, 1, 0).contiguous()
+    w._kernel_layout = (key, w_k)
+    return w_k
+
+
 @functools.lru_cache(maxsize=None)
-def _lib():
+def _layer_lib():
     lib = _build.load("amp_layer")
-    fn = lib.amp_aa_conv
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+    lib.amp_aa_conv.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.amp_aa_conv.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _block_lib():
+    lib = _build.load("amp_block")
+    lib.amp_block_scratch_floats.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.amp_block_scratch_floats.restype = ctypes.c_longlong
+    lib.amp_block.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)] \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.amp_block.restype = ctypes.c_int
+    return lib
+
+
+def _check_layer(C, k, alpha1, w1, b1, alpha2, w2, b2, device):
+    for name, t, shape in (("alpha1", alpha1, (C,)), ("w1", w1, (C, C, k)),
+                           ("b1", b1, (C,)), ("alpha2", alpha2, (C,)),
+                           ("w2", w2, (C, C, k)), ("b2", b2, (C,))):
+        _build.check(t, name, shape, device)
 
 
 def _aa_conv(x, alpha, w, b, residual, dilation):
     B, T, C = x.shape
-    k = w.shape[-1]
-    _build.check(alpha, "alpha", (C,), x.device)
-    _build.check(w, "w", (C, C, k), x.device)
-    _build.check(b, "b", (C,), x.device)
-    # kernel layout [k, C_in, C_out]: one tap's weights for a run of output
-    # channels are contiguous
-    w_k = w.permute(2, 1, 0).contiguous()
+    w_k = kernel_weight(w)
     y = torch.empty_like(x)
-    _build.launch(_lib().amp_aa_conv, x.device, x.data_ptr(),
+    _build.launch(_layer_lib().amp_aa_conv, x.device, x.data_ptr(),
                   alpha.data_ptr(), w_k.data_ptr(), b.data_ptr(),
                   0 if residual is None else residual.data_ptr(),
-                  y.data_ptr(), B, T, C, k, dilation)
+                  y.data_ptr(), B, T, C, w.shape[-1], dilation)
     amp_layer.launches += 1
     return y
 
@@ -85,11 +145,59 @@ def amp_layer(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int):
         return amp_layer_plain(x, alpha1, w1, b1, alpha2, w2, b2, dilation)
     B, T, C = x.shape
     _build.check(x, "x", (B, T, C), x.device)
-    if C % 4 or w1.shape[-1] % 2 == 0:
+    k = w1.shape[-1]
+    if C % 4 or k % 2 == 0:
         raise ValueError(f"amp_layer kernel needs C % 4 == 0 and odd k, "
-                         f"got C={C}, k={w1.shape[-1]}")
+                         f"got C={C}, k={k}")
+    _check_layer(C, k, alpha1, w1, b1, alpha2, w2, b2, x.device)
     h = _aa_conv(x, alpha1, w1, b1, None, dilation)
     return _aa_conv(h, alpha2, w2, b2, x, 1)
 
 
+def amp_block(x, layer_params, dilations):
+    """x [B, T, C] float32; ``layer_params`` one tuple (alpha1, w1, b1,
+    alpha2, w2, b2) per layer as for ``amp_layer``, all of one kernel size
+    k; ``dilations`` the layers' conv1 dilations -> [B, T, C]. On CUDA, C
+    must be one of ``AMP_BLOCK_CHANNELS``, k one of
+    ``AMP_BLOCK_KERNEL_SIZES`` and the dilations one of
+    ``AMP_BLOCK_DILATIONS``."""
+    dilations = tuple(int(d) for d in dilations)
+    if len(layer_params) != len(dilations):
+        raise ValueError(f"{len(layer_params)} layers but "
+                         f"{len(dilations)} dilations")
+    if x.device.type == "cpu":
+        return amp_block_plain(x, layer_params, dilations)
+    B, T, C = x.shape
+    _build.check(x, "x", (B, T, C), x.device)
+    k = layer_params[0][1].shape[-1]
+    if (C not in AMP_BLOCK_CHANNELS or k not in AMP_BLOCK_KERNEL_SIZES
+            or dilations not in AMP_BLOCK_DILATIONS):
+        raise ValueError(
+            f"amp_block kernel takes C in {AMP_BLOCK_CHANNELS}, k in "
+            f"{AMP_BLOCK_KERNEL_SIZES} and dilations in "
+            f"{AMP_BLOCK_DILATIONS}; got C={C}, k={k}, dilations={dilations}")
+    ptrs = []
+    for a1, w1, b1, a2, w2, b2 in layer_params:
+        _check_layer(C, k, a1, w1, b1, a2, w2, b2, x.device)
+        ptrs += [t.data_ptr() for t in (a1, kernel_weight(w1), b1, a2,
+                                        kernel_weight(w2), b2)]
+    lib = _block_lib()
+    n = len(dilations)
+    dils = (ctypes.c_int * n)(*dilations)
+    with torch.cuda.device(x.device):
+        floats = lib.amp_block_scratch_floats(B, T, C, k, dils, n)
+    if floats < 0:
+        raise RuntimeError(f"amp_block_scratch_floats failed: CUDA error "
+                           f"{-floats}")
+    scratch = torch.empty(max(floats, 1), dtype=torch.float32,
+                          device=x.device)
+    y = torch.empty_like(x)
+    _build.launch(lib.amp_block, x.device, x.data_ptr(), y.data_ptr(),
+                  scratch.data_ptr(), floats,
+                  (ctypes.c_void_p * len(ptrs))(*ptrs), dils, n, B, T, C, k)
+    amp_block.launches += 1
+    return y
+
+
 amp_layer.launches = 0
+amp_block.launches = 0

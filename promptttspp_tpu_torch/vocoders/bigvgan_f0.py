@@ -31,6 +31,7 @@ class F0AwareBigVGAN(BigVGAN):
                          upsample_rates, upsample_kernel_sizes,
                          resblock_kernel_sizes, resblock_dilations,
                          conv_precision)
+        self.sampling_rate = sampling_rate
         self.m_source = SourceModuleHnNSF(sampling_rate, harmonic_num)
         self.noise_convs = torch.nn.ModuleList()
         n = len(upsample_rates)
@@ -43,12 +44,15 @@ class F0AwareBigVGAN(BigVGAN):
             else:
                 self.noise_convs.append(Conv1d(1, ch, 1, padding=0))
 
-    def forward(self, mel, f0, generator=None, deterministic: bool = False):
+    def forward(self, mel, f0, generator=None, deterministic: bool = False,
+                phase0=None):
         """mel [B, T, in_channel]; f0 [B, T, 1] (Hz, 0 = unvoiced)
-        -> wav [B, 240*T, 1]."""
+        -> wav [B, 240*T, 1]. phase0 [B, 1]: initial source phase in
+        revolutions (chunk-continuous synthesis, vocoders/streaming.py)."""
         total_up = int(np.prod(self.upsample_rates))
         f0_up = torch.repeat_interleave(f0, total_up, dim=1)
-        har_source, _, _ = self.m_source(f0_up, generator, deterministic)
+        har_source, _, _ = self.m_source(f0_up, generator, deterministic,
+                                         phase0)
         x = self.conv_pre(mel)
         for up, noise_conv, mrf in zip(self.upsamples, self.noise_convs,
                                        self.mrfs):

@@ -46,8 +46,14 @@ class SineGen(nn.Module):
         self.noise_std = noise_std
         self.voiced_threshold = voiced_threshold
 
-    def forward(self, f0, generator=None, deterministic: bool = False):
-        """f0 [B, T, 1] -> (sine_waves [B, T, D], uv [B, T, 1], noise)."""
+    def forward(self, f0, generator=None, deterministic: bool = False,
+                phase0=None):
+        """f0 [B, T, 1] -> (sine_waves [B, T, D], uv [B, T, 1], noise).
+
+        phase0 [B, 1] (fundamental phase at t=0, in revolutions) offsets
+        harmonic k by k * phase0 mod 1: chunked and streaming synthesis pass
+        the phase accumulated before each chunk, so the source is continuous
+        across chunks (vocoders/streaming.py)."""
         B, T, _ = f0.shape
         D = self.harmonic_num + 1
         harmonics = torch.arange(1, D + 1, dtype=f0.dtype, device=f0.device)
@@ -60,6 +66,8 @@ class SineGen(nn.Module):
             rand_ini[:, 0] = 0.0
             noise_unit = torch.randn(B, T, D, generator=generator,
                                      dtype=f0.dtype, device=f0.device)
+        if phase0 is not None:
+            rand_ini = rand_ini + (phase0 * harmonics) % 1.0
         rad = (f0[:, :, 0] / self.samp_rate) % 1.0
         phi = frac_cumsum(rad)
         phases = phi[:, :, None] * harmonics + rand_ini[:, None, :]
@@ -82,9 +90,11 @@ class SourceModuleHnNSF(nn.Module):
                                  add_noise_std, voiced_threshod)
         self.l_linear = nn.Linear(harmonic_num + 1, 1)
 
-    def forward(self, f0, generator=None, deterministic: bool = False):
+    def forward(self, f0, generator=None, deterministic: bool = False,
+                phase0=None):
         """f0 [B, T, 1] -> (sine_merge [B,T,1], noise [B,T,1], uv [B,T,1])."""
-        sine_wavs, uv, _ = self.l_sin_gen(f0, generator, deterministic)
+        sine_wavs, uv, _ = self.l_sin_gen(f0, generator, deterministic,
+                                          phase0)
         sine_merge = torch.tanh(self.l_linear(sine_wavs))
         if deterministic:
             noise = torch.zeros_like(uv)

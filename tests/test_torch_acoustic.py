@@ -87,10 +87,15 @@ def _t(a):
 
 def test_state_dict_names_cover_the_port(twins):
     _, variables, port = twins
-    from promptttspp_tpu_torch.compat.from_jax import jax_params_to_state_dict
+    from promptttspp_tpu_torch.compat.from_jax import (
+        NOT_PORTED, jax_params_to_state_dict)
 
-    assert "reference_encoder" in variables["params"]  # not ported yet
-    assert set(jax_params_to_state_dict(variables)) == set(port.state_dict())
+    assert NOT_PORTED == ()
+    assert "reference_encoder" in variables["params"]
+    sd = jax_params_to_state_dict(variables)
+    assert any(k.startswith("reference_encoder.ref_enc.convs.1.running")
+               for k in sd)
+    assert set(sd) == set(port.state_dict())
 
 
 def test_conformer_matches_jax(twins):
@@ -168,12 +173,14 @@ def test_infer_and_frame_lengths_match_jax(twins):
         variables, jnp.asarray(phoneme), jnp.asarray(plens), max_frames,
         prompt_ids=jnp.asarray(ids), prompt_mask=jnp.asarray(mask),
         use_max=True, noise_scale=0.0, x_T=jnp.asarray(x_T), zero_noise=True,
-        return_f0=True, method=type(model).infer)
+        return_f0=True, return_raw_lengths=True, method=type(model).infer)
     with torch.no_grad():
         out = port.infer(_t(phoneme), _t(plens), max_frames, _t(ids),
                          _t(mask), use_max=True, noise_scale=0.0,
                          x_T=torch.from_numpy(x_T), zero_noise=True)
-    for name, o, r in zip(("mel", "flens", "log_cf0", "vuv"), out, ref):
+    assert len(out) == len(ref) == 5
+    for name, o, r in zip(("mel", "flens", "log_cf0", "vuv", "raw"), out,
+                          ref):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), err_msg=name,
                                    atol=2e-4, rtol=1e-4)
 
@@ -190,8 +197,7 @@ def test_weight_converter_round_trip(twins):
     for f, t in bert_rename_map(TINY_BERT.num_hidden_layers).items():
         rename[f"prompt_encoder.bert.{f}"] = f"prompt_encoder.bert.model.{t}"
     for coll in ("params", "batch_stats"):
-        tree = {k: v for k, v in variables[coll].items()
-                if k != "reference_encoder"}
+        tree = variables[coll]
         back = jax.device_get(convert_tree(tree, sd, coll, rename=rename))
         flat = jax.tree_util.tree_leaves_with_path(tree)
         back_flat = dict(jax.tree_util.tree_leaves_with_path(back))

@@ -1,9 +1,11 @@
 """Port of the AMPLayer (kernel K2's plain version and the AMPLayer module)
-against the JAX package's fused Pallas AMPLayer in interpret mode and its
-unfused XLA composition, on the CPU.
+and of the chained AMPBlock (kernel K3's plain version) against the JAX
+package's fused Pallas kernels in interpret mode and its unfused XLA
+composition, on the CPU.
 
-The CUDA kernel is held to its plain version on a GPU in
-``tests/test_torch_cuda.py``."""
+The CUDA kernels are held to their plain versions on a GPU in
+``tests/test_torch_cuda.py``; ``kernel_weight``'s refresh rules are checked
+here, on CPU tensors."""
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +51,65 @@ def test_plain_matches_fused_pallas(T, C, k, dil, tile):
     out = k2.amp_layer(t["x"], t["a1"], _torch_w(p["w1"]), t["b1"], t["a2"],
                        _torch_w(p["w2"]), t["b2"], dil)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("T,C,k,dils,tile", [
+    # tests/test_pallas_amp.py:74-79
+    (400, 32, 3, (1, 3, 5), 128),
+    (200, 64, 7, (1, 3, 5), 64),
+    (300, 128, 3, (1, 3), 128),
+    (150, 256, 3, (1, 3, 5), 64),
+])
+def test_block_plain_matches_fused_pallas_block(T, C, k, dils, tile):
+    """K3's CPU path (the chain of plain AMPLayers) against the JAX package's
+    chained kernel, which applies the edge rules between layers itself."""
+    from promptttspp_tpu.ops.pallas.amp import fused_amp_block
+
+    rng = np.random.RandomState(7)
+    x = (rng.randn(1, T, C) * 0.3).astype(np.float32)
+    layers = []
+    for _ in dils:
+        f = lambda *s, sc: (rng.randn(*s) * sc).astype(np.float32)
+        layers.append((f(C, sc=0.2), f(k, C, C, sc=0.05), f(C, sc=0.1),
+                       f(C, sc=0.2), f(k, C, C, sc=0.05), f(C, sc=0.1)))
+    ref = fused_amp_block(jnp.asarray(x),
+                          tuple(tuple(jnp.asarray(a) for a in p)
+                                for p in layers), dils, tile=tile,
+                          interpret=True)
+    params = tuple((torch.from_numpy(a1), _torch_w(w1), torch.from_numpy(b1),
+                    torch.from_numpy(a2), _torch_w(w2), torch.from_numpy(b2))
+                   for a1, w1, b1, a2, w2, b2 in layers)
+    launches = k2.amp_block.launches
+    out = k2.amp_block(torch.from_numpy(x), params, dils)
+    assert k2.amp_block.launches == launches  # the plain version on the CPU
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("update", ["no_grad_in_place", "load_state_dict",
+                                    "new_data", "move"])
+def test_kernel_weight_is_prepared_again_after_an_update(update):
+    """The kernels' weight layout is kept on the weight and prepared again
+    after each update that its version counter or storage shows."""
+    layer = AMPLayer(8, 3, 1)
+    w = layer.conv1.weight
+    w_k = k2.kernel_weight(w)
+    assert k2.kernel_weight(w) is w_k
+    np.testing.assert_array_equal(w_k.numpy(),
+                                  w.detach().permute(2, 1, 0).numpy())
+    if update == "no_grad_in_place":
+        with torch.no_grad():
+            w.mul_(2.0)
+    elif update == "load_state_dict":
+        layer.load_state_dict({n: v + 1.0
+                               for n, v in layer.state_dict().items()})
+    elif update == "new_data":
+        w.data = torch.randn_like(w)
+    else:
+        layer.to(torch.float64)
+    w = layer.conv1.weight
+    assert k2.kernel_weight(w) is not w_k
+    np.testing.assert_array_equal(k2.kernel_weight(w).numpy(),
+                                  w.detach().permute(2, 1, 0).numpy())
 
 
 @pytest.mark.parametrize("T,C,k,dil", [(120, 16, 11, 5), (64, 8, 3, 1)])

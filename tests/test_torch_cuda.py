@@ -11,6 +11,7 @@ package, so it runs on a machine without them; from the repository root:
 """
 
 import copy
+import math
 from unittest import mock
 
 import numpy as np
@@ -22,6 +23,7 @@ from promptttspp_tpu_torch.infer import Synthesizer
 from promptttspp_tpu_torch.models.bert import BertConfig
 from promptttspp_tpu_torch.ops.kernels import amp as k2
 from promptttspp_tpu_torch.ops.kernels import snake as k1
+from promptttspp_tpu_torch.ops.mel import MelSpectrogramTransform
 
 K1_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_pallas_snake.py:34
 K2_TOL = dict(atol=5e-5, rtol=1e-3)  # tests/test_pallas_amp.py:51
@@ -51,6 +53,9 @@ def tiny_model_config():
     cfg["prompt_encoder"].update(in_channels=32, mid_channels=32,
                                  out_channels=C)
     cfg["style_mdn"].update(in_dim=C, out_dim=C, num_gaussians=2)
+    cfg["reference_encoder"].update(
+        idim=MEL, gst_tokens=4, gst_heads=2, conv_layers=2,
+        conv_chans_list=[4, 8], gru_units=C, gst_token_dim=C)
     cfg["decoder"].update(in_dim=C, out_dim=MEL, K_step=10)
     cfg["decoder"]["denoise_fn"].update(
         in_dim=MEL, encoder_hidden_dim=C, residual_layers=2,
@@ -101,6 +106,88 @@ def test_k2_matches_plain(dev, B, T, C, k, d):
     torch.testing.assert_close(out, k2.amp_layer_plain(*args), **K2_TOL)
 
 
+def _block_args(g, B, T, C, k, dils):
+    """Inputs scaled as in tests/test_pallas_amp.py:85-93, with the conv
+    weights capped at gain 1 (scale 1/sqrt(k*C)): at scale 0.05 a C=256,
+    k=11 conv has gain 2.65, and the six convs of a block amplify float32
+    rounding ~350-fold."""
+    w_scale = min(0.05, 1.0 / math.sqrt(k * C))
+    x = _randn(g, B, T, C, scale=0.3)
+    params = tuple(
+        (_randn(g, C, scale=0.2), _randn(g, C, C, k, scale=w_scale),
+         _randn(g, C, scale=0.1), _randn(g, C, scale=0.2),
+         _randn(g, C, C, k, scale=w_scale), _randn(g, C, scale=0.1))
+        for _ in dils)
+    return x, params
+
+
+@pytest.mark.parametrize("B,T,C,k,dils", [
+    # tests/test_pallas_amp.py:74-79
+    (1, 400, 32, 3, (1, 3, 5)), (1, 200, 64, 7, (1, 3, 5)),
+    (1, 300, 128, 3, (1, 3)), (1, 150, 256, 3, (1, 3, 5)),
+    # flagship blocks (shorter T), both memory paths, ragged and tiny T
+    (1, 3840, 256, 11, (1, 3, 5)), (1, 2000, 128, 7, (1, 3, 5)),
+    (2, 777, 64, 11, (1, 3, 5)), (1, 5, 32, 7, (1, 3, 5)),
+    # more tiles than resident blocks: each block walks over several
+    (1, 153600, 32, 11, (1, 3, 5)), (1, 76800, 64, 7, (1, 3, 5))])
+def test_k3_matches_plain(dev, B, T, C, k, dils):
+    g = torch.Generator(device=dev).manual_seed(2)
+    x, params = _block_args(g, B, T, C, k, dils)
+    before = k2.amp_block.launches
+    out = k2.amp_block(x, params, dils)
+    torch.cuda.synchronize()
+    assert k2.amp_block.launches == before + 1
+    torch.testing.assert_close(out, k2.amp_block_plain(x, params, dils),
+                               **K2_TOL)
+
+
+@pytest.mark.parametrize("C,k", [(256, 11), (32, 7)])
+def test_k3_equals_the_chain_of_k2_launches(dev, C, k):
+    """K3 does each layer's arithmetic in K2's order, so it gives K2's
+    result bit for bit, even at weight scale 0.05 where the block's output
+    grows to hundreds and its float32 rounding leaves the plain version's
+    tolerance."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    dils = (1, 3, 5)
+    x = _randn(g, 1, 1000, C, scale=0.3)
+    params = tuple(
+        (_randn(g, C, scale=0.2), _randn(g, C, C, k, scale=0.05),
+         _randn(g, C, scale=0.1), _randn(g, C, scale=0.2),
+         _randn(g, C, C, k, scale=0.05), _randn(g, C, scale=0.1))
+        for _ in dils)
+    chain = x
+    for p, d in zip(params, dils):
+        chain = k2.amp_layer(chain, *p, d)
+    torch.testing.assert_close(k2.amp_block(x, params, dils), chain,
+                               atol=0, rtol=0)
+
+
+def test_k3_refuses_other_shapes(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    for C, k, dils in ((48, 3, (1, 3, 5)), (32, 5, (1, 3, 5)),
+                       (32, 3, (1, 2)), (512, 3, (1, 3, 5))):
+        x, params = _block_args(g, 1, 64, C, k, dils)
+        with pytest.raises(ValueError, match="amp_block kernel takes"):
+            k2.amp_block(x, params, dils)
+    x, params = _block_args(g, 1, 64, 32, 3, (1, 3, 5))
+    with pytest.raises(ValueError, match="dilations"):
+        k2.amp_block(x, params, (1, 3))
+    with pytest.raises(ValueError, match="is on"):
+        k2.amp_block(x, params[:1] + ((params[1][0].cpu(),)
+                                      + params[1][1:],) + params[2:],
+                     (1, 3, 5))
+
+
+def test_kernel_weight_layout_is_prepared_once(dev):
+    w = torch.randn(32, 32, 3, device=dev)
+    w_k = k2.kernel_weight(w)
+    assert k2.kernel_weight(w) is w_k
+    torch.testing.assert_close(w_k, w.permute(2, 1, 0))
+    w.mul_(2.0)  # an in-place update prepares it again
+    assert k2.kernel_weight(w) is not w_k
+    torch.testing.assert_close(k2.kernel_weight(w), w.permute(2, 1, 0))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros(1, 64, 32, device=dev)
     alpha = torch.zeros(32, device=dev)
@@ -118,7 +205,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         k2.amp_layer(x30, b, w, b, b, w, b, 1)
 
 
-def test_tiny_request_kernels_match_plain_versions(dev):
+class Tok:
+    pad_id = 0
+
+    def batch_encode(self, prompts):
+        ids = np.arange(1, 10)[None].repeat(len(prompts), 0)
+        return ids, np.ones_like(ids)
+
+
+def _tiny_synth(dev, **kw):
     model = flagship.bias_duration_head(
         flagship.build_model(tiny_model_config(), dev, 0, TINY_BERT), 3.0)
     voc_cfg = dict(flagship.VOCODER, in_channel=MEL,
@@ -126,28 +221,65 @@ def test_tiny_request_kernels_match_plain_versions(dev):
                    resblock_kernel_sizes=[3, 7],
                    resblock_dilations=[[1, 3], [1, 5]])
     vocoder = flagship.build_vocoder(dev, 1, voc_cfg)
+    return Synthesizer(model, vocoder, tokenizer=Tok(), device=dev, **kw)
 
-    class Tok:
-        pad_id = 0
 
-        def batch_encode(self, prompts):
-            ids = np.arange(1, 10)[None].repeat(len(prompts), 0)
-            return ids, np.ones_like(ids)
+SEQS, PROMPTS = [[5, 9, 22, 40, 3, 17, 64]], ["a calm voice"]
 
-    synth = Synthesizer(model, vocoder, tokenizer=Tok(), device=dev)
-    seqs, prompts = [[5, 9, 22, 40, 3, 17, 64]], ["a calm voice"]
+
+def test_tiny_request_kernels_match_plain_versions(dev):
+    synth = _tiny_synth(dev)
     frames = 128  # 7 phones x 3 frames, bucketed
     x_T = torch.randn((1, frames, MEL), generator=torch.Generator(
         device=dev).manual_seed(2), device=dev)
     kw = dict(noise_scale=0.0, x_T=x_T, zero_noise=True)
     n1, n2 = k1.antialias_snake.launches, k2.amp_layer.launches
-    wav_k, mel_k = synth.synthesize(seqs, prompts, **kw)
+    wav_k, mel_k = synth.synthesize(SEQS, PROMPTS, **kw)
     assert k1.antialias_snake.launches == n1 + 1
     assert k2.amp_layer.launches == n2 + 2 * 2 * 4 * 2  # 2 per layer
     with mock.patch.object(k2, "amp_layer", k2.amp_layer_plain), \
             mock.patch.object(k1, "antialias_snake",
                               k1.antialias_snake_plain):
-        wav_p, mel_p = synth.synthesize(seqs, prompts, **kw)
+        wav_p, mel_p = synth.synthesize(SEQS, PROMPTS, **kw)
     assert wav_k[0].shape == (21 * 240,)
     np.testing.assert_array_equal(mel_k[0], mel_p[0])
     np.testing.assert_allclose(wav_k[0], wav_p[0], atol=1e-4)
+
+
+def test_async_dispatch_does_not_synchronize(dev):
+    """Once the request's shapes have been seen, ``synthesize_async``
+    queues a prompted and a reference-wav request without one
+    synchronizing CUDA call (torch's sync debug mode raises on any).
+    Staging a request's inputs, where all its host -> device copies are
+    made, does not wait for the device: a spin kernel queued before still
+    runs when it returns. ``result()`` equals ``synthesize``."""
+    synth = _tiny_synth(dev, speculative=True, spec_frames_per_phone=4.0,
+                        to_mel=MelSpectrogramTransform(n_mels=MEL))
+    wav = np.random.RandomState(6).randn(12000).astype(np.float32) * 0.1
+    ref = [synth.synthesize(SEQS, PROMPTS, seed=4)[0][0],
+           synth.synthesize(SEQS, reference_wavs=[wav], seed=4)[0][0]]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)  # about 0.5 s at 1.98 GHz
+    spin_done = torch.cuda.Event()
+    spin_done.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        synth._request(SEQS, PROMPTS, None, None, True, 0.5, 4)
+        synth._request(SEQS, None, None, [wav], True, 0.5, 4)
+        assert not spin_done.query()
+        handles = [synth.synthesize_async(SEQS, PROMPTS, seed=4),
+                   synth.synthesize_async(SEQS, reference_wavs=[wav],
+                                          seed=4)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for handle, want in zip(handles, ref):
+        np.testing.assert_array_equal(handle.result()[0][0], want)
+    assert (synth.spec_requests, synth.spec_mispredicts) == (4, 0)
+
+
+def test_reference_mel_request(dev):
+    synth = _tiny_synth(dev)
+    ref = np.random.RandomState(0).randn(90, MEL).astype(np.float32)
+    wavs, mels = synth.synthesize(SEQS, reference_mels=[ref], seed=1)
+    assert wavs[0].shape == (21 * 240,) and np.isfinite(wavs[0]).all()
+    assert mels[0].shape == (21, MEL)

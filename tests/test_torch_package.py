@@ -28,6 +28,10 @@ def test_port_modules_import_without_jax():
             for p in sorted(PORT.rglob("*.py"))]
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m
             for m in mods] + ["chip_smoke"]
+    # the serving and reference-audio modules of the second slice
+    assert {f"promptttspp_tpu_torch.{m}" for m in (
+        "vocoders.streaming", "models.style_encoder", "nn.gru", "ops.stft",
+        "ops.mel")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
