@@ -9,27 +9,35 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Build the hand-written kernels from ``promptttspp_tpu_torch/csrc/`` with
    nvcc (one process per source, all at once) and print each kernel's
-   registers and shared memory (``-Xptxas -v``).
+   registers and shared memory (``-Xptxas -v``) and the count of tensor-core
+   MMA instructions in K2-bf16's SASS (``cuobjdump -sass``; none fails).
 2. Hold kernel K1 (``antialias_snake``) against its plain PyTorch version at
    the ``act_post`` shape [1, 153600, 32] and at C=256.
-3. Hold kernel K2 (``amp_layer``) against its plain version at every
-   AMPLayer shape of a 640-frame request: each upsample stage's (C, T) and
-   every (kernel size, dilation).
+3. Hold both precisions of kernel K2 (``amp_layer``) against their plain
+   versions at every AMPLayer shape of a 640-frame request (each upsample
+   stage's (C, T) and every (kernel size, dilation)): K2-bf16 (bf16
+   channel mix on the tensor cores, the serving path's) against the bf16
+   plain version and against the float32 one at the JAX package's bf16
+   tolerance, and the float32 K2 against the float32 plain version.
 4. Build the flagship model and vocoder at full width from seeds (duration
    head biased to 10 frames per phone) and run 3 two-phase requests of 64
    phones and a 32-token prompt (640 frames, 6.4 s of audio each) through
    ``Synthesizer.synthesize``. The kernels' launch counts are set to 0
-   just before and read just after. Then one deterministic request (fixed
-   x_T, zero diffusion noise, deterministic NSF source, noise_scale 0) is
-   run with the kernels and again with every kernel replaced by its plain
-   version, and the waveforms are compared.
+   just before and read just after: the vocoder's default
+   ``conv_precision`` launches K2-bf16 only. Then one deterministic request
+   (fixed x_T, zero diffusion noise, deterministic NSF source, noise_scale
+   0) is run with the kernels and again with every kernel replaced by its
+   plain version of the same precision, and the waveforms are compared;
+   the same request with the vocoder at ``conv_precision="highest"`` (the
+   float32 K2) gives the bf16 wav's deviation from float32.
 5. Print request wall time and real-time factor, the kernels' times from
    CUDA events beside their bounds and their plain versions' times, and a
    device-time profile of one request.
 6. Hold kernel K3 (``amp_block``, a whole AMPBlock in one launch) against
    its plain version at the 12 AMPBlock shapes of a 640-frame request, and
-   time it beside the three ``amp_layer`` calls the serving path makes for
-   the same block and beside its bound. The serving path does not call K3.
+   time it beside three float32 ``amp_layer`` calls (which it equals bit
+   for bit), three K2-bf16 calls (what the serving path makes for the same
+   block) and its bound. The serving path does not call K3.
 7. Serving paths, each driven with the launch counts set to 0 just before
    and read just after: speculative requests (bucket predicted at 10
    frames per phone, no mispredict); a forced mispredict (5 frames per
@@ -46,8 +54,9 @@ Phases (any failure exits non-zero and prints no result line):
    a 3 s, 24 kHz reference wav.
 8. Print the ``kernels`` JSON line, the GPU line and the result line.
 
-float32 throughout: TF32 is switched off for cuDNN convolutions and cuBLAS
-matrix products, so the plain versions are full float32 references.
+TF32 is switched off for cuDNN convolutions and cuBLAS matrix products, so
+the plain versions are full float32 references; the bf16 plain version
+rounds only the channel mix's operands to bf16.
 Exits non-zero without a GPU, or outside the repository.
 """
 
@@ -63,10 +72,12 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit): HBM3 rate
-# and float32 on the CUDA cores (the kernels use no tensor cores).
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit): HBM3 rate,
+# float32 on the CUDA cores and dense bf16 on the tensor cores (K2-bf16's
+# channel mix).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
 # flops per output element of the anti-aliased snake: two 2x-rate values
 # each of 6 taps (12) + the x2 scale (1) + snake (u*a, 7-fma sin^2 with its
 # range reduction ~18, scale and add: ~21), then the 12-tap downsample (24)
@@ -74,9 +85,19 @@ AA_FLOPS = 2 * (13 + 21) + 24
 
 K1_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_pallas_snake.py:34
 K2_TOL = dict(atol=5e-5, rtol=1e-3)  # tests/test_pallas_amp.py:51
+# K2-bf16 against the bf16 plain version: both round AA's output to bf16,
+# but AA computed in another order can round to the neighbouring bf16 value
+# (one 2^-8 relative step); such flips in A, and in AA2 after them, moved
+# the output by at most 2.4e-3 at the 36 shapes of phase 3 (H100)
+K2_BF16_TOL = dict(atol=1e-2, rtol=1e-3)
+K2_BF16_F32_TOL = dict(atol=3e-2, rtol=1e-2)  # tests/test_pallas_amp.py:70
 # kernel vs plain wav of a whole request: float32 with another summation
 # order in each of 36 AMPLayers and the final activation; tanh-bounded
 WAV_ATOL = 1e-3
+# the same with K2-bf16: the A flips above, propagated through the later
+# layers (2.0e-3 for 24 frames of the flagship vocoder on the CPU,
+# promptttspp_tpu_torch/tools/bf16_wav_deviation.py)
+WAV_BF16_ATOL = 1e-2
 # streamed or chunked wav against the batched one, away from the edges
 # (tests/test_infer.py:334-370)
 STREAM_ATOL = 5e-3
@@ -130,6 +151,19 @@ def k2_cost(B, T, C, k):
     flops = 2 * B * T * C * AA_FLOPS + 2 * (2 * k * C + 1) * B * T * C \
         + B * T * C
     return nbytes, flops
+
+
+def k2_bf16_bound(B, T, C, k):
+    """One AMPLayer with the channel mix in bf16: x read and y written once
+    in float32, both convs' weights in bf16 and the four per-channel
+    vectors; the two convs' mix at the bf16 tensor-core peak, AA, bias and
+    the residual add at the float32 peak. Returns the three times in
+    seconds (bytes, mix, float32)."""
+    nbytes = (2 * B * T * C + 4 * C) * 4 + 2 * k * C * C * 2
+    mix = 2 * 2 * k * C * C * B * T
+    fp32 = 2 * B * T * C * AA_FLOPS + 3 * B * T * C
+    return (nbytes / HBM_BYTES_PER_S, mix / BF16_TC_FLOP_PER_S,
+            fp32 / FP32_FLOP_PER_S)
 
 
 def k3_cost(B, T, C, k, n_layers):
@@ -209,6 +243,13 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line \
                     or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    n_mma = tensor_core_mmas(_build, "amp_layer_tc")
+    print(f"phase 1: {n_mma} tensor-core MMA instructions (HMMA/HGMMA) in "
+          "K2-bf16's SASS", flush=True)
+    if n_mma == 0:
+        print("chip_smoke: K2-bf16 has no tensor-core MMA instruction",
+              file=sys.stderr)
+        return 1
 
     g = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=g, device=dev)
@@ -236,46 +277,9 @@ def main() -> int:
             k1_row = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                           shape=list(shape))
 
-    # -- phase 3: K2 against its plain version ------------------------------
+    # -- phase 3: both K2 precisions against their plain versions ----------
     voc_cfg = flagship.VOCODER
-    k2_err, k2_ms, k2_plain, k2_bound, k2_flops = 0.0, 0.0, 0.0, 0.0, 0.0
-    for C, T in stage_shapes(voc_cfg, FRAMES):
-        st_ms = st_plain = st_bound = 0.0
-        for k, dils in zip(voc_cfg["resblock_kernel_sizes"],
-                           voc_cfg["resblock_dilations"]):
-            for d in dils:
-                args_ = (0.3 * randn(1, T, C), 0.2 * randn(C),
-                         0.05 * randn(C, C, k), 0.1 * randn(C),
-                         0.2 * randn(C), 0.05 * randn(C, C, k),
-                         0.1 * randn(C), d)
-                y = k2.amp_layer(*args_)
-                ref = k2.amp_layer_plain(*args_)
-                torch.cuda.synchronize()
-                err = (y - ref).abs().max().item()
-                k2_err = max(k2_err, err)
-                if not torch.allclose(y, ref, **K2_TOL):
-                    failures.append(f"K2 C={C} T={T} k={k} d={d}: max abs "
-                                    f"err {err:.3g}")
-                ms = cuda_ms(lambda: k2.amp_layer(*args_), iters=5)
-                plain = cuda_ms(lambda: k2.amp_layer_plain(*args_), iters=3)
-                nbytes, flops = k2_cost(1, T, C, k)
-                bms, _ = bound_ms(nbytes, flops)
-                st_ms, st_plain, st_bound = (st_ms + ms, st_plain + plain,
-                                             st_bound + bms)
-                k2_flops += flops
-                print(f"  K2 C={C} T={T} k={k} d={d}: err {err:.3g} "
-                      f"kernel {ms:.4f} ms plain {plain:.4f} ms bound "
-                      f"{bms:.4f} ms", flush=True)
-        k2_ms, k2_plain, k2_bound = (k2_ms + st_ms, k2_plain + st_plain,
-                                     k2_bound + st_bound)
-        print(f"[{gpu}] phase 3: K2 amp_layer stage C={C} T={T} (9 layers): "
-              f"kernel {st_ms:.3f} ms, plain {st_plain:.3f} ms, bound "
-              f"{st_bound:.3f} ms", flush=True)
-    print(f"[{gpu}] phase 3: K2 amp_layer, 36 layers of a {FRAMES}-frame "
-          f"request: kernel {k2_ms:.3f} ms "
-          f"({k2_flops / (k2_ms * 1e-3) / 1e12:.2f} TFLOP/s fp32), plain "
-          f"{k2_plain:.3f} ms, bound {k2_bound:.3f} ms (operations), max "
-          f"abs err {k2_err:.3g}", flush=True)
+    k2_row, k2bf_row = phase_k2(k2, randn, voc_cfg, gpu, failures)
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -311,8 +315,10 @@ def main() -> int:
                             f"{bool(np.isfinite(w).all())}")
     launches = _counts(k1, k2)
     # the serving path runs an AMPBlock as three amp_layer calls, as the
-    # JAX package does: K3 is not on it
-    expect = {"antialias_snake": N_REQUESTS, "amp_layer": 72 * N_REQUESTS,
+    # JAX package does (K3 is not on it), at the vocoder's default
+    # conv_precision: K2-bf16, not the float32 K2
+    expect = {"antialias_snake": N_REQUESTS,
+              "amp_layer_bf16": 72 * N_REQUESTS, "amp_layer": 0,
               "amp_block": 0}
     print(f"phase 4: {N_REQUESTS} requests, launches {launches} "
           f"(expected {expect})", flush=True)
@@ -333,12 +339,28 @@ def main() -> int:
                         "patched in")
     wav_err = float(np.abs(wav_k[0] - wav_p[0]).max())
     mel_err = float(np.abs(mel_k[0] - mel_p[0]).max())
+    set_conv_precision(vocoder, "highest")
+    try:
+        wav_f, _ = synth.synthesize(seqs, prompts, **det)
+        with mock.patch.object(k2, "amp_layer", k2.amp_layer_plain), \
+                mock.patch.object(k1, "antialias_snake",
+                                  k1.antialias_snake_plain):
+            wav_fp, _ = synth.synthesize(seqs, prompts, **det)
+    finally:
+        set_conv_precision(vocoder, "default")
+    wav_f_err = float(np.abs(wav_f[0] - wav_fp[0]).max())
+    bf16_dev = float(np.abs(wav_k[0] - wav_f[0]).max())
     print(f"[{gpu}] phase 4: deterministic request, kernels vs plain "
-          f"versions: wav max abs err {wav_err:.3g} (tol {WAV_ATOL}), mel "
-          f"max abs err {mel_err:.3g}; wav rms "
+          f"versions: bf16 (K2-bf16) wav max abs err {wav_err:.3g} (tol "
+          f"{WAV_BF16_ATOL}), float32 (K2) wav {wav_f_err:.3g} (tol "
+          f"{WAV_ATOL}), mel max abs err {mel_err:.3g}; bf16 wav vs float32 "
+          f"wav max abs dev {bf16_dev:.3g}; wav rms "
           f"{np.sqrt(np.mean(wav_k[0] ** 2)):.4f}", flush=True)
-    if not (wav_err <= WAV_ATOL and np.isfinite(wav_k[0]).all()):
+    if not (wav_err <= WAV_BF16_ATOL and np.isfinite(wav_k[0]).all()):
         failures.append(f"deterministic wav: kernels vs plain {wav_err:.3g}")
+    if not (wav_f_err <= WAV_ATOL and np.isfinite(wav_f[0]).all()):
+        failures.append(f"deterministic float32 wav: kernels vs plain "
+                        f"{wav_f_err:.3g}")
     synth.return_int16 = True
     pcm, _ = synth.synthesize(seqs, prompts, **det)
     synth.return_int16 = False
@@ -371,6 +393,7 @@ def main() -> int:
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
+    per_request = f"sum over the 36 AMPLayers of one {FRAMES}-frame request"
     kernels = [
         dict(name="antialias_snake", route="cuda",
              source="promptttspp_tpu_torch/csrc/antialias_snake.cu",
@@ -379,14 +402,24 @@ def main() -> int:
              ms=k1_row["ms"], plain_ms=k1_row["plain_ms"],
              bound_ms=k1_row["bound_ms"], bound_by=k1_row["bound_by"],
              library_ms=None, shape=k1_row["shape"]),
+        dict(name="amp_layer_bf16", route="cuda",
+             source="promptttspp_tpu_torch/csrc/amp_layer_tc.cu",
+             replaces="promptttspp_tpu/ops/pallas/amp.py:332",
+             launches=launches["amp_layer_bf16"],
+             max_abs_err=k2bf_row["err"], ms=k2bf_row["ms"],
+             plain_ms=k2bf_row["plain_ms"], bound_ms=k2bf_row["bound_ms"],
+             bound_by=k2bf_row["bound_by"], library_ms=None,
+             max_abs_dev_from_fp32_plain=k2bf_row["dev_f32"],
+             per=f"{per_request} (72 launches), mxu_bf16=True"),
         dict(name="amp_layer", route="cuda",
              source="promptttspp_tpu_torch/csrc/amp_layer.cu",
              replaces="promptttspp_tpu/ops/pallas/amp.py:332",
-             launches=launches["amp_layer"], max_abs_err=k2_err, ms=k2_ms,
-             plain_ms=k2_plain, bound_ms=k2_bound, bound_by="operations",
+             launches=launches["amp_layer"], max_abs_err=k2_row["err"],
+             ms=k2_row["ms"], plain_ms=k2_row["plain_ms"],
+             bound_ms=k2_row["bound_ms"], bound_by=k2_row["bound_by"],
              library_ms=None,
-             per=f"sum over the 36 AMPLayers of one {FRAMES}-frame request "
-                 "(72 launches)"),
+             per=f"{per_request} (72 launches), mxu_bf16=False; serving "
+                 "runs it only for a conv_precision=\"highest\" vocoder"),
         dict(name="amp_block", route="cuda",
              source="promptttspp_tpu_torch/csrc/amp_block.cu",
              replaces="promptttspp_tpu/ops/pallas/amp.py:348",
@@ -395,6 +428,7 @@ def main() -> int:
              plain_ms=k3_row["plain_ms"], bound_ms=k3_row["bound_ms"],
              bound_by=k3_row["bound_by"], library_ms=None,
              amp_layer_x3_ms=k3_row["layers_ms"],
+             amp_layer_bf16_x3_ms=k3_row["layers_bf16_ms"],
              per=f"sum over the 12 AMPBlocks of one {FRAMES}-frame request "
                  "(12 launches); the serving path does not call it"),
     ]
@@ -407,6 +441,116 @@ def main() -> int:
     return 0
 
 
+def tensor_core_mmas(_build, name):
+    """Tensor-core MMA instructions (HMMA, HGMMA) in a built library's SASS,
+    from the toolkit's ``cuobjdump -sass``."""
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    return sum(1 for line in out.stdout.splitlines()
+               if "HMMA" in line or "HGMMA" in line)
+
+
+def set_conv_precision(vocoder, precision):
+    from promptttspp_tpu_torch.vocoders.bigvgan import AMPLayer
+
+    for m in vocoder.modules():
+        if isinstance(m, AMPLayer):
+            m.conv_precision = precision
+
+
+def phase_k2(k2, randn, voc_cfg, gpu, failures):
+    """Both K2 precisions at every AMPLayer shape of a request against
+    their plain versions, timed beside them and their bounds. The conv
+    weights have gain 1 at most (scale min(0.05, 1/sqrt(k*C)), as trained
+    BigVGAN convs have): at scale 0.05 a C=256, k=11 conv has gain 2.65,
+    the layer's output reaches 11, and bf16 rounding leaves the JAX
+    package's bf16 tolerance, which it checks at C=32, k=7 (gain 0.66)."""
+    import math
+
+    import torch
+
+    f32 = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0.0)
+    bf = dict(err=0.0, dev_f32=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+              t_bytes=0.0, t_mix=0.0, t_fp32=0.0)
+    for C, T in stage_shapes(voc_cfg, FRAMES):
+        st = dict(ms=0.0, plain_ms=0.0, bf_ms=0.0, bf_plain_ms=0.0)
+        for k, dils in zip(voc_cfg["resblock_kernel_sizes"],
+                           voc_cfg["resblock_dilations"]):
+            ws = min(0.05, 1.0 / math.sqrt(k * C))
+            for d in dils:
+                args_ = (0.3 * randn(1, T, C), 0.2 * randn(C),
+                         ws * randn(C, C, k), 0.1 * randn(C),
+                         0.2 * randn(C), ws * randn(C, C, k),
+                         0.1 * randn(C), d)
+                y = k2.amp_layer(*args_)
+                yb = k2.amp_layer(*args_, bf16=True)
+                ref = k2.amp_layer_plain(*args_)
+                refb = k2.amp_layer_plain(*args_, bf16=True)
+                torch.cuda.synchronize()
+                err = (y - ref).abs().max().item()
+                errb = (yb - refb).abs().max().item()
+                dev = (yb - ref).abs().max().item()
+                f32["err"] = max(f32["err"], err)
+                bf["err"] = max(bf["err"], errb)
+                bf["dev_f32"] = max(bf["dev_f32"], dev)
+                shape = f"C={C} T={T} k={k} d={d}"
+                if not torch.allclose(y, ref, **K2_TOL):
+                    failures.append(f"K2 {shape}: max abs err {err:.3g}")
+                if not torch.allclose(yb, refb, **K2_BF16_TOL):
+                    failures.append(f"K2-bf16 {shape}: max abs err "
+                                    f"{errb:.3g}")
+                if not torch.allclose(yb, ref, **K2_BF16_F32_TOL):
+                    failures.append(f"K2-bf16 {shape} vs float32: max abs "
+                                    f"dev {dev:.3g}")
+                ms = cuda_ms(lambda: k2.amp_layer(*args_), iters=5)
+                msb = cuda_ms(lambda: k2.amp_layer(*args_, bf16=True),
+                              iters=10)
+                plain = cuda_ms(lambda: k2.amp_layer_plain(*args_), iters=3)
+                plainb = cuda_ms(
+                    lambda: k2.amp_layer_plain(*args_, bf16=True), iters=3)
+                nbytes, flops = k2_cost(1, T, C, k)
+                bms, _ = bound_ms(nbytes, flops)
+                times = k2_bf16_bound(1, T, C, k)
+                for key, v in zip(("t_bytes", "t_mix", "t_fp32"), times):
+                    bf[key] += v * 1e3
+                bf["bound_ms"] += max(times) * 1e3
+                f32["bound_ms"] += bms
+                f32["flops"] += flops
+                for key, v in (("ms", ms), ("plain_ms", plain),
+                               ("bf_ms", msb), ("bf_plain_ms", plainb)):
+                    st[key] += v
+                print(f"  K2 {shape}: bf16 err {errb:.3g} (vs float32 plain "
+                      f"{dev:.3g}) kernel {msb:.4f} ms plain {plainb:.4f} "
+                      f"ms bound {max(times) * 1e3:.4f} ms; float32 err "
+                      f"{err:.3g} kernel {ms:.4f} ms plain {plain:.4f} ms "
+                      f"bound {bms:.4f} ms", flush=True)
+        f32["ms"] += st["ms"]
+        f32["plain_ms"] += st["plain_ms"]
+        bf["ms"] += st["bf_ms"]
+        bf["plain_ms"] += st["bf_plain_ms"]
+        print(f"[{gpu}] phase 3: K2 amp_layer stage C={C} T={T} (9 layers): "
+              f"K2-bf16 {st['bf_ms']:.3f} ms (plain {st['bf_plain_ms']:.3f} "
+              f"ms), float32 K2 {st['ms']:.3f} ms (plain "
+              f"{st['plain_ms']:.3f} ms)", flush=True)
+    f32["bound_by"] = "operations"
+    parts = {"bytes": bf["t_bytes"], "operations": max(bf["t_mix"],
+                                                       bf["t_fp32"])}
+    bf["bound_by"] = max(parts, key=parts.get)
+    print(f"[{gpu}] phase 3: K2 amp_layer, 36 layers of a {FRAMES}-frame "
+          f"request: K2-bf16 {bf['ms']:.3f} ms, plain {bf['plain_ms']:.3f} "
+          f"ms, bound {bf['bound_ms']:.3f} ms (sums of bytes "
+          f"{bf['t_bytes']:.3f}, bf16 mix {bf['t_mix']:.3f}, float32 "
+          f"{bf['t_fp32']:.3f} ms), max abs err {bf['err']:.3g}, max abs "
+          f"dev from the float32 plain version {bf['dev_f32']:.3g}; float32 "
+          f"K2 {f32['ms']:.3f} ms "
+          f"({f32['flops'] / (f32['ms'] * 1e-3) / 1e12:.2f} TFLOP/s fp32), "
+          f"plain {f32['plain_ms']:.3f} ms, bound {f32['bound_ms']:.3f} ms "
+          f"(operations), max abs err {f32['err']:.3g}", flush=True)
+    return f32, bf
+
+
 def phase_k3(k2, randn, voc_cfg, gpu, failures):
     """K3 at every AMPBlock shape of a request against its plain version,
     timed beside the three amp_layer calls of the serving path."""
@@ -414,8 +558,8 @@ def phase_k3(k2, randn, voc_cfg, gpu, failures):
 
     import torch
 
-    row = dict(err=0.0, ms=0.0, plain_ms=0.0, layers_ms=0.0, bound_ms=0.0,
-               bytes_ms=0.0)
+    row = dict(err=0.0, ms=0.0, plain_ms=0.0, layers_ms=0.0,
+               layers_bf16_ms=0.0, bound_ms=0.0, bytes_ms=0.0)
     for C, T in stage_shapes(voc_cfg, FRAMES):
         for k, dils in zip(voc_cfg["resblock_kernel_sizes"],
                            voc_cfg["resblock_dilations"]):
@@ -428,10 +572,10 @@ def phase_k3(k2, randn, voc_cfg, gpu, failures):
                             ws * randn(C, C, k), 0.1 * randn(C))
                            for _ in dils)
 
-            def layers():
+            def layers(bf16=False):
                 h = x
                 for p, d in zip(params, dils):
-                    h = k2.amp_layer(h, *p, d)
+                    h = k2.amp_layer(h, *p, d, bf16=bf16)
                 return h
 
             y = k2.amp_block(x, params, dils)
@@ -444,23 +588,26 @@ def phase_k3(k2, randn, voc_cfg, gpu, failures):
                                 f"{err:.3g}")
             ms = cuda_ms(lambda: k2.amp_block(x, params, dils), iters=5)
             lms = cuda_ms(layers, iters=5)
+            lbms = cuda_ms(lambda: layers(True), iters=5)
             plain = cuda_ms(lambda: k2.amp_block_plain(x, params, dils),
                             iters=2)
             nbytes, flops = k3_cost(1, T, C, k, len(dils))
             bms, by = bound_ms(nbytes, flops)
             for key, v in (("ms", ms), ("plain_ms", plain),
-                           ("layers_ms", lms), ("bound_ms", bms),
+                           ("layers_ms", lms), ("layers_bf16_ms", lbms),
+                           ("bound_ms", bms),
                            ("bytes_ms", nbytes / HBM_BYTES_PER_S * 1e3)):
                 row[key] += v
             print(f"[{gpu}] phase 6: K3 amp_block C={C} T={T} k={k} "
                   f"d={dils}: err {err:.3g}; kernel {ms:.4f} ms, 3 x "
-                  f"amp_layer {lms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"amp_layer {lms:.4f} ms (bf16: {lbms:.4f} ms), plain "
+                  f"{plain:.4f} ms, bound "
                   f"{bms:.4f} ms ({by})", flush=True)
     row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["bound_ms"]
                        else "operations")
     print(f"[{gpu}] phase 6: K3, 12 AMPBlocks of a {FRAMES}-frame request: "
           f"kernel {row['ms']:.3f} ms, 3 x amp_layer {row['layers_ms']:.3f} "
-          f"ms, plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
+          f"ms (bf16: {row['layers_bf16_ms']:.3f} ms), plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
           f"ms ({row['bound_by']}), max abs err {row['err']:.3g}",
           flush=True)
     return row
@@ -468,6 +615,7 @@ def phase_k3(k2, randn, voc_cfg, gpu, failures):
 
 def _counts(k1, k2):
     return {"antialias_snake": k1.antialias_snake.launches,
+            "amp_layer_bf16": k2.amp_layer.launches_bf16,
             "amp_layer": k2.amp_layer.launches,
             "amp_block": k2.amp_block.launches}
 
@@ -475,6 +623,7 @@ def _counts(k1, k2):
 def _zero_counts(k1, k2):
     k1.antialias_snake.launches = 0
     k2.amp_layer.launches = 0
+    k2.amp_layer.launches_bf16 = 0
     k2.amp_block.launches = 0
 
 
@@ -502,7 +651,8 @@ def phase_serving(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
     from promptttspp_tpu_torch.ops.mel import MelSpectrogramTransform
 
     samples = FRAMES * 240
-    per_request = {"antialias_snake": 1, "amp_layer": 72, "amp_block": 0}
+    per_request = {"antialias_snake": 1, "amp_layer_bf16": 72,
+                   "amp_layer": 0, "amp_block": 0}
     tok = synth.tokenizer
     kw = dict(use_max=True, noise_scale=0.0)
 
@@ -741,12 +891,19 @@ def profile_request(synth, seqs, prompts, gpu, wall_s):
         return
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     lines = [f"{us / 1e3:10.3f} ms {n:7d}x  {key}" for us, n, key in rows]
+    ours = {"K2-bf16": "aa_conv_tc_kernel", "K2": "aa_conv_kernel",
+            "K1": "antialias_snake_kernel"}
+    sums = {name: [sum(r[i] for r in rows if pat in r[2]) for i in (0, 1)]
+            for name, pat in ours.items()}
     (OUT_DIR / "profile_request.txt").write_text(
         f"{gpu}\none two-phase 640-frame request; device ms, calls, name\n"
         + "\n".join(lines) + "\n")
     print(f"[{gpu}] profile of one request: device busy "
           f"{total_us / 1e3:.1f} ms (sum of kernel times) of "
-          f"{wall_s * 1e3:.1f} ms wall; top kernels:")
+          f"{wall_s * 1e3:.1f} ms wall; the port's kernels: "
+          + ", ".join(f"{name} {us / 1e3:.3f} ms ({n} launches)"
+                      for name, (us, n) in sums.items())
+          + "; top kernels:")
     for line in lines[:12]:
         print("   " + line)
 

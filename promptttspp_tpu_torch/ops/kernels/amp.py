@@ -6,44 +6,53 @@ K2, ``amp_layer``: ``y = x + conv2(AA2(conv1(AA1(x))))``. Replaces
 of kernel K1; conv1 is a k-tap SAME conv with dilation d, conv2 a k-tap
 SAME conv; both C x C with bias.
 
-The CUDA source ``csrc/amp_layer.cu`` has one kernel, ``aa_conv``, launched
-twice per layer:
+K2 comes in the two precisions of the JAX kernel's ``mxu_bf16`` flag, which
+the JAX ``AMPLayer`` sets from ``conv_precision``:
+
+- ``bf16=True`` (``conv_precision="default"``, the flagship's): K2-bf16,
+  ``csrc/amp_layer_tc.cu``. The two operands of each channel mix, AA's
+  output and the conv weight, are rounded to bf16 and multiplied on the
+  tensor cores (``mma.sync`` m16n8k16) with float32 accumulation; AA, bias
+  and residual stay float32. The TPU kernel also feeds AA's FIRs to the MXU
+  in bf16 at C < 128; the port rounds only the channel mix.
+- ``bf16=False`` (``conv_precision="highest"``): K2, ``csrc/amp_layer.cu``,
+  float32 on the CUDA cores.
+
+Each source has one kernel, launched twice per layer:
 
     h = conv1(AA1(x))          (residual: none)
     y = x + conv2(AA2(h))      (residual: x)
 
 Each block stages a time tile plus the conv's halo, computes AA there in
-shared memory, and accumulates the C_out channel mix from shared memory
-with weights read from device memory (L2-resident: at most 2.9 MB per conv,
-C=256, k=11). The split meets the edge rules without masks: AA clamps its
-input to [0, T) (edge replication, which for the second launch is exactly
-"conv1's output replicated before AA2"), and the conv reads zeros outside
-[0, T).
+shared memory, and accumulates the channel mix from shared memory. The
+split meets the edge rules without masks: AA clamps its input to [0, T)
+(edge replication, which for the second launch is exactly "conv1's output
+replicated before AA2"), and the conv reads zeros outside [0, T).
 
 K3, ``amp_block``: the chained form of ``fused_amp_block`` (n_layers > 1),
-a whole AMPBlock in one launch of ``csrc/amp_block.cu``. It equals the chain
-of AMPLayers (``amp_block_plain``). A block keeps its time tile plus the
-summed halo of the chain, the running layer output and conv1's output in
-shared memory (or an L2-resident global scratch where they do not fit),
-narrows the valid region stage by stage and writes only its tile. Like the
-JAX package, the vocoder does not call it: ``vocoders/bigvgan.py::AMPBlock``
-runs one K2 call per layer.
+a whole AMPBlock in one launch of ``csrc/amp_block.cu``, in float32. It
+equals the chain of float32 AMPLayers (``amp_block_plain``). A block keeps
+its time tile plus the summed halo of the chain, the running layer output
+and conv1's output in shared memory (or an L2-resident global scratch where
+they do not fit), narrows the valid region stage by stage and writes only
+its tile. Like the JAX package, the vocoder does not call it:
+``vocoders/bigvgan.py::AMPBlock`` runs one K2 call per layer.
 
-What bounds both: the channel mix, 4*k*C^2 flops per time step and layer
+What bounds them: the channel mix, 4*k*C^2 flops per time step and layer
 (~2.6e11 flops per 640-frame request over the 36 layers) against ~1 GB of
-x/y traffic, so on an H100 in float32 they are bound by operations. Both
-compute in float32 on the CUDA cores (no tensor cores) for both
-``conv_precision`` settings, which meets the tolerances of both; bf16
-``wgmma`` is later work. Both take the conv weights in the kernel layout
-[k, C_in, C_out], prepared once per weight tensor (``kernel_weight``; change
-weights under ``torch.no_grad()``, not through ``w.data``); K2's blocks
-first prefetch them into L2, where a layout prepared long before may no
-longer be.
+x/y traffic. In float32 on the CUDA cores (K2, K3) they are bound by
+operations; with the mix on the bf16 tensor cores (K2-bf16), AA's float32
+work and the bytes bound it about equally. All take the conv weights in a
+kernel layout prepared once per weight tensor (``kernel_weight``,
+``kernel_weight_bf16``; change weights under ``torch.no_grad()``, not
+through ``w.data``); K2's blocks first prefetch theirs into L2, where a
+layout prepared long before may no longer be.
 
 ``amp_layer`` and ``amp_block`` launch their kernels for a CUDA tensor and
-run the plain PyTorch versions only for a tensor on the CPU. Their launch
-counts go up by one per kernel launch: two per layer for K2, one per block
-for K3.
+run the plain float32 PyTorch versions only for a tensor on the CPU. Their
+launch counts go up by one per kernel launch: two per layer for K2
+(``amp_layer.launches``) and K2-bf16 (``amp_layer.launches_bf16``), one per
+block for K3.
 """
 
 from __future__ import annotations
@@ -64,10 +73,20 @@ AMP_BLOCK_KERNEL_SIZES = (3, 7, 11)
 AMP_BLOCK_DILATIONS = ((1, 3, 5), (1, 3))
 
 
-def amp_layer_plain(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int):
-    """Plain PyTorch version. w* are torch conv weights [C, C, k]."""
-    h = conv1d_same(antialias_snake_plain(x, alpha1), w1, b1, dilation)
-    h = conv1d_same(antialias_snake_plain(h, alpha2), w2, b2, 1)
+def _round_bf16(t):
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def amp_layer_plain(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int,
+                    bf16: bool = False):
+    """Plain PyTorch version. w* are torch conv weights [C, C, k]. With
+    ``bf16``, each conv's two operands (AA's output and the weight) are
+    rounded to bf16 and the conv sums their exact products in float32:
+    K2-bf16's arithmetic."""
+    mix = _round_bf16 if bf16 else (lambda t: t)
+    h = conv1d_same(mix(antialias_snake_plain(x, alpha1)), mix(w1), b1,
+                    dilation)
+    h = conv1d_same(mix(antialias_snake_plain(h, alpha2)), mix(w2), b2, 1)
     return x + h
 
 
@@ -78,22 +97,46 @@ def amp_block_plain(x, layer_params, dilations):
     return x
 
 
-def kernel_weight(w: torch.Tensor) -> torch.Tensor:
-    """Torch conv weight [C_out, C_in, k] -> the kernels' [k, C_in, C_out]
-    (one tap's weights for a run of output channels are contiguous).
-    Computed once per weight tensor and kept on it. It is computed again
-    after every change that ``w``'s version counter or storage shows: an
-    in-place op on ``w`` (under ``torch.no_grad()`` too, as
-    ``load_state_dict`` makes), a new ``w.data``, a move. An in-place write
-    into ``w.data`` (``w.data.copy_(...)``) bypasses the version counter
-    and is not seen: change weights under ``torch.no_grad()`` instead."""
+def _prepared(w: torch.Tensor, attr: str, make) -> torch.Tensor:
+    """``make(w.detach())``, kept on ``w`` under ``attr`` until ``w``'s
+    version counter or storage shows a change."""
     key = (None if w.is_inference() else w._version, w.data_ptr(), w.device)
-    cached = getattr(w, "_kernel_layout", None)
+    cached = getattr(w, attr, None)
     if cached is not None and cached[0] == key and key[0] is not None:
         return cached[1]
-    w_k = w.detach().permute(2, 1, 0).contiguous()
-    w._kernel_layout = (key, w_k)
+    w_k = make(w.detach())
+    setattr(w, attr, (key, w_k))
     return w_k
+
+
+def kernel_weight(w: torch.Tensor) -> torch.Tensor:
+    """Torch conv weight [C_out, C_in, k] -> the float32 kernels'
+    [k, C_in, C_out] (one tap's weights for a run of output channels are
+    contiguous). Computed once per weight tensor and kept on it. It is
+    computed again after every change that ``w``'s version counter or
+    storage shows: an in-place op on ``w`` (under ``torch.no_grad()`` too,
+    as ``load_state_dict`` makes), a new ``w.data``, a move. An in-place
+    write into ``w.data`` (``w.data.copy_(...)``) bypasses the version
+    counter and is not seen: change weights under ``torch.no_grad()``
+    instead."""
+    return _prepared(w, "_kernel_layout",
+                     lambda v: v.permute(2, 1, 0).contiguous())
+
+
+def kernel_weight_bf16(w: torch.Tensor) -> torch.Tensor:
+    """Torch conv weight [C_out, C_in, k] on a GPU -> K2-bf16's bf16
+    [k, NP, CP] ([tap][out][in]: the tensor cores' column-major B operand),
+    rounded to nearest even and zero-padded to the kernel's tiling (CP = C
+    rounded up to 16, NP = C rounded up to whole output passes, both from
+    the built library). Kept on ``w`` under ``kernel_weight``'s rules."""
+    def make(v):
+        C, _, k = v.shape
+        lib = _tc_lib()
+        w_k = v.new_zeros((k, lib.amp_tc_weight_rows(C),
+                           lib.amp_tc_weight_cols(C)), dtype=torch.bfloat16)
+        w_k[:, :C, :C] = v.permute(2, 0, 1)
+        return w_k
+    return _prepared(w, "_kernel_layout_bf16", make)
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,6 +145,18 @@ def _layer_lib():
     lib.amp_aa_conv.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     lib.amp_aa_conv.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_lib():
+    lib = _build.load("amp_layer_tc")
+    for fn in (lib.amp_tc_weight_rows, lib.amp_tc_weight_cols):
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
+    lib.amp_aa_conv_tc.argtypes = [ctypes.c_void_p] * 6 \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.amp_aa_conv_tc.restype = ctypes.c_int
     return lib
 
 
@@ -138,9 +193,26 @@ def _aa_conv(x, alpha, w, b, residual, dilation):
     return y
 
 
-def amp_layer(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int):
+def _aa_conv_tc(x, alpha, w, b, residual, dilation):
+    B, T, C = x.shape
+    w_k = kernel_weight_bf16(w)
+    y = torch.empty_like(x)
+    _build.launch(_tc_lib().amp_aa_conv_tc, x.device, x.data_ptr(),
+                  alpha.data_ptr(), w_k.data_ptr(), b.data_ptr(),
+                  0 if residual is None else residual.data_ptr(),
+                  y.data_ptr(), B, T, C, w.shape[-1], dilation)
+    amp_layer.launches_bf16 += 1
+    return y
+
+
+def amp_layer(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int,
+              bf16: bool = False):
     """x [B, T, C] float32; alpha* [C]; w* torch conv weights [C, C, k]
-    (odd k); b* [C] -> [B, T, C]. On CUDA, C must be a multiple of 4."""
+    (odd k); b* [C] -> [B, T, C]. ``bf16`` is the JAX kernel's
+    ``mxu_bf16``: on a CUDA tensor it selects K2-bf16, else the float32 K2.
+    On a CPU tensor the float32 plain version runs whatever ``bf16`` says,
+    as JAX on the CPU runs the unfused float32 layer. On CUDA, C must be a
+    multiple of 4."""
     if x.device.type == "cpu":
         return amp_layer_plain(x, alpha1, w1, b1, alpha2, w2, b2, dilation)
     B, T, C = x.shape
@@ -150,8 +222,9 @@ def amp_layer(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int):
         raise ValueError(f"amp_layer kernel needs C % 4 == 0 and odd k, "
                          f"got C={C}, k={k}")
     _check_layer(C, k, alpha1, w1, b1, alpha2, w2, b2, x.device)
-    h = _aa_conv(x, alpha1, w1, b1, None, dilation)
-    return _aa_conv(h, alpha2, w2, b2, x, 1)
+    aa_conv = _aa_conv_tc if bf16 else _aa_conv
+    h = aa_conv(x, alpha1, w1, b1, None, dilation)
+    return aa_conv(h, alpha2, w2, b2, x, 1)
 
 
 def amp_block(x, layer_params, dilations):
@@ -200,4 +273,5 @@ def amp_block(x, layer_params, dilations):
 
 
 amp_layer.launches = 0
+amp_layer.launches_bf16 = 0
 amp_block.launches = 0

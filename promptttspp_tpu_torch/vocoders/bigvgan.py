@@ -8,8 +8,9 @@ Parameter names follow the reference's torch ``state_dict``
 (``upsamples.0.weight``, ``mrfs.0.0.layers.0.conv1.weight``,
 ``mrfs.0.0.layers.0.act1.act.alpha``, ...); weight norm stays folded, as in
 the JAX package. Every AMPLayer runs through
-``ops/kernels/amp.py::amp_layer`` (kernel K2 on a CUDA tensor) and the final
-activation through kernel K1.
+``ops/kernels/amp.py::amp_layer`` (on a CUDA tensor kernel K2-bf16 at the
+default ``conv_precision``, K2 at "highest") and the final activation
+through kernel K1.
 """
 
 from __future__ import annotations
@@ -40,9 +41,10 @@ class ConvTranspose1d(nn.ConvTranspose1d):
 class AMPLayer(nn.Module):
     """AA-snake -> dilated conv -> AA-snake -> conv, plus the residual.
 
-    ``conv_precision`` is kept for the JAX interface ("default" = bf16
-    operands there, "highest" = f32); the CUDA kernel computes float32 for
-    both, which meets both of the JAX kernel's tolerances."""
+    ``conv_precision`` as in JAX: "default" runs the channel mix with bf16
+    operands and float32 accumulation (kernel K2-bf16 on a CUDA tensor),
+    "highest" in float32 (kernel K2). On a CPU tensor both run the float32
+    plain version, as JAX on the CPU runs the unfused float32 layer."""
 
     def __init__(self, channels: int, kernel_size: int, dilation: int,
                  conv_precision: str = "default"):
@@ -59,7 +61,7 @@ class AMPLayer(nn.Module):
         return amp_kernel.amp_layer(
             x, self.act1.act.alpha, self.conv1.weight, self.conv1.bias,
             self.act2.act.alpha, self.conv2.weight, self.conv2.bias,
-            self.dilation)
+            self.dilation, bf16=self.conv_precision != "highest")
 
 
 class AMPBlock(nn.Module):

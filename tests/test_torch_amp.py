@@ -1,7 +1,7 @@
-"""Port of the AMPLayer (kernel K2's plain version and the AMPLayer module)
-and of the chained AMPBlock (kernel K3's plain version) against the JAX
-package's fused Pallas kernels in interpret mode and its unfused XLA
-composition, on the CPU.
+"""Port of the AMPLayer (kernel K2's plain version in float32 and in bf16,
+and the AMPLayer module) and of the chained AMPBlock (kernel K3's plain
+version) against the JAX package's fused Pallas kernels in interpret mode
+and its unfused XLA composition, on the CPU.
 
 The CUDA kernels are held to their plain versions on a GPU in
 ``tests/test_torch_cuda.py``; ``kernel_weight``'s refresh rules are checked
@@ -20,6 +20,8 @@ from promptttspp_tpu_torch.vocoders.bigvgan import AMPLayer
 
 # tolerance of tests/test_pallas_amp.py:51 (f32)
 TOL = dict(atol=5e-5, rtol=1e-3)
+# tolerance of tests/test_pallas_amp.py:70 (mxu_bf16=True against f32)
+BF16_TOL = dict(atol=3e-2, rtol=1e-2)
 
 
 def _params(T, C, k, seed=0):
@@ -51,6 +53,30 @@ def test_plain_matches_fused_pallas(T, C, k, dil, tile):
     out = k2.amp_layer(t["x"], t["a1"], _torch_w(p["w1"]), t["b1"], t["a2"],
                        _torch_w(p["w2"]), t["b2"], dil)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("T,C,k,dil,tile", [
+    (300, 32, 7, 3, 128),   # tests/test_pallas_amp.py:59 (lane-packed)
+    (120, 128, 11, 5, 64),  # one sample per row
+    (100, 256, 3, 1, 64),   # C > 128
+])
+def test_plain_bf16_matches_fused_pallas_bf16(T, C, k, dil, tile):
+    """K2-bf16's plain version (channel-mix operands rounded to bf16,
+    float32 sums) against the Pallas kernel with ``mxu_bf16=True``, at the
+    JAX package's own bf16 tolerance. The Pallas kernel also rounds AA's
+    FIR operands to bf16 at C < 128; the port does not."""
+    p = _params(T, C, k, seed=2)
+    j = {n: jnp.asarray(v) for n, v in p.items()}
+    ref = fused_amp_layer(j["x"], j["a1"], j["w1"], j["b1"], j["a2"],
+                          j["w2"], j["b2"], dil, tile=tile, interpret=True,
+                          mxu_bf16=True)
+    t = {n: torch.from_numpy(v) for n, v in p.items()}
+    args = (t["x"], t["a1"], _torch_w(p["w1"]), t["b1"], t["a2"],
+            _torch_w(p["w2"]), t["b2"], dil)
+    out = k2.amp_layer_plain(*args, bf16=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **BF16_TOL)
+    # the rounding is really applied: not the float32 result
+    assert not torch.equal(out, k2.amp_layer_plain(*args))
 
 
 @pytest.mark.parametrize("T,C,k,dils,tile", [
@@ -133,4 +159,38 @@ def test_module_matches_unfused_jax_module(T, C, k, dil):
         layer.conv2.weight.copy_(_torch_w(p["w2"]))
         layer.conv2.bias.copy_(torch.from_numpy(p["b2"]))
         out = layer(torch.from_numpy(p["x"]))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("conv_precision", ["default", "highest"])
+def test_module_on_cpu_is_float32_for_both_precisions(conv_precision):
+    """JAX on the CPU runs the unfused float32 layer whatever
+    ``conv_precision`` says (``promptttspp_tpu/vocoders/bigvgan.py:140``);
+    so does the port on a CPU tensor, and no kernel is counted."""
+    T, C, k, dil = 90, 16, 7, 3
+    p = _params(T, C, k, seed=3)
+    jparams = {
+        "act1": {"act": {"alpha": p["a1"]}},
+        "act2": {"act": {"alpha": p["a2"]}},
+        "conv1": {"kernel": p["w1"], "bias": p["b1"]},
+        "conv2": {"kernel": p["w2"], "bias": p["b2"]},
+    }
+    ref = JaxAMPLayer(C, k, dil, conv_precision=conv_precision).apply(
+        {"params": jparams}, jnp.asarray(p["x"]))
+    layer = AMPLayer(C, k, dil, conv_precision=conv_precision)
+    with torch.no_grad():
+        layer.act1.act.alpha.copy_(torch.from_numpy(p["a1"]))
+        layer.act2.act.alpha.copy_(torch.from_numpy(p["a2"]))
+        layer.conv1.weight.copy_(_torch_w(p["w1"]))
+        layer.conv1.bias.copy_(torch.from_numpy(p["b1"]))
+        layer.conv2.weight.copy_(_torch_w(p["w2"]))
+        layer.conv2.bias.copy_(torch.from_numpy(p["b2"]))
+        before = (k2.amp_layer.launches, k2.amp_layer.launches_bf16)
+        out = layer(torch.from_numpy(p["x"]))
+        f32 = k2.amp_layer_plain(
+            torch.from_numpy(p["x"]), layer.act1.act.alpha,
+            layer.conv1.weight, layer.conv1.bias, layer.act2.act.alpha,
+            layer.conv2.weight, layer.conv2.bias, dil)
+    assert (k2.amp_layer.launches, k2.amp_layer.launches_bf16) == before
+    np.testing.assert_array_equal(out.numpy(), f32.numpy())
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)

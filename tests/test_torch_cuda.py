@@ -27,6 +27,12 @@ from promptttspp_tpu_torch.ops.mel import MelSpectrogramTransform
 
 K1_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_pallas_snake.py:34
 K2_TOL = dict(atol=5e-5, rtol=1e-3)  # tests/test_pallas_amp.py:51
+# K2-bf16 against the bf16 plain version: both round AA's output to bf16,
+# but AA computed in another order can round to the neighbouring bf16 value
+# (one 2^-8 relative step); such flips move an output by up to ~1.5e-3 at
+# gain-1 weights
+K2_BF16_TOL = dict(atol=1e-2, rtol=1e-3)
+K2_BF16_F32_TOL = dict(atol=3e-2, rtol=1e-2)  # tests/test_pallas_amp.py:70
 
 pytestmark = pytest.mark.cuda
 
@@ -104,6 +110,66 @@ def test_k2_matches_plain(dev, B, T, C, k, d):
     torch.cuda.synchronize()
     assert k2.amp_layer.launches == before + 2
     torch.testing.assert_close(out, k2.amp_layer_plain(*args), **K2_TOL)
+
+
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
+@pytest.mark.parametrize("k,d", [(3, 1), (7, 3), (11, 5)])
+def test_k2_bf16_matches_plain(dev, C, k, d):
+    """K2-bf16 at the flagship's widths and kernel sizes (weights of gain 1
+    at most, as in chip_smoke.py) against the bf16 plain version, against
+    the float32 one at the JAX package's bf16 tolerance, and against
+    itself: two launches are equal bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    ws = min(0.05, 1.0 / math.sqrt(k * C))
+    args = (_randn(g, 1, 1500, C, scale=0.3), _randn(g, C, scale=0.2),
+            _randn(g, C, C, k, scale=ws), _randn(g, C, scale=0.1),
+            _randn(g, C, scale=0.2), _randn(g, C, C, k, scale=ws),
+            _randn(g, C, scale=0.1), d)
+    before = (k2.amp_layer.launches, k2.amp_layer.launches_bf16)
+    out = k2.amp_layer(*args, bf16=True)
+    again = k2.amp_layer(*args, bf16=True)
+    torch.cuda.synchronize()
+    assert (k2.amp_layer.launches, k2.amp_layer.launches_bf16) == (
+        before[0], before[1] + 4)
+    torch.testing.assert_close(out, again, atol=0, rtol=0)
+    torch.testing.assert_close(out, k2.amp_layer_plain(*args, bf16=True),
+                               **K2_BF16_TOL)
+    torch.testing.assert_close(out, k2.amp_layer_plain(*args),
+                               **K2_BF16_F32_TOL)
+
+
+@pytest.mark.parametrize("B,T,C,k,d", [
+    (2, 777, 64, 7, 3), (1, 5, 8, 3, 5), (2, 300, 12, 7, 1),
+    (1, 97, 48, 11, 5), (1, 200, 80, 3, 3), (1, 100, 512, 3, 1),
+    (1, 1, 4, 3, 1)])
+def test_k2_bf16_at_other_shapes(dev, B, T, C, k, d):
+    """Batches, ragged and tiny T, and channel counts that the kernel pads
+    (C not a multiple of 16, output passes partly empty, C > 256)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    ws = min(0.05, 1.0 / math.sqrt(k * C))
+    args = (_randn(g, B, T, C, scale=0.3), _randn(g, C, scale=0.2),
+            _randn(g, C, C, k, scale=ws), _randn(g, C, scale=0.1),
+            _randn(g, C, scale=0.2), _randn(g, C, C, k, scale=ws),
+            _randn(g, C, scale=0.1), d)
+    out = k2.amp_layer(*args, bf16=True)
+    torch.testing.assert_close(out, k2.amp_layer_plain(*args, bf16=True),
+                               **K2_BF16_TOL)
+
+
+def test_kernel_weight_bf16_layout(dev):
+    """[k, NP, CP] bf16: [tap][out][in], rounded to nearest even, zero in
+    the padding, prepared once and again after an in-place update."""
+    w = torch.randn(12, 12, 3, device=dev)
+    w_k = k2.kernel_weight_bf16(w)
+    assert k2.kernel_weight_bf16(w) is w_k
+    assert w_k.dtype == torch.bfloat16 and w_k.shape[0] == 3
+    assert w_k.shape[1] >= 12 and w_k.shape[2] == 16
+    torch.testing.assert_close(w_k[:, :12, :12],
+                               w.permute(2, 0, 1).to(torch.bfloat16),
+                               atol=0, rtol=0)
+    assert not w_k[:, 12:].any() and not w_k[:, :, 12:].any()
+    w.mul_(2.0)
+    assert k2.kernel_weight_bf16(w) is not w_k
 
 
 def _block_args(g, B, T, C, k, dils):
@@ -201,8 +267,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     w = torch.zeros(30, 30, 3, device=dev)
     b = torch.zeros(30, device=dev)
     x30 = torch.zeros(1, 64, 30, device=dev)
-    with pytest.raises(ValueError, match="C % 4"):
-        k2.amp_layer(x30, b, w, b, b, w, b, 1)
+    for bf16 in (False, True):
+        with pytest.raises(ValueError, match="C % 4"):
+            k2.amp_layer(x30, b, w, b, b, w, b, 1, bf16=bf16)
 
 
 class Tok:
@@ -213,13 +280,14 @@ class Tok:
         return ids, np.ones_like(ids)
 
 
-def _tiny_synth(dev, **kw):
+def _tiny_synth(dev, conv_precision="default", **kw):
     model = flagship.bias_duration_head(
         flagship.build_model(tiny_model_config(), dev, 0, TINY_BERT), 3.0)
     voc_cfg = dict(flagship.VOCODER, in_channel=MEL,
                    upsample_initial_channel=64,
                    resblock_kernel_sizes=[3, 7],
-                   resblock_dilations=[[1, 3], [1, 5]])
+                   resblock_dilations=[[1, 3], [1, 5]],
+                   conv_precision=conv_precision)
     vocoder = flagship.build_vocoder(dev, 1, voc_cfg)
     return Synthesizer(model, vocoder, tokenizer=Tok(), device=dev, **kw)
 
@@ -227,23 +295,34 @@ def _tiny_synth(dev, **kw):
 SEQS, PROMPTS = [[5, 9, 22, 40, 3, 17, 64]], ["a calm voice"]
 
 
-def test_tiny_request_kernels_match_plain_versions(dev):
-    synth = _tiny_synth(dev)
+@pytest.mark.parametrize("conv_precision", ["default", "highest"])
+def test_tiny_request_kernels_match_plain_versions(dev, conv_precision):
+    """A "default" vocoder launches only K2-bf16, a "highest" one only the
+    float32 K2; with the plain versions patched in, ``AMPLayer`` passes the
+    same ``bf16`` to ``amp_layer_plain``. The bf16 wav's tolerance covers
+    the A rounding flips of K2_BF16_TOL carried through the later layers."""
+    synth = _tiny_synth(dev, conv_precision)
     frames = 128  # 7 phones x 3 frames, bucketed
     x_T = torch.randn((1, frames, MEL), generator=torch.Generator(
         device=dev).manual_seed(2), device=dev)
     kw = dict(noise_scale=0.0, x_T=x_T, zero_noise=True)
-    n1, n2 = k1.antialias_snake.launches, k2.amp_layer.launches
+    n1 = k1.antialias_snake.launches
+    n2 = (k2.amp_layer.launches, k2.amp_layer.launches_bf16)
     wav_k, mel_k = synth.synthesize(SEQS, PROMPTS, **kw)
     assert k1.antialias_snake.launches == n1 + 1
-    assert k2.amp_layer.launches == n2 + 2 * 2 * 4 * 2  # 2 per layer
+    per_request = 2 * 2 * 4 * 2  # 2 launches per layer
+    bf16 = conv_precision == "default"
+    assert (k2.amp_layer.launches, k2.amp_layer.launches_bf16) == (
+        n2[0] + (0 if bf16 else per_request),
+        n2[1] + (per_request if bf16 else 0))
     with mock.patch.object(k2, "amp_layer", k2.amp_layer_plain), \
             mock.patch.object(k1, "antialias_snake",
                               k1.antialias_snake_plain):
         wav_p, mel_p = synth.synthesize(SEQS, PROMPTS, **kw)
     assert wav_k[0].shape == (21 * 240,)
     np.testing.assert_array_equal(mel_k[0], mel_p[0])
-    np.testing.assert_allclose(wav_k[0], wav_p[0], atol=1e-4)
+    np.testing.assert_allclose(wav_k[0], wav_p[0],
+                               atol=1e-2 if bf16 else 1e-4)
 
 
 def test_async_dispatch_does_not_synchronize(dev):
