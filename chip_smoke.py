@@ -9,16 +9,22 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Build the hand-written kernels from ``promptttspp_tpu_torch/csrc/`` with
    nvcc (one process per source, all at once) and print each kernel's
-   registers and shared memory (``-Xptxas -v``) and the count of tensor-core
-   MMA instructions in K2-bf16's SASS (``cuobjdump -sass``; none fails).
+   registers and shared memory (``-Xptxas -v``) and the counts of bf16 and
+   of TF32 tensor-core MMA instructions in K2's SASS (``cuobjdump -sass``;
+   none of either fails).
 2. Hold kernel K1 (``antialias_snake``) against its plain PyTorch version at
-   the ``act_post`` shape [1, 153600, 32] and at C=256.
+   the ``act_post`` shape [1, 153600, 32], at C=256 and at four small,
+   ragged shapes; print its bandwidth and its share of the bound.
 3. Hold both precisions of kernel K2 (``amp_layer``) against their plain
    versions at every AMPLayer shape of a 640-frame request (each upsample
    stage's (C, T) and every (kernel size, dilation)): K2-bf16 (bf16
    channel mix on the tensor cores, the serving path's) against the bf16
    plain version and against the float32 one at the JAX package's bf16
-   tolerance, and the float32 K2 against the float32 plain version.
+   tolerance, and the float32 K2 (3xTF32 on the tensor cores) against the
+   float32 plain version; per-stage times, and the float32 K2 beside both
+   of its bounds (TF32 tensor cores, float32 CUDA cores). K2-bf16's output
+   bits must equal those of its earlier kernel
+   (``promptttspp_tpu_torch/tools/k2_bits.py``).
 4. Build the flagship model and vocoder at full width from seeds (duration
    head biased to 10 frames per phone) and run 3 two-phase requests of 64
    phones and a 32-token prompt (640 frames, 6.4 s of audio each) through
@@ -28,16 +34,20 @@ Phases (any failure exits non-zero and prints no result line):
    (fixed x_T, zero diffusion noise, deterministic NSF source, noise_scale
    0) is run with the kernels and again with every kernel replaced by its
    plain version of the same precision, and the waveforms are compared;
-   the same request with the vocoder at ``conv_precision="highest"`` (the
-   float32 K2) gives the bf16 wav's deviation from float32.
-5. Print request wall time and real-time factor, the kernels' times from
-   CUDA events beside their bounds and their plain versions' times, and a
-   device-time profile of one request.
+   the same request with the vocoder at ``conv_precision="highest"``
+   launches only the float32 K2 (72 launches), is held against its float32
+   plain versions and gives the bf16 wav's deviation from float32. With
+   ``return_int16`` the batched request returns PCM16 and a chunked one
+   float32, as in JAX.
+5. Print request wall time and real-time factor and a device-time profile
+   of one request, and one of the same request with the vocoder at
+   ``conv_precision="highest"``.
 6. Hold kernel K3 (``amp_block``, a whole AMPBlock in one launch) against
    its plain version at the 12 AMPBlock shapes of a 640-frame request, and
-   time it beside three float32 ``amp_layer`` calls (which it equals bit
-   for bit), three K2-bf16 calls (what the serving path makes for the same
-   block) and its bound. The serving path does not call K3.
+   time it beside three float32 ``amp_layer`` calls (3xTF32, equal to it
+   within the float32 tolerance), three K2-bf16 calls (what the serving
+   path makes for the same block) and its bound. The serving path does not
+   call K3.
 7. Serving paths, each driven with the launch counts set to 0 just before
    and read just after: speculative requests (bucket predicted at 10
    frames per phone, no mispredict); a forced mispredict (5 frames per
@@ -56,7 +66,11 @@ Phases (any failure exits non-zero and prints no result line):
 
 TF32 is switched off for cuDNN convolutions and cuBLAS matrix products, so
 the plain versions are full float32 references; the bf16 plain version
-rounds only the channel mix's operands to bf16.
+rounds only the channel mix's operands to bf16. Kernel times are CUDA-event
+means over launches queued behind a spin kernel, so the host's launch cost
+(the wrappers' Python) stays out of them; a kernel timing in which the
+device caught up with the host is taken again behind a longer spin, and
+fails the run if it still is.
 Exits non-zero without a GPU, or outside the repository.
 """
 
@@ -73,11 +87,12 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit): HBM3 rate,
-# float32 on the CUDA cores and dense bf16 on the tensor cores (K2-bf16's
-# channel mix).
+# float32 on the CUDA cores, dense bf16 (K2-bf16's channel mix) and dense
+# TF32 (the float32 K2's, three passes) on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
+TF32_TC_FLOP_PER_S = 494.7e12
 # flops per output element of the anti-aliased snake: two 2x-rate values
 # each of 6 taps (12) + the x2 scale (1) + snake (u*a, 7-fma sin^2 with its
 # range reduction ~18, scale and add: ~21), then the 12-tap downsample (24)
@@ -106,6 +121,9 @@ N_TURNS = 4  # alternated runs of each of two serving variants
 # a spin kernel queued before a request's inputs are staged: 1e9 clock
 # cycles, about 0.5 s at the H100's 1.98 GHz, far longer than the staging
 SPIN_CYCLES = 1_000_000_000
+# the spin kernel a kernel timing queues its launches behind: 2e7 cycles,
+# about 10 ms, longer than the host takes to launch them
+TIMING_SPIN_CYCLES = 20_000_000
 
 PHONES, PROMPT_LEN, FRAMES, N_REQUESTS, N_TIMED = 64, 32, 640, 3, 7
 
@@ -118,19 +136,37 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> float:
+def cuda_ms(fn, iters: int = 5, warmup: int = 1,
+            kernel: bool = True) -> float:
+    """Device time per call of ``fn``: CUDA events around ``iters`` calls
+    queued behind a spin kernel, so the device runs them back to back and
+    the host's launch cost stays out. A ``kernel`` timing in which the
+    device reached the first call before the host had queued the last is
+    taken again behind a spin 4 times longer, up to three times; then it
+    raises. The plain versions (``kernel=False``) copy their FIR taps from
+    host memory, which waits for the device: their times include the
+    host's gaps."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    spin = TIMING_SPIN_CYCLES
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        caught_up = start.query()
+        end.synchronize()
+        if not (kernel and caught_up):
+            return start.elapsed_time(end) / iters
+        spin *= 4
+    raise RuntimeError(f"cuda_ms: the device caught up with the host "
+                       f"behind a spin of {spin // 4} cycles")
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -163,6 +199,19 @@ def k2_bf16_bound(B, T, C, k):
     mix = 2 * 2 * k * C * C * B * T
     fp32 = 2 * B * T * C * AA_FLOPS + 3 * B * T * C
     return (nbytes / HBM_BYTES_PER_S, mix / BF16_TC_FLOP_PER_S,
+            fp32 / FP32_FLOP_PER_S)
+
+
+def k2_f32_tc_bound(B, T, C, k):
+    """One AMPLayer with the channel mix as 3xTF32: x read and y written
+    once, both convs' weights in float32 and the four per-channel vectors;
+    three passes of the two convs' mix at the TF32 tensor-core peak, AA,
+    bias and the residual add at the float32 peak. Returns the three times
+    in seconds (bytes, mix, float32)."""
+    nbytes = k2_cost(B, T, C, k)[0]
+    mix = 3 * 2 * 2 * k * C * C * B * T
+    fp32 = 2 * B * T * C * AA_FLOPS + 3 * B * T * C
+    return (nbytes / HBM_BYTES_PER_S, mix / TF32_TC_FLOP_PER_S,
             fp32 / FP32_FLOP_PER_S)
 
 
@@ -216,6 +265,7 @@ def main() -> int:
         from promptttspp_tpu_torch.ops.kernels import _build
         from promptttspp_tpu_torch.ops.kernels import amp as k2
         from promptttspp_tpu_torch.ops.kernels import snake as k1
+        from promptttspp_tpu_torch.tools import k2_bits
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}",
               file=sys.stderr)
@@ -244,11 +294,12 @@ def main() -> int:
                     or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     n_mma = tensor_core_mmas(_build, "amp_layer_tc")
-    print(f"phase 1: {n_mma} tensor-core MMA instructions (HMMA/HGMMA) in "
-          "K2-bf16's SASS", flush=True)
-    if n_mma == 0:
-        print("chip_smoke: K2-bf16 has no tensor-core MMA instruction",
-              file=sys.stderr)
+    print(f"phase 1: tensor-core MMA instructions (HMMA/HGMMA) in K2's "
+          f"SASS: {n_mma['bf16']} bf16 (K2-bf16), {n_mma['tf32']} TF32 "
+          "(the float32 K2)", flush=True)
+    if not (n_mma["bf16"] and n_mma["tf32"]):
+        print(f"chip_smoke: K2's SASS lacks bf16 or TF32 tensor-core MMA "
+              f"instructions: {n_mma}", file=sys.stderr)
         return 1
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -256,7 +307,10 @@ def main() -> int:
 
     # -- phase 2: K1 against its plain version ------------------------------
     k1_err, k1_row = 0.0, None
-    for shape in [(1, FRAMES * 240, 32), (1, FRAMES * 6, 256)]:
+    # act_post of the main path, a C=256 stage, then small and ragged shapes
+    # (C below a warp or not a multiple of 32, batches, T inside one run)
+    for shape in [(1, FRAMES * 240, 32), (1, FRAMES * 6, 256), (2, 300, 4),
+                  (1, 1000, 12), (2, 513, 48), (2, 9, 12)]:
         x, alpha = randn(*shape), 0.3 * randn(shape[-1])
         y = k1.antialias_snake(x, alpha)
         ref = k1.antialias_snake_plain(x, alpha)
@@ -266,13 +320,20 @@ def main() -> int:
         ok = torch.allclose(y, ref, **K1_TOL)
         if not ok:
             failures.append(f"K1 {shape}: max abs err {err:.3g}")
-        ms = cuda_ms(lambda: k1.antialias_snake(x, alpha), iters=20)
-        plain = cuda_ms(lambda: k1.antialias_snake_plain(x, alpha), iters=5)
-        bms, by = bound_ms(*k1_cost(*shape))
+        if shape[1] < FRAMES * 6:
+            print(f"phase 2: K1 {list(shape)} max_abs_err {err:.3g} "
+                  f"({'ok' if ok else 'FAIL'})", flush=True)
+            continue
+        ms = cuda_ms(lambda: k1.antialias_snake(x, alpha), iters=50)
+        plain = cuda_ms(lambda: k1.antialias_snake_plain(x, alpha), iters=5,
+                        kernel=False)
+        nbytes, flops = k1_cost(*shape)
+        bms, by = bound_ms(nbytes, flops)
         print(f"[{gpu}] phase 2: K1 antialias_snake {list(shape)} "
               f"max_abs_err {err:.3g} ({'ok' if ok else 'FAIL'}); kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
-              f"({by})", flush=True)
+              f"{ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e12:.2f} TB/s, "
+              f"{bms / ms:.0%} of the bound), plain {plain:.4f} ms, bound "
+              f"{bms:.4f} ms ({by})", flush=True)
         if k1_row is None:  # the act_post shape of the main path
             k1_row = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                           shape=list(shape))
@@ -280,6 +341,16 @@ def main() -> int:
     # -- phase 3: both K2 precisions against their plain versions ----------
     voc_cfg = flagship.VOCODER
     k2_row, k2bf_row = phase_k2(k2, randn, voc_cfg, gpu, failures)
+    bits = k2_bits.fingerprints(k2, dev)
+    same_bits = {case: fp == k2_bits.EARLIER.get(case)
+                 for case, fp in bits.items()}
+    print(f"phase 3: K2-bf16 output bits equal those of its earlier kernel "
+          f"at {sum(same_bits.values())} of {len(bits)} shapes: "
+          f"{[(c, bits[c]) for c, ok in same_bits.items() if not ok]} "
+          "differ", flush=True)
+    if not all(same_bits.values()):
+        failures.append("K2-bf16 output bits differ from its earlier "
+                        "kernel's")
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -341,13 +412,22 @@ def main() -> int:
     mel_err = float(np.abs(mel_k[0] - mel_p[0]).max())
     set_conv_precision(vocoder, "highest")
     try:
+        _zero_counts(k1, k2)
         wav_f, _ = synth.synthesize(seqs, prompts, **det)
+        launches_f = _counts(k1, k2)
         with mock.patch.object(k2, "amp_layer", k2.amp_layer_plain), \
                 mock.patch.object(k1, "antialias_snake",
                                   k1.antialias_snake_plain):
             wav_fp, _ = synth.synthesize(seqs, prompts, **det)
     finally:
         set_conv_precision(vocoder, "default")
+    expect_f = {"antialias_snake": 1, "amp_layer_bf16": 0, "amp_layer": 72,
+                "amp_block": 0}
+    print(f"phase 4: conv_precision=\"highest\" request, launches "
+          f"{launches_f} (expected {expect_f})", flush=True)
+    if launches_f != expect_f:
+        failures.append(f"highest request: launch counts {launches_f} != "
+                        f"{expect_f}")
     wav_f_err = float(np.abs(wav_f[0] - wav_fp[0]).max())
     bf16_dev = float(np.abs(wav_k[0] - wav_f[0]).max())
     print(f"[{gpu}] phase 4: deterministic request, kernels vs plain "
@@ -367,6 +447,17 @@ def main() -> int:
     want = np.clip(np.round(wav_k[0] * 32767.0), -32768, 32767)
     if pcm[0].dtype != np.int16 or np.abs(pcm[0] - want).max() > 1:
         failures.append("PCM16 output disagrees with the float wav")
+    # as in JAX, return_int16 quantizes only the batched vocoder's output
+    chunked16 = Synthesizer(model, vocoder, tokenizer=synth.tokenizer,
+                            device=dev, vocoder_mode="chunked",
+                            chunk_frames=CHUNK, halo_frames=HALO,
+                            return_int16=True)
+    wav_c16, _ = chunked16.synthesize(seqs, prompts, **det)
+    print(f"phase 4: return_int16: batched wav {pcm[0].dtype}, chunked wav "
+          f"{wav_c16[0].dtype}", flush=True)
+    if wav_c16[0].dtype != np.float32:
+        failures.append(f"return_int16 chunked request gave "
+                        f"{wav_c16[0].dtype}, not float32")
 
     # -- phase 5: timings ----------------------------------------------------
     for i, wall in enumerate(walls):
@@ -382,6 +473,11 @@ def main() -> int:
           f"{max(walls[N_REQUESTS:]) * 1e3:.1f}), RTF {steady / audio_s:.5f}",
           flush=True)
     profile_request(synth, seqs, prompts, gpu, steady)
+    set_conv_precision(vocoder, "highest")
+    try:
+        profile_request(synth, seqs, prompts, gpu, None, "highest")
+    finally:
+        set_conv_precision(vocoder, "default")
 
     # -- phase 6: K3 against its plain version ------------------------------
     k3_row = phase_k3(k2, randn, voc_cfg, gpu, failures)
@@ -412,14 +508,16 @@ def main() -> int:
              max_abs_dev_from_fp32_plain=k2bf_row["dev_f32"],
              per=f"{per_request} (72 launches), mxu_bf16=True"),
         dict(name="amp_layer", route="cuda",
-             source="promptttspp_tpu_torch/csrc/amp_layer.cu",
+             source="promptttspp_tpu_torch/csrc/amp_layer_tc.cu",
              replaces="promptttspp_tpu/ops/pallas/amp.py:332",
              launches=launches["amp_layer"], max_abs_err=k2_row["err"],
              ms=k2_row["ms"], plain_ms=k2_row["plain_ms"],
              bound_ms=k2_row["bound_ms"], bound_by=k2_row["bound_by"],
-             library_ms=None,
-             per=f"{per_request} (72 launches), mxu_bf16=False; serving "
-                 "runs it only for a conv_precision=\"highest\" vocoder"),
+             library_ms=None, bound_ms_cuda_cores=k2_row["bound_cc_ms"],
+             launches_highest_request=launches_f["amp_layer"],
+             per=f"{per_request} (72 launches), mxu_bf16=False as 3xTF32; "
+                 "serving runs it only for a conv_precision=\"highest\" "
+                 "vocoder"),
         dict(name="amp_block", route="cuda",
              source="promptttspp_tpu_torch/csrc/amp_block.cu",
              replaces="promptttspp_tpu/ops/pallas/amp.py:348",
@@ -443,13 +541,16 @@ def main() -> int:
 
 def tensor_core_mmas(_build, name):
     """Tensor-core MMA instructions (HMMA, HGMMA) in a built library's SASS,
-    from the toolkit's ``cuobjdump -sass``."""
+    from the toolkit's ``cuobjdump -sass``, by operand type: {"bf16": n,
+    "tf32": n}."""
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
                          capture_output=True, text=True, timeout=300,
                          check=True)
-    return sum(1 for line in out.stdout.splitlines()
-               if "HMMA" in line or "HGMMA" in line)
+    mmas = [line for line in out.stdout.splitlines()
+            if "HMMA" in line or "HGMMA" in line]
+    return {t: sum(1 for line in mmas if t.upper() in line)
+            for t in ("bf16", "tf32")}
 
 
 def set_conv_precision(vocoder, precision):
@@ -471,11 +572,13 @@ def phase_k2(k2, randn, voc_cfg, gpu, failures):
 
     import torch
 
-    f32 = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0.0)
+    f32 = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_cc_ms=0.0,
+               flops=0.0, t_bytes=0.0, t_mix=0.0, t_fp32=0.0)
     bf = dict(err=0.0, dev_f32=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
               t_bytes=0.0, t_mix=0.0, t_fp32=0.0)
     for C, T in stage_shapes(voc_cfg, FRAMES):
-        st = dict(ms=0.0, plain_ms=0.0, bf_ms=0.0, bf_plain_ms=0.0)
+        st = dict(ms=0.0, plain_ms=0.0, bf_ms=0.0, bf_plain_ms=0.0,
+                  bound=0.0, bound_cc=0.0, bf_bound=0.0)
         for k, dils in zip(voc_cfg["resblock_kernel_sizes"],
                            voc_cfg["resblock_dilations"]):
             ws = min(0.05, 1.0 / math.sqrt(k * C))
@@ -504,50 +607,66 @@ def phase_k2(k2, randn, voc_cfg, gpu, failures):
                 if not torch.allclose(yb, ref, **K2_BF16_F32_TOL):
                     failures.append(f"K2-bf16 {shape} vs float32: max abs "
                                     f"dev {dev:.3g}")
-                ms = cuda_ms(lambda: k2.amp_layer(*args_), iters=5)
+                ms = cuda_ms(lambda: k2.amp_layer(*args_), iters=10)
                 msb = cuda_ms(lambda: k2.amp_layer(*args_, bf16=True),
                               iters=10)
-                plain = cuda_ms(lambda: k2.amp_layer_plain(*args_), iters=3)
+                plain = cuda_ms(lambda: k2.amp_layer_plain(*args_), iters=3,
+                                kernel=False)
                 plainb = cuda_ms(
-                    lambda: k2.amp_layer_plain(*args_, bf16=True), iters=3)
+                    lambda: k2.amp_layer_plain(*args_, bf16=True), iters=3,
+                    kernel=False)
                 nbytes, flops = k2_cost(1, T, C, k)
-                bms, _ = bound_ms(nbytes, flops)
+                bms_cc, _ = bound_ms(nbytes, flops)
                 times = k2_bf16_bound(1, T, C, k)
+                times_f = k2_f32_tc_bound(1, T, C, k)
                 for key, v in zip(("t_bytes", "t_mix", "t_fp32"), times):
                     bf[key] += v * 1e3
+                for key, v in zip(("t_bytes", "t_mix", "t_fp32"), times_f):
+                    f32[key] += v * 1e3
                 bf["bound_ms"] += max(times) * 1e3
-                f32["bound_ms"] += bms
+                f32["bound_ms"] += max(times_f) * 1e3
+                f32["bound_cc_ms"] += bms_cc
                 f32["flops"] += flops
                 for key, v in (("ms", ms), ("plain_ms", plain),
-                               ("bf_ms", msb), ("bf_plain_ms", plainb)):
+                               ("bf_ms", msb), ("bf_plain_ms", plainb),
+                               ("bound", max(times_f) * 1e3),
+                               ("bound_cc", bms_cc),
+                               ("bf_bound", max(times) * 1e3)):
                     st[key] += v
                 print(f"  K2 {shape}: bf16 err {errb:.3g} (vs float32 plain "
                       f"{dev:.3g}) kernel {msb:.4f} ms plain {plainb:.4f} "
                       f"ms bound {max(times) * 1e3:.4f} ms; float32 err "
                       f"{err:.3g} kernel {ms:.4f} ms plain {plain:.4f} ms "
-                      f"bound {bms:.4f} ms", flush=True)
+                      f"bound {max(times_f) * 1e3:.4f} ms (CUDA cores "
+                      f"{bms_cc:.4f} ms)", flush=True)
         f32["ms"] += st["ms"]
         f32["plain_ms"] += st["plain_ms"]
         bf["ms"] += st["bf_ms"]
         bf["plain_ms"] += st["bf_plain_ms"]
         print(f"[{gpu}] phase 3: K2 amp_layer stage C={C} T={T} (9 layers): "
               f"K2-bf16 {st['bf_ms']:.3f} ms (plain {st['bf_plain_ms']:.3f} "
-              f"ms), float32 K2 {st['ms']:.3f} ms (plain "
-              f"{st['plain_ms']:.3f} ms)", flush=True)
-    f32["bound_by"] = "operations"
-    parts = {"bytes": bf["t_bytes"], "operations": max(bf["t_mix"],
-                                                       bf["t_fp32"])}
-    bf["bound_by"] = max(parts, key=parts.get)
+              f"ms, bound {st['bf_bound']:.3f} ms), float32 K2 "
+              f"{st['ms']:.3f} ms (plain {st['plain_ms']:.3f} ms, bound "
+              f"{st['bound']:.3f} ms on the TF32 tensor cores, "
+              f"{st['bound_cc']:.3f} ms on the CUDA cores)", flush=True)
+    for row in (f32, bf):
+        parts = {"bytes": row["t_bytes"],
+                 "operations": max(row["t_mix"], row["t_fp32"])}
+        row["bound_by"] = max(parts, key=parts.get)
     print(f"[{gpu}] phase 3: K2 amp_layer, 36 layers of a {FRAMES}-frame "
           f"request: K2-bf16 {bf['ms']:.3f} ms, plain {bf['plain_ms']:.3f} "
           f"ms, bound {bf['bound_ms']:.3f} ms (sums of bytes "
           f"{bf['t_bytes']:.3f}, bf16 mix {bf['t_mix']:.3f}, float32 "
           f"{bf['t_fp32']:.3f} ms), max abs err {bf['err']:.3g}, max abs "
           f"dev from the float32 plain version {bf['dev_f32']:.3g}; float32 "
-          f"K2 {f32['ms']:.3f} ms "
-          f"({f32['flops'] / (f32['ms'] * 1e-3) / 1e12:.2f} TFLOP/s fp32), "
-          f"plain {f32['plain_ms']:.3f} ms, bound {f32['bound_ms']:.3f} ms "
-          f"(operations), max abs err {f32['err']:.3g}", flush=True)
+          f"K2 (3xTF32) {f32['ms']:.3f} ms "
+          f"({f32['flops'] / (f32['ms'] * 1e-3) / 1e12:.2f} TFLOP/s of "
+          f"float32 work), plain {f32['plain_ms']:.3f} ms, bound "
+          f"{f32['bound_ms']:.3f} ms on the TF32 tensor cores (sums of bytes "
+          f"{f32['t_bytes']:.3f}, 3 x TF32 mix {f32['t_mix']:.3f}, float32 "
+          f"{f32['t_fp32']:.3f} ms; {f32['bound_by']}) and "
+          f"{f32['bound_cc_ms']:.3f} ms on the CUDA cores (operations), max "
+          f"abs err {f32['err']:.3g}", flush=True)
     return f32, bf
 
 
@@ -590,7 +709,7 @@ def phase_k3(k2, randn, voc_cfg, gpu, failures):
             lms = cuda_ms(layers, iters=5)
             lbms = cuda_ms(lambda: layers(True), iters=5)
             plain = cuda_ms(lambda: k2.amp_block_plain(x, params, dils),
-                            iters=2)
+                            iters=2, kernel=False)
             nbytes, flops = k3_cost(1, T, C, k, len(dils))
             bms, by = bound_ms(nbytes, flops)
             for key, v in (("ms", ms), ("plain_ms", plain),
@@ -866,9 +985,10 @@ def phase_serving(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
                         f"{bool(np.isfinite(w).all())}")
 
 
-def profile_request(synth, seqs, prompts, gpu, wall_s):
-    """Device time by kernel over one request (torch.profiler); the table
-    goes to build/chip_smoke/profile_request.txt."""
+def profile_request(synth, seqs, prompts, gpu, wall_s, precision="default"):
+    """Device time by kernel over one request (torch.profiler) at the
+    vocoder's ``precision``; the table goes to
+    build/chip_smoke/profile_request_<precision>.txt."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -887,20 +1007,22 @@ def profile_request(synth, seqs, prompts, gpu, wall_s):
                   reverse=True)
     total_us = sum(r[0] for r in rows)
     if total_us == 0:
-        print(f"[{gpu}] profile: no device time recorded (not measured)")
+        print(f"[{gpu}] profile ({precision}): no device time recorded (not "
+              "measured)")
         return
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     lines = [f"{us / 1e3:10.3f} ms {n:7d}x  {key}" for us, n, key in rows]
-    ours = {"K2-bf16": "aa_conv_tc_kernel", "K2": "aa_conv_kernel",
+    ours = {"K2-bf16": "Bf16Mix", "K2": "Tf32x3Mix",
             "K1": "antialias_snake_kernel"}
     sums = {name: [sum(r[i] for r in rows if pat in r[2]) for i in (0, 1)]
             for name, pat in ours.items()}
-    (OUT_DIR / "profile_request.txt").write_text(
-        f"{gpu}\none two-phase 640-frame request; device ms, calls, name\n"
-        + "\n".join(lines) + "\n")
-    print(f"[{gpu}] profile of one request: device busy "
-          f"{total_us / 1e3:.1f} ms (sum of kernel times) of "
-          f"{wall_s * 1e3:.1f} ms wall; the port's kernels: "
+    (OUT_DIR / f"profile_request_{precision}.txt").write_text(
+        f"{gpu}\none two-phase 640-frame request, conv_precision "
+        f"{precision}; device ms, calls, name\n" + "\n".join(lines) + "\n")
+    wall = "" if wall_s is None else f" of {wall_s * 1e3:.1f} ms wall"
+    print(f"[{gpu}] profile of one request ({precision}): device busy "
+          f"{total_us / 1e3:.1f} ms (sum of kernel times){wall}; the port's "
+          "kernels: "
           + ", ".join(f"{name} {us / 1e3:.3f} ms ({n} launches)"
                       for name, (us, n) in sums.items())
           + "; top kernels:")

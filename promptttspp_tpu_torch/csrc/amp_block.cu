@@ -3,8 +3,10 @@
 // in one launch, float32, [B, T, C] channel-last.
 //
 // Replaces promptttspp_tpu/ops/pallas/amp.py::fused_amp_block with more than
-// one layer (its chained form). The block equals the layers run one after
-// another (K2, amp_layer.cu), so the same edge rules hold by construction:
+// one layer (its chained form). The block computes the layers run one after
+// another (the float32 K2, amp_layer_tc.cu, whose 3xTF32 mix sums in
+// another order, so the two agree within float32 rounding), with the same
+// edge rules:
 // every anti-aliased snake reads its input with sample indices clamped to
 // [0, T) (the host edge pad for layer 0, "ro" between layers, and conv1's
 // output replicated before AA2), the 2x-rate snake values are clamped to
@@ -30,8 +32,8 @@
 // A = AA(src) over the chunk plus the conv halo for all C channels in shared
 // memory (32 channels at a time through staged src rows and 2x-rate snake
 // values), then each thread accumulates a 4 x 4 tile of (rows, output
-// channels) over (tap, input channel) with float4 weight loads from L2, as
-// K2 does. Only the tile's own TT samples are written to y.
+// channels) over (tap, input channel) with float4 weight loads from L2.
+// Only the tile's own TT samples are written to y.
 #include <cstddef>
 #include <cstdint>
 

@@ -1,6 +1,7 @@
 // Device math shared by the vocoder kernels (antialias_snake.cu,
-// amp_layer.cu): the kaiser-sinc taps, sin^2 by polynomial, the Snake, and
-// the 2x up/down FIR taps of the anti-aliased activation.
+// amp_layer_tc.cu, amp_block.cu): the kaiser-sinc taps, sin^2 by
+// polynomial, the Snake, the 2x up/down FIR taps of the anti-aliased
+// activation, and AA over a run of samples from registers (aa_run).
 //
 // Counterpart of promptttspp_tpu/ops/pallas/polyops.py::sin2 and of the tap
 // formulas in promptttspp_tpu/ops/pallas/snake.py (module docstring):
@@ -70,6 +71,81 @@ __device__ __forceinline__ float down2_at(const float* s, int ld) {
 #pragma unroll
   for (int n = 0; n < 12; ++n) acc = fmaf(kFir[n], s[n * ld], acc);
   return acc;
+}
+
+// The 2x-rate Snake value at m (in [0, 2T)) of one channel, read from
+// device memory: xc points at the channel's sample 0, samples C apart;
+// indices clamp to [0, T).
+__device__ __forceinline__ float snake_at(const float* __restrict__ xc, int C,
+                                          int T, int m, float a,
+                                          float inv_a) {
+  const int q = m >> 1;
+  const int o = (m & 1) ? -2 : -3;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+    acc = fmaf(kFir[2 * i + (m & 1)],
+               xc[(size_t)min(max(q + o + i, 0), T - 1) * C], acc);
+  return snake(2.f * acc, a, inv_a);
+}
+
+// The 2x-rate Snake values and down-FIR sums of aa_run, with (EDGE) or
+// without the substitution of the end values s_lo, s_hi for m outside
+// [0, 2T).
+template <int R, bool EDGE, class Emit>
+__device__ __forceinline__ void aa_run_sums(const float (&xw)[R + 10],
+                                            float a, float inv_a, int m0,
+                                            int T, float s_lo, float s_hi,
+                                            Emit& emit) {
+  float out[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[r] = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < 2 * R + 10; ++jj) {
+    // m = m0 + jj is odd for even jj: taps kFir[2i + 1] from x[q - 2]
+    float u = 0.f;
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+      u = fmaf(kFir[2 * i + (jj % 2 == 0 ? 1 : 0)], xw[jj / 2 + i], u);
+    float s = snake(2.f * u, a, inv_a);
+    if constexpr (EDGE) {
+      const int m = m0 + jj;
+      s = m < 0 ? s_lo : (m > 2 * T - 1 ? s_hi : s);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int n = jj - 2 * r;
+      if (n >= 0 && n < 12) out[r] = fmaf(kFir[n], s, out[r]);
+    }
+    if (jj >= 11 && jj % 2 == 1) emit((jj - 11) / 2, out[(jj - 11) / 2]);
+  }
+}
+
+// AA from registers: emit(r, y) with y = down2(snake(up2(x)))[p0 + r] for
+// r < R, one channel (xc, C, T as in snake_at; a = exp(alpha),
+// inv_a = 1 / (a + 1e-9)). The run reads the R + 10 inputs x[p0 - 5 ..]
+// (clamped), forms the 2R + 10 2x-rate Snake values m = 2 p0 - 5 + jj one
+// at a time and adds each into the up to six outputs it feeds: output r
+// sums kFir[n] * s[2r + n], n = 0..11, in down2_at's order, and is emitted
+// as soon as its last term is in; an m outside [0, 2T) takes the value at
+// the nearest end (only runs within 5 samples of an end test for that).
+// Outputs at p0 + r outside [0, T) follow the same formulas; callers mask
+// them.
+template <int R, class Emit>
+__device__ __forceinline__ void aa_run(const float* __restrict__ xc, int C,
+                                       int T, int p0, float a, float inv_a,
+                                       Emit&& emit) {
+  float xw[R + 10];
+#pragma unroll
+  for (int i = 0; i < R + 10; ++i)
+    xw[i] = xc[(size_t)min(max(p0 - 5 + i, 0), T - 1) * C];
+  const int m0 = 2 * p0 - 5;
+  if (m0 < 0 || m0 + 2 * R + 9 > 2 * T - 1)
+    aa_run_sums<R, true>(xw, a, inv_a, m0, T,
+                         snake_at(xc, C, T, 0, a, inv_a),
+                         snake_at(xc, C, T, 2 * T - 1, a, inv_a), emit);
+  else
+    aa_run_sums<R, false>(xw, a, inv_a, m0, T, 0.f, 0.f, emit);
 }
 
 }  // namespace ptts

@@ -115,6 +115,18 @@ _FIXED = {
         return_mask=False),
     ("variance_adaptor",): dict(energy_predictor=None, energy_emb=None),
     ("style_mdn",): dict(dim_wise=True),
+    # The fields of the JAX GaussianDiffusion, DiffNet and SinusoidalPosEmb
+    # (promptttspp_tpu/models/diffusion.py) that a config can set, other
+    # than the ones _model_from_config reads (out_dim, norm_scale, K_step
+    # and DiffNet's widths), at JAX's defaults: the ancestral sampler on
+    # the linear schedule, float32 decode inputs, no pipelined decode, step
+    # embedding scale 1 (DiffNet passes its ``scale`` to SinusoidalPosEmb).
+    # GaussianDiffusion's in_dim is read by nothing in JAX, and a_min/a_max
+    # only when norm_scale is None, which _check_fixed refuses.
+    ("decoder",): dict(schedule_type="linear", pndm_speedup=None,
+                       infer_io_dtype=None, pipeline_mesh=None,
+                       pipeline_microbatches=None, pipeline_batch_axis=None),
+    ("decoder", "denoise_fn"): dict(scale=1.0),
 }
 
 
@@ -127,6 +139,9 @@ def _check_fixed(cfg: Mapping, bert_config: BertConfig):
             if section.get(key, value) != value:
                 raise ValueError(f"model config {'.'.join(path + (key,))}="
                                  f"{section[key]!r} is not ported")
+    if cfg["decoder"].get("norm_scale") is None:
+        raise ValueError("model config decoder.norm_scale=None (the a_min/"
+                         "a_max normalisation) is not ported")
     enc = cfg["encoder"]
     if enc["idim"] != enc["attention_dim"]:
         raise ValueError("encoder idim != attention_dim is not ported")

@@ -91,7 +91,11 @@ class Synthesizer:
         diffusion noise is drawn at the bucket shape, so a larger predicted
         bucket gives another (equally valid) sample than the exact one.
 
-        return_int16: quantize the waveform to PCM16 on the device."""
+        return_int16: quantize the waveform to PCM16 on the device, where
+        the JAX ``Synthesizer`` does: with ``vocoder_mode="batched"``
+        (two-phase requests, those with ``x_T`` or ``zero_noise`` included,
+        speculative and ``synthesize_async``). Chunked vocoding returns
+        float32, and ``synthesize_streaming`` yields float32 chunks."""
         if vocoder_mode not in ("batched", "chunked"):
             raise ValueError(f"vocoder_mode {vocoder_mode!r}: 'batched' or "
                              "'chunked' (sharded vocoding is not ported)")
@@ -255,13 +259,15 @@ class Synthesizer:
         return f0, mel_denorm
 
     def _vocode(self, mel_denorm, f0):
+        """-> wav [B, samples, 1]. Chunked vocoding returns float32 whatever
+        ``return_int16`` says: as in JAX, only the batched vocoder (JAX's
+        fused request program) quantizes."""
         if self.vocoder_mode == "chunked":
-            wav = vocode_chunked(self.vocoder, mel_denorm, f0,
-                                 chunk_frames=self.chunk_frames,
-                                 halo_frames=self.halo_frames,
-                                 upsample=self.upsample, deterministic=True)
-        else:
-            wav = self.vocoder(mel_denorm, f0, deterministic=True)
+            return vocode_chunked(self.vocoder, mel_denorm, f0,
+                                  chunk_frames=self.chunk_frames,
+                                  halo_frames=self.halo_frames,
+                                  upsample=self.upsample, deterministic=True)
+        wav = self.vocoder(mel_denorm, f0, deterministic=True)
         if self.return_int16:
             wav = torch.clamp(torch.round(wav * 32767.0), -32768.0,
                               32767.0).to(torch.int16)

@@ -6,53 +6,58 @@ K2, ``amp_layer``: ``y = x + conv2(AA2(conv1(AA1(x))))``. Replaces
 of kernel K1; conv1 is a k-tap SAME conv with dilation d, conv2 a k-tap
 SAME conv; both C x C with bias.
 
-K2 comes in the two precisions of the JAX kernel's ``mxu_bf16`` flag, which
-the JAX ``AMPLayer`` sets from ``conv_precision``:
+K2 is one kernel, ``csrc/amp_layer_tc.cu``, in the two precisions of the
+JAX kernel's ``mxu_bf16`` flag, which the JAX ``AMPLayer`` sets from
+``conv_precision``. Both run the channel mix on the tensor cores
+(``mma.sync``) with float32 accumulation; AA, bias and residual stay
+float32:
 
-- ``bf16=True`` (``conv_precision="default"``, the flagship's): K2-bf16,
-  ``csrc/amp_layer_tc.cu``. The two operands of each channel mix, AA's
-  output and the conv weight, are rounded to bf16 and multiplied on the
-  tensor cores (``mma.sync`` m16n8k16) with float32 accumulation; AA, bias
-  and residual stay float32. The TPU kernel also feeds AA's FIRs to the MXU
-  in bf16 at C < 128; the port rounds only the channel mix.
-- ``bf16=False`` (``conv_precision="highest"``): K2, ``csrc/amp_layer.cu``,
-  float32 on the CUDA cores.
+- ``bf16=True`` (``conv_precision="default"``, the flagship's): K2-bf16.
+  The two operands of each channel mix, AA's output and the conv weight,
+  are rounded to bf16 (m16n8k16). The TPU kernel also feeds AA's FIRs to
+  the MXU in bf16 at C < 128; the port rounds only the channel mix.
+- ``bf16=False`` (``conv_precision="highest"``): the float32 K2, 3xTF32.
+  Each operand is split into a TF32 big part (rounded to nearest) and the
+  float32 remainder, and each product is small*big + big*small + big*big
+  (m16n8k8), which keeps the mix at float32 accuracy. One-pass TF32 would
+  not.
 
-Each source has one kernel, launched twice per layer:
+The kernel is launched twice per layer:
 
     h = conv1(AA1(x))          (residual: none)
     y = x + conv2(AA2(h))      (residual: x)
 
-Each block stages a time tile plus the conv's halo, computes AA there in
-shared memory, and accumulates the channel mix from shared memory. The
-split meets the edge rules without masks: AA clamps its input to [0, T)
-(edge replication, which for the second launch is exactly "conv1's output
-replicated before AA2"), and the conv reads zeros outside [0, T).
+Each block computes AA over a time tile plus the conv's halo into shared
+memory and accumulates the channel mix from there. The split meets the
+edge rules without masks: AA clamps its input to [0, T) (edge replication,
+which for the second launch is exactly "conv1's output replicated before
+AA2"), and the conv reads zeros outside [0, T).
 
 K3, ``amp_block``: the chained form of ``fused_amp_block`` (n_layers > 1),
-a whole AMPBlock in one launch of ``csrc/amp_block.cu``, in float32. It
-equals the chain of float32 AMPLayers (``amp_block_plain``). A block keeps
-its time tile plus the summed halo of the chain, the running layer output
-and conv1's output in shared memory (or an L2-resident global scratch where
-they do not fit), narrows the valid region stage by stage and writes only
-its tile. Like the JAX package, the vocoder does not call it:
-``vocoders/bigvgan.py::AMPBlock`` runs one K2 call per layer.
+a whole AMPBlock in one launch of ``csrc/amp_block.cu``, in float32 on the
+CUDA cores. It equals the chain of float32 AMPLayers (``amp_block_plain``)
+within float32 rounding: it sums in another order than the float32 K2's
+3xTF32. A block keeps its time tile plus the summed halo of the chain, the
+running layer output and conv1's output in shared memory (or an
+L2-resident global scratch where they do not fit), narrows the valid region
+stage by stage and writes only its tile. Like the JAX package, the vocoder
+does not call it: ``vocoders/bigvgan.py::AMPBlock`` runs one K2 call per
+layer.
 
 What bounds them: the channel mix, 4*k*C^2 flops per time step and layer
 (~2.6e11 flops per 640-frame request over the 36 layers) against ~1 GB of
-x/y traffic. In float32 on the CUDA cores (K2, K3) they are bound by
-operations; with the mix on the bf16 tensor cores (K2-bf16), AA's float32
-work and the bytes bound it about equally. All take the conv weights in a
-kernel layout prepared once per weight tensor (``kernel_weight``,
-``kernel_weight_bf16``; change weights under ``torch.no_grad()``, not
-through ``w.data``); K2's blocks first prefetch theirs into L2, where a
-layout prepared long before may no longer be.
+x/y traffic. K3, in float32 on the CUDA cores, is bound by operations;
+K2-bf16 by AA's float32 work and the bytes about as much as by its mix;
+the float32 K2 by its three TF32 passes. All take the conv weights in a
+kernel layout prepared once per weight tensor (``kernel_weight`` for K3,
+``kernel_weight_bf16`` and ``kernel_weight_tf32x3`` for K2; change weights
+under ``torch.no_grad()``, not through ``w.data``).
 
 ``amp_layer`` and ``amp_block`` launch their kernels for a CUDA tensor and
 run the plain float32 PyTorch versions only for a tensor on the CPU. Their
 launch counts go up by one per kernel launch: two per layer for K2
-(``amp_layer.launches``) and K2-bf16 (``amp_layer.launches_bf16``), one per
-block for K3.
+(``amp_layer.launches`` for the float32 K2, ``amp_layer.launches_bf16``
+for K2-bf16), one per block for K3.
 """
 
 from __future__ import annotations
@@ -110,42 +115,52 @@ def _prepared(w: torch.Tensor, attr: str, make) -> torch.Tensor:
 
 
 def kernel_weight(w: torch.Tensor) -> torch.Tensor:
-    """Torch conv weight [C_out, C_in, k] -> the float32 kernels'
-    [k, C_in, C_out] (one tap's weights for a run of output channels are
-    contiguous). Computed once per weight tensor and kept on it. It is
-    computed again after every change that ``w``'s version counter or
-    storage shows: an in-place op on ``w`` (under ``torch.no_grad()`` too,
-    as ``load_state_dict`` makes), a new ``w.data``, a move. An in-place
-    write into ``w.data`` (``w.data.copy_(...)``) bypasses the version
-    counter and is not seen: change weights under ``torch.no_grad()``
-    instead."""
+    """Torch conv weight [C_out, C_in, k] -> K3's [k, C_in, C_out] (one
+    tap's weights for a run of output channels are contiguous). Computed
+    once per weight tensor and kept on it. It is computed again after every
+    change that ``w``'s version counter or storage shows: an in-place op
+    on ``w`` (under ``torch.no_grad()`` too, as ``load_state_dict`` makes),
+    a new ``w.data``, a move. An in-place write into ``w.data``
+    (``w.data.copy_(...)``) bypasses the version counter and is not seen:
+    change weights under ``torch.no_grad()`` instead."""
     return _prepared(w, "_kernel_layout",
                      lambda v: v.permute(2, 1, 0).contiguous())
 
 
+def tc_weight(v: torch.Tensor, rows: int, cols: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """Torch conv weight [C_out, C_in, k] -> K2's [k, rows, cols] in
+    ``dtype`` ([tap][out][in]: the tensor cores' column-major B operand,
+    bf16 rounded to nearest even), zero beyond C."""
+    C, _, k = v.shape
+    w_k = v.new_zeros((k, rows, cols), dtype=dtype)
+    w_k[:, :C, :C] = v.permute(2, 0, 1)
+    return w_k
+
+
+def _tc_layout(w: torch.Tensor, attr: str, dtype: torch.dtype):
+    def make(v):
+        lib = _tc_lib()
+        C = v.shape[0]
+        return tc_weight(v, lib.amp_tc_weight_rows(C),
+                         lib.amp_tc_weight_cols(C), dtype)
+    return _prepared(w, attr, make)
+
+
 def kernel_weight_bf16(w: torch.Tensor) -> torch.Tensor:
     """Torch conv weight [C_out, C_in, k] on a GPU -> K2-bf16's bf16
-    [k, NP, CP] ([tap][out][in]: the tensor cores' column-major B operand),
-    rounded to nearest even and zero-padded to the kernel's tiling (CP = C
+    [k, NP, CP] (``tc_weight``), zero-padded to the kernel's tiling (CP = C
     rounded up to 16, NP = C rounded up to whole output passes, both from
     the built library). Kept on ``w`` under ``kernel_weight``'s rules."""
-    def make(v):
-        C, _, k = v.shape
-        lib = _tc_lib()
-        w_k = v.new_zeros((k, lib.amp_tc_weight_rows(C),
-                           lib.amp_tc_weight_cols(C)), dtype=torch.bfloat16)
-        w_k[:, :C, :C] = v.permute(2, 0, 1)
-        return w_k
-    return _prepared(w, "_kernel_layout_bf16", make)
+    return _tc_layout(w, "_kernel_layout_bf16", torch.bfloat16)
 
 
-@functools.lru_cache(maxsize=None)
-def _layer_lib():
-    lib = _build.load("amp_layer")
-    lib.amp_aa_conv.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    lib.amp_aa_conv.restype = ctypes.c_int
-    return lib
+def kernel_weight_tf32x3(w: torch.Tensor) -> torch.Tensor:
+    """Torch conv weight [C_out, C_in, k] on a GPU -> the float32 K2's
+    float32 [k, NP, CP], the layout of ``kernel_weight_bf16`` with the
+    weights unrounded (the kernel splits them for 3xTF32). Kept on ``w``
+    under ``kernel_weight``'s rules."""
+    return _tc_layout(w, "_kernel_layout_tf32x3", torch.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,9 +169,10 @@ def _tc_lib():
     for fn in (lib.amp_tc_weight_rows, lib.amp_tc_weight_cols):
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_int
-    lib.amp_aa_conv_tc.argtypes = [ctypes.c_void_p] * 6 \
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.amp_aa_conv_tc.restype = ctypes.c_int
+    for fn in (lib.amp_aa_conv_tc, lib.amp_aa_conv_tf32x3):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -181,27 +197,20 @@ def _check_layer(C, k, alpha1, w1, b1, alpha2, w2, b2, device):
         _build.check(t, name, shape, device)
 
 
-def _aa_conv(x, alpha, w, b, residual, dilation):
+def _aa_conv(x, alpha, w, b, residual, dilation, bf16):
     B, T, C = x.shape
-    w_k = kernel_weight(w)
+    lib = _tc_lib()
+    fn, w_k = ((lib.amp_aa_conv_tc, kernel_weight_bf16(w)) if bf16
+               else (lib.amp_aa_conv_tf32x3, kernel_weight_tf32x3(w)))
     y = torch.empty_like(x)
-    _build.launch(_layer_lib().amp_aa_conv, x.device, x.data_ptr(),
-                  alpha.data_ptr(), w_k.data_ptr(), b.data_ptr(),
+    _build.launch(fn, x.device, x.data_ptr(), alpha.data_ptr(),
+                  w_k.data_ptr(), b.data_ptr(),
                   0 if residual is None else residual.data_ptr(),
                   y.data_ptr(), B, T, C, w.shape[-1], dilation)
-    amp_layer.launches += 1
-    return y
-
-
-def _aa_conv_tc(x, alpha, w, b, residual, dilation):
-    B, T, C = x.shape
-    w_k = kernel_weight_bf16(w)
-    y = torch.empty_like(x)
-    _build.launch(_tc_lib().amp_aa_conv_tc, x.device, x.data_ptr(),
-                  alpha.data_ptr(), w_k.data_ptr(), b.data_ptr(),
-                  0 if residual is None else residual.data_ptr(),
-                  y.data_ptr(), B, T, C, w.shape[-1], dilation)
-    amp_layer.launches_bf16 += 1
+    if bf16:
+        amp_layer.launches_bf16 += 1
+    else:
+        amp_layer.launches += 1
     return y
 
 
@@ -209,7 +218,8 @@ def amp_layer(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int,
               bf16: bool = False):
     """x [B, T, C] float32; alpha* [C]; w* torch conv weights [C, C, k]
     (odd k); b* [C] -> [B, T, C]. ``bf16`` is the JAX kernel's
-    ``mxu_bf16``: on a CUDA tensor it selects K2-bf16, else the float32 K2.
+    ``mxu_bf16``: on a CUDA tensor it selects K2-bf16, else the float32
+    (3xTF32) K2.
     On a CPU tensor the float32 plain version runs whatever ``bf16`` says,
     as JAX on the CPU runs the unfused float32 layer. On CUDA, C must be a
     multiple of 4."""
@@ -222,9 +232,8 @@ def amp_layer(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int,
         raise ValueError(f"amp_layer kernel needs C % 4 == 0 and odd k, "
                          f"got C={C}, k={k}")
     _check_layer(C, k, alpha1, w1, b1, alpha2, w2, b2, x.device)
-    aa_conv = _aa_conv_tc if bf16 else _aa_conv
-    h = aa_conv(x, alpha1, w1, b1, None, dilation)
-    return aa_conv(h, alpha2, w2, b2, x, 1)
+    h = _aa_conv(x, alpha1, w1, b1, None, dilation, bf16)
+    return _aa_conv(h, alpha2, w2, b2, x, 1, bf16)
 
 
 def amp_block(x, layer_params, dilations):

@@ -7,9 +7,10 @@ with one CUDA kernel, ``csrc/antialias_snake.cu``, for any channel count.
 What bounds it: it reads x once and writes y once and does ~90 flops per
 output element, so on an H100 it is memory-bound (at ``act_post``,
 [1, 153600, 32] float32: 39 MB moved against ~0.45 GFLOP). The design keeps
-the 2x-rate intermediate out of device memory: each block stages its x tile
-plus a 6-sample halo in shared memory, computes the 2x-rate snake values
-there, and writes only y.
+the 2x-rate intermediate out of device memory and uses no shared memory:
+each thread computes a run of 16 outputs of one channel from registers
+(``ptts::aa_run`` in ``csrc/polyops.cuh``, the AA routine kernel K2 uses
+too), with a warp across consecutive channels, and writes only y.
 
 ``antialias_snake`` launches the kernel for a CUDA tensor and runs the plain
 PyTorch version only for a tensor on the CPU.

@@ -3,8 +3,9 @@
 Counterpart of ``promptttspp_tpu/ops/stft.py`` (torchaudio's semantics, as
 the reference's mel transform uses them): a periodic Hann window of
 ``win_length`` zero-padded symmetrically to ``n_fft``, centered framing with
-reflect padding of ``n_fft // 2`` on both ends, ``torch.fft.rfft`` of each
-windowed frame.
+reflect padding of ``n_fft // 2`` on both ends (reflected again as often as
+needed, as ``jnp.pad(mode="reflect")`` does, so a signal of any length
+``Ts >= 1`` frames), ``torch.fft.rfft`` of each windowed frame.
 """
 
 from __future__ import annotations
@@ -13,7 +14,6 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,14 +41,27 @@ def _device_window(win_length: int, n_fft: int, device: torch.device):
                                device=device)
 
 
+def reflect_index(n: int, pad: int, device) -> torch.Tensor:
+    """Indices into a signal of ``n >= 1`` samples that pad it by ``pad``
+    on both ends by repeated reflection, as ``jnp.pad(mode="reflect")``
+    does: positions ``-pad .. n - 1 + pad`` folded with period
+    ``2 (n - 1)`` (all 0 when ``n == 1``). Built on ``device`` from Python
+    ints, so it reads nothing back from the device."""
+    i = torch.arange(-pad, n + pad, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    j = torch.remainder(i, period)
+    return torch.where(j < n, j, period - j)
+
+
 def frame_signal(wav, n_fft: int, hop_length: int, center: bool = True):
-    """[..., Ts] -> [..., n_frames, n_fft], reflect-padded when centered
-    (which needs Ts > n_fft // 2)."""
+    """[..., Ts] -> [..., n_frames, n_fft]. Centered, the signal is first
+    padded by ``n_fft // 2`` on each end by repeated reflection, so any
+    ``Ts >= 1`` frames."""
     if center:
-        pad = n_fft // 2
-        shape = wav.shape
-        wav = F.pad(wav.reshape(-1, 1, shape[-1]), (pad, pad),
-                    mode="reflect").reshape(*shape[:-1], -1)
+        wav = wav.index_select(
+            -1, reflect_index(wav.shape[-1], n_fft // 2, wav.device))
     return wav.unfold(-1, n_fft, hop_length)
 
 

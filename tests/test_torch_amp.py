@@ -194,3 +194,50 @@ def test_module_on_cpu_is_float32_for_both_precisions(conv_precision):
     assert (k2.amp_layer.launches, k2.amp_layer.launches_bf16) == before
     np.testing.assert_array_equal(out.numpy(), f32.numpy())
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tc_weight_layout(dtype):
+    """K2's weight layout (both precisions): [tap][out][in], zero-padded to
+    the tiling's rows and columns; bf16 rounded to nearest even, float32
+    unrounded."""
+    C, k = 12, 3
+    w = torch.randn(C, C, k, generator=torch.Generator().manual_seed(0))
+    w_k = k2.tc_weight(w, 32, 16, dtype)
+    assert w_k.shape == (k, 32, 16) and w_k.dtype == dtype
+    assert torch.equal(w_k[:, :C, :C], w.permute(2, 0, 1).to(dtype))
+    assert not w_k[:, C:].any() and not w_k[:, :, C:].any()
+
+
+def _tf32(bits, rna):
+    """float32 bits -> TF32 (10 explicit mantissa bits): to nearest, ties
+    away from zero (``cvt.rna.tf32.f32``), or truncated, as the tensor
+    cores read an operand's low bits."""
+    if rna:
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_3xtf32_product_keeps_float32_accuracy():
+    """The float32 K2's product of two float32 values, emulated: each is
+    split into big = cvt.rna to TF32 and small = v - big (exact), and the
+    tensor cores take small truncated to TF32; big*big + big*small +
+    small*big is within 1.5 * 2^-20 of the exact product, where one TF32
+    pass (both rounded to nearest) strays by up to 2^-11 of it."""
+    rng = np.random.RandomState(12)
+    a, b = ((rng.randn(2, 1 << 16) * 10.0 ** rng.uniform(-4, 2, (2, 1 << 16))
+             ).astype(np.float32))
+
+    def split(v):
+        big = _tf32(v.view(np.uint32), rna=True)
+        small = v - big
+        assert np.array_equal(big.astype(np.float64) + small, v)
+        return big.astype(np.float64), _tf32(small.view(np.uint32),
+                                             rna=False).astype(np.float64)
+
+    (ab, as_), (bb, bs) = split(a), split(b)
+    exact = a.astype(np.float64) * b
+    rel = np.abs(ab * bb + ab * bs + as_ * bb - exact) / np.abs(exact)
+    assert rel.max() < 1.5 * 2.0 ** -20
+    one_pass = np.abs(ab * bb - exact) / np.abs(exact)
+    assert one_pass.max() > 2.0 ** -12

@@ -24,6 +24,7 @@ from promptttspp_tpu_torch.models.bert import BertConfig
 from promptttspp_tpu_torch.ops.kernels import amp as k2
 from promptttspp_tpu_torch.ops.kernels import snake as k1
 from promptttspp_tpu_torch.ops.mel import MelSpectrogramTransform
+from promptttspp_tpu_torch.tools import k2_bits
 
 K1_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_pallas_snake.py:34
 K2_TOL = dict(atol=5e-5, rtol=1e-3)  # tests/test_pallas_amp.py:51
@@ -83,8 +84,10 @@ def _randn(g, *shape, scale=1.0):
     return scale * torch.randn(shape, generator=g, device=g.device)
 
 
-@pytest.mark.parametrize("shape", [(1, 153600, 32), (2, 1000, 256),
-                                   (1, 77, 20), (3, 5, 8), (1, 1, 32)])
+@pytest.mark.parametrize("shape", [
+    (1, 153600, 32), (2, 1000, 256), (1, 77, 20), (3, 5, 8), (1, 1, 32),
+    # C below a warp and not a multiple of 32, batches, T inside one run
+    (2, 300, 4), (1, 1000, 12), (2, 513, 48), (2, 9, 12)])
 def test_k1_matches_plain(dev, shape):
     g = torch.Generator(device=dev).manual_seed(0)
     x, alpha = _randn(g, *shape), _randn(g, shape[-1], scale=0.3)
@@ -98,17 +101,41 @@ def test_k1_matches_plain(dev, shape):
 
 @pytest.mark.parametrize("B,T,C,k,d", [
     (1, 3840, 256, 11, 5), (1, 2000, 32, 3, 1), (2, 777, 64, 7, 3),
-    (1, 97, 128, 11, 5), (1, 5, 8, 3, 5), (2, 300, 12, 7, 1)])
+    (1, 97, 128, 11, 5), (1, 5, 8, 3, 5), (2, 300, 12, 7, 1),
+    (1, 50, 4, 3, 1)])
 def test_k2_matches_plain(dev, B, T, C, k, d):
+    """The float32 K2 (3xTF32 on the tensor cores) against the float32
+    plain version at the JAX package's float32 tolerance, and against
+    itself: two launches are equal bit for bit."""
     g = torch.Generator(device=dev).manual_seed(1)
     args = (_randn(g, B, T, C, scale=0.3), _randn(g, C, scale=0.2),
             _randn(g, C, C, k, scale=0.05), _randn(g, C, scale=0.1),
             _randn(g, C, scale=0.2), _randn(g, C, C, k, scale=0.05),
             _randn(g, C, scale=0.1), d)
-    before = k2.amp_layer.launches
+    before = (k2.amp_layer.launches, k2.amp_layer.launches_bf16)
     out = k2.amp_layer(*args)
+    again = k2.amp_layer(*args)
     torch.cuda.synchronize()
-    assert k2.amp_layer.launches == before + 2
+    assert (k2.amp_layer.launches, k2.amp_layer.launches_bf16) == (
+        before[0] + 4, before[1])
+    torch.testing.assert_close(out, again, atol=0, rtol=0)
+    torch.testing.assert_close(out, k2.amp_layer_plain(*args), **K2_TOL)
+
+
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
+@pytest.mark.parametrize("k,d", [(3, 1), (7, 3), (11, 5)])
+def test_k2_float32_at_flagship_widths(dev, C, k, d):
+    """The float32 K2 at the flagship's (C, k, d) (weights of gain 1 at
+    most, as in chip_smoke.py) against the float32 plain version, and two
+    launches equal bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    ws = min(0.05, 1.0 / math.sqrt(k * C))
+    args = (_randn(g, 1, 1500, C, scale=0.3), _randn(g, C, scale=0.2),
+            _randn(g, C, C, k, scale=ws), _randn(g, C, scale=0.1),
+            _randn(g, C, scale=0.2), _randn(g, C, C, k, scale=ws),
+            _randn(g, C, scale=0.1), d)
+    out = k2.amp_layer(*args)
+    torch.testing.assert_close(out, k2.amp_layer(*args), atol=0, rtol=0)
     torch.testing.assert_close(out, k2.amp_layer_plain(*args), **K2_TOL)
 
 
@@ -172,6 +199,30 @@ def test_kernel_weight_bf16_layout(dev):
     assert k2.kernel_weight_bf16(w) is not w_k
 
 
+def test_kernel_weight_tf32x3_layout(dev):
+    """[k, NP, CP] float32: the bf16 layout's shape, the weights unrounded,
+    zero in the padding, prepared once and again after an in-place
+    update."""
+    w = torch.randn(12, 12, 3, device=dev)
+    w_k = k2.kernel_weight_tf32x3(w)
+    assert k2.kernel_weight_tf32x3(w) is w_k
+    assert w_k.dtype == torch.float32
+    assert w_k.shape == k2.kernel_weight_bf16(w).shape
+    torch.testing.assert_close(w_k[:, :12, :12], w.permute(2, 0, 1),
+                               atol=0, rtol=0)
+    assert not w_k[:, 12:].any() and not w_k[:, :, 12:].any()
+    w.mul_(2.0)
+    assert k2.kernel_weight_tf32x3(w) is not w_k
+
+
+@pytest.mark.parametrize("case", k2_bits.CASES, ids=str)
+def test_k2_bf16_bits_equal_the_earlier_kernel(dev, case):
+    """K2-bf16 gives the output bits of its kernel from before its source
+    took the float32 K2 as a second mix (``tools/k2_bits.py``)."""
+    out = k2.amp_layer(*k2_bits.inputs(case, dev), bf16=True)
+    assert k2_bits.fingerprint(out) == k2_bits.EARLIER[case]
+
+
 def _block_args(g, B, T, C, k, dils):
     """Inputs scaled as in tests/test_pallas_amp.py:85-93, with the conv
     weights capped at gain 1 (scale 1/sqrt(k*C)): at scale 0.05 a C=256,
@@ -201,31 +252,29 @@ def test_k3_matches_plain(dev, B, T, C, k, dils):
     x, params = _block_args(g, B, T, C, k, dils)
     before = k2.amp_block.launches
     out = k2.amp_block(x, params, dils)
+    again = k2.amp_block(x, params, dils)
     torch.cuda.synchronize()
-    assert k2.amp_block.launches == before + 1
+    assert k2.amp_block.launches == before + 2
+    torch.testing.assert_close(out, again, atol=0, rtol=0)
     torch.testing.assert_close(out, k2.amp_block_plain(x, params, dils),
                                **K2_TOL)
 
 
 @pytest.mark.parametrize("C,k", [(256, 11), (32, 7)])
 def test_k3_equals_the_chain_of_k2_launches(dev, C, k):
-    """K3 does each layer's arithmetic in K2's order, so it gives K2's
-    result bit for bit, even at weight scale 0.05 where the block's output
-    grows to hundreds and its float32 rounding leaves the plain version's
-    tolerance."""
+    """K3 (float32 FMAs on the CUDA cores) against the chain of float32 K2
+    launches (3xTF32 on the tensor cores): the two sum in other orders, so
+    they agree within the float32 tolerance, not bit for bit. The weights
+    have gain 1 at most (``_block_args``): at scale 0.05 the block's output
+    grows to hundreds, and float32 rounding alone leaves that tolerance."""
     g = torch.Generator(device=dev).manual_seed(2)
     dils = (1, 3, 5)
-    x = _randn(g, 1, 1000, C, scale=0.3)
-    params = tuple(
-        (_randn(g, C, scale=0.2), _randn(g, C, C, k, scale=0.05),
-         _randn(g, C, scale=0.1), _randn(g, C, scale=0.2),
-         _randn(g, C, C, k, scale=0.05), _randn(g, C, scale=0.1))
-        for _ in dils)
+    x, params = _block_args(g, 1, 1000, C, k, dils)
     chain = x
     for p, d in zip(params, dils):
         chain = k2.amp_layer(chain, *p, d)
     torch.testing.assert_close(k2.amp_block(x, params, dils), chain,
-                               atol=0, rtol=0)
+                               **K2_TOL)
 
 
 def test_k3_refuses_other_shapes(dev):

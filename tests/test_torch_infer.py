@@ -228,3 +228,91 @@ def test_chunked_vocoder_matches_batched(port_kw):
         assert a.shape == b.shape
         np.testing.assert_allclose(a[MARGIN:-MARGIN], b[MARGIN:-MARGIN],
                                    atol=5e-3)
+
+
+def _jax_synth(jsynth, **kw):
+    return JaxSynthesizer(
+        jsynth.model, jsynth.variables, vocoder=jsynth.vocoder,
+        vocoder_variables=jsynth.vocoder_variables,
+        tokenizer=jsynth.tokenizer, mel_stats={"mean": MEAN, "std": STD},
+        max_frames_cap=512, upsample=UPSAMPLE, **kw)
+
+
+def _prompt_x_T(psynth):
+    phoneme, plens = psynth._pad_phonemes(SEQS)
+    ids, mask = psynth._encode_prompts(PROMPTS)
+    with torch.no_grad():
+        flens = psynth.model.infer_frame_lengths(phoneme, plens, ids, mask)
+    frames = bucket_shape(int(flens.max()), psynth.frame_quantum)
+    return np.random.RandomState(7).randn(len(SEQS), frames, MEL).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("mode", ["batched", "chunked"])
+def test_return_int16_matches_jax(synths, port_kw, mode):  # noqa: F811
+    """``return_int16`` quantizes where the JAX ``Synthesizer`` does: the
+    batched vocoder (JAX's fused request program), which also serves
+    requests with ``x_T`` and ``zero_noise``; chunked vocoding returns
+    float32. Same dtype, and values within the wav tolerance of
+    ``_assert_match_jax`` (plus one PCM16 step for rounding)."""
+    jsynth, _ = synths
+    kw = dict(vocoder_mode=mode, chunk_frames=16, halo_frames=HALO,
+              frame_quantum=64, return_int16=True)
+    jsyn = _jax_synth(jsynth, **kw)
+    psyn = Synthesizer(**kw, **port_kw)
+    x_T = _prompt_x_T(psyn)
+    det = dict(use_max=True, noise_scale=0.0, seed=11, zero_noise=True)
+    jwavs, _ = jsyn.synthesize(SEQS, PROMPTS, x_T=jnp.asarray(x_T), **det)
+    wavs, _ = psyn.synthesize(SEQS, PROMPTS, x_T=x_T, **det)
+    pcm = mode == "batched"
+    for w, jw in zip(wavs, jwavs):
+        assert w.dtype == jw.dtype == (np.int16 if pcm else np.float32)
+        assert w.shape == jw.shape
+        scale = 32767.0 if pcm else 1.0
+        np.testing.assert_allclose(
+            w.astype(np.float64) / scale, jw.astype(np.float64) / scale,
+            atol=1e-4 + (1.0 / scale if pcm else 0.0), rtol=0)
+
+
+def test_return_int16_speculative_async_streaming_match_jax(
+        synths, port_kw):  # noqa: F811
+    """Speculative requests and ``synthesize_async`` (the batched vocoder)
+    return PCM16 as JAX's speculative dispatch does; a stream yields
+    float32 chunks in both."""
+    jsynth, _ = synths
+    kw = dict(frame_quantum=64, speculative=True, spec_frames_per_phone=8.0,
+              chunk_frames=16, halo_frames=HALO, return_int16=True)
+    jsyn = _jax_synth(jsynth, **kw)
+    psyn = Synthesizer(**kw, **port_kw)
+    req = dict(use_max=True, noise_scale=0.0, seed=2)
+    jwavs, _ = jsyn.synthesize(SEQS, PROMPTS, **req)
+    outs = [psyn.synthesize(SEQS, PROMPTS, **req)[0],
+            psyn.synthesize_async(SEQS, PROMPTS, **req).result()[0]]
+    for wavs in outs:
+        for w, jw in zip(wavs, jwavs):
+            assert w.dtype == jw.dtype == np.int16 and w.shape == jw.shape
+    jchunk = next(iter(jsyn.synthesize_streaming(SEQS, PROMPTS, **req)))
+    chunk = next(iter(psyn.synthesize_streaming(SEQS, PROMPTS, **req)))
+    assert chunk.dtype == jchunk.dtype == np.float32
+
+
+def test_short_reference_wav_matches_jax(synths, port_kw):  # noqa: F811
+    """A 200-sample reference wav (shorter than the STFT's reflect pad of
+    ``n_fft // 2``) conditions a request as in JAX: one log-mel frame, the
+    same style embedding, wav and mel."""
+    jsynth, _ = synths
+    jmel = _jax_synth(jsynth, to_mel=JaxMel(n_mels=MEL), frame_quantum=64)
+    pmel = Synthesizer(frame_quantum=64,
+                       to_mel=MelSpectrogramTransform(n_mels=MEL), **port_kw)
+    wavs = [(0.3 * np.sin(2 * np.pi * 200.0 * np.arange(200) / 24000.0)
+             ).astype(np.float32)] * len(SEQS)
+    mel = pmel.wav_to_mel(wavs[0])
+    assert mel.shape == (1, MEL)
+    np.testing.assert_allclose(mel, jmel.wav_to_mel(wavs[0]), atol=2e-5,
+                               rtol=1e-4)
+    x_T = _x_T(pmel, [mel] * len(SEQS))
+    kw = dict(use_max=True, noise_scale=0.0, seed=3, zero_noise=True)
+    ref = jmel.synthesize(SEQS, reference_wavs=wavs, x_T=jnp.asarray(x_T),
+                          **kw)
+    out = pmel.synthesize(SEQS, reference_wavs=wavs, x_T=x_T, **kw)
+    _assert_match_jax(out, ref)

@@ -1,6 +1,8 @@
 """Package-level checks of the PyTorch port: it imports neither JAX nor the
 JAX package, its flagship constants equal the YAML configs, its entry
-points refuse a missing GPU, and its host helpers equal their originals."""
+points refuse a missing GPU, its host helpers equal their originals, and
+its model builder refuses the decoder switches of the JAX model that it
+does not implement."""
 
 import ast
 import os
@@ -135,3 +137,67 @@ def test_build_model_at_reduced_depth():
     bad["encoder"]["rel_pos_type"] = "legacy"
     with pytest.raises(ValueError, match="rel_pos_type"):
         flagship.build_model(bad, "cpu", 0, TINY_BERT)
+
+
+# The decoder's config keys that _model_from_config reads; every other
+# field of the JAX GaussianDiffusion / DiffNet must be refused at anything
+# but JAX's default. a_min/a_max only act with norm_scale None.
+_READ = {"decoder": {"in_dim", "out_dim", "norm_scale", "K_step", "a_min",
+                     "a_max", "denoise_fn"},
+         "denoise_fn": {"in_dim", "encoder_hidden_dim", "residual_layers",
+                        "residual_channels", "kernel_size",
+                        "dilation_cycle_length"}}
+
+
+def _jax_fields(cls):
+    import dataclasses
+
+    return {f.name: f.default for f in dataclasses.fields(cls)
+            if f.name not in ("parent", "name")}
+
+
+def test_decoder_switches_cover_the_jax_fields():
+    """Each field of the JAX GaussianDiffusion and DiffNet that the port does
+    not read is pinned in ``flagship._FIXED`` at JAX's default, and
+    SinusoidalPosEmb's ``scale`` (set from DiffNet's) has DiffNet's default;
+    the flagship config passes the check."""
+    from promptttspp_tpu.models import diffusion as jd
+    from promptttspp_tpu_torch import flagship
+
+    for cls, path, read in (
+            (jd.GaussianDiffusion, ("decoder",), _READ["decoder"]),
+            (jd.DiffNet, ("decoder", "denoise_fn"), _READ["denoise_fn"])):
+        fields = _jax_fields(cls)
+        assert read <= set(fields)
+        assert flagship._FIXED[path] == {
+            k: v for k, v in fields.items() if k not in read}
+    assert _jax_fields(jd.SinusoidalPosEmb)["scale"] == \
+        _jax_fields(jd.DiffNet)["scale"]
+    flagship._check_fixed(flagship.MODEL, flagship.BERT_BASE)
+
+
+@pytest.mark.parametrize("path,value", [
+    (("decoder", "pndm_speedup"), 10),
+    (("decoder", "schedule_type"), "cosine"),
+    (("decoder", "infer_io_dtype"), "bfloat16"),
+    (("decoder", "pipeline_microbatches"), 4),
+    (("decoder", "pipeline_batch_axis"), "data"),
+    (("decoder", "denoise_fn", "scale"), 1000.0),
+    (("decoder", "norm_scale"), None),
+], ids=lambda v: ".".join(v) if isinstance(v, tuple) else repr(v))
+def test_unported_decoder_switch_raises(path, value):
+    """A decoder switch that the JAX model honours and the port does not
+    implement raises at build, naming the key (``norm_scale: null`` selects
+    JAX's a_min/a_max normalisation), where the port used to drop it."""
+    import copy
+
+    from promptttspp_tpu_torch import flagship
+    from tests.test_torch_cuda import TINY_BERT, tiny_model_config
+
+    cfg = copy.deepcopy(tiny_model_config())
+    section = cfg
+    for key in path[:-1]:
+        section = section[key]
+    section[path[-1]] = value
+    with pytest.raises(ValueError, match=".".join(path)):
+        flagship.build_model(cfg, "cpu", 0, TINY_BERT)

@@ -2,7 +2,7 @@
 the GRU with packed-length semantics, the GST cross-attention, the style
 encoder (against the reference's golden and against the JAX module with
 perturbed weights), the STFT, the slaney mel filterbank and the log-mel
-transform."""
+transform, down to wavs shorter than the STFT's reflect pad."""
 
 from pathlib import Path
 
@@ -123,4 +123,50 @@ def test_log_mel_matches_jax(n_samples):
     assert out.shape == ref.shape == (2, 1 + n_samples // 240, 80)
     # rfft in another order; log of the clamped mel
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("n_samples", [1, 2, 100, 256, 257, 1000])
+def test_short_wav_frames_stft_and_log_mel_match_jax(n_samples):
+    """Wavs up to ``n_fft // 2`` samples and just past it: the centered pad
+    reflects as often as it must, as ``jnp.pad`` does, so frames,
+    spectrogram and log-mel have JAX's shapes and values."""
+    wav = (np.random.RandomState(n_samples).randn(2, n_samples) * 0.3
+           ).astype(np.float32)
+    frames = np.asarray(jax_stft.frame_signal(jnp.asarray(wav), 512, 240))
+    np.testing.assert_array_equal(
+        stft.frame_signal(torch.from_numpy(wav), 512, 240).numpy(), frames)
+    spec = stft.spectrogram(torch.from_numpy(wav), 512, 240, 480)
+    ref = jax_stft.spectrogram(jnp.asarray(wav), 512, 240, 480)
+    assert spec.shape == ref.shape == (2, 1 + n_samples // 240, 257)
+    np.testing.assert_allclose(spec.numpy(), np.asarray(ref), **TOL)
+    out = mel.MelSpectrogramTransform().to_mel(torch.from_numpy(wav))
+    ref = jax_mel.MelSpectrogramTransform().to_mel(jnp.asarray(wav))
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_200_sample_reference_style_embedding_matches_jax():
+    """A 200-sample reference wav through the reference branch, log-mel
+    (one frame) then the style encoder, gives JAX's embedding."""
+    kw = dict(idim=80, gst_tokens=10, gst_heads=4, conv_layers=6,
+              conv_chans_list=(16, 16, 32, 32, 64, 64), gru_units=32,
+              gst_token_dim=32)
+    wav = (np.random.RandomState(200).randn(1, 200) * 0.3).astype(np.float32)
+    jmel = jax_mel.MelSpectrogramTransform().to_mel(jnp.asarray(wav))
+    lens = np.array([jmel.shape[1]], np.int32)
+    assert lens[0] == 1
+    jenc = JaxStyle(**kw)
+    variables = jax.jit(lambda k, m, l: jenc.init(k, m, l))(
+        jax.random.PRNGKey(0), jmel, jnp.asarray(lens))
+    variables = perturbed(jax.device_get(variables), 3, scale=0.1)
+    ref = jenc.apply(variables, jmel, jnp.asarray(lens))
+    enc = StyleEncoder(**kw).eval()
+    load_jax_variables(enc, variables)
+    with torch.no_grad():
+        out = enc(mel.MelSpectrogramTransform().to_mel(torch.from_numpy(wav)),
+                  torch.from_numpy(lens))
+    assert out.shape == ref.shape and np.isfinite(out.numpy()).all()
+    # tolerance of test_style_encoder_matches_jax_module
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=5e-5,
                                rtol=1e-4)
