@@ -40,8 +40,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``return_int16`` the batched request returns PCM16 and a chunked one
    float32, as in JAX.
 5. Print request wall time and real-time factor and a device-time profile
-   of one request, and one of the same request with the vocoder at
-   ``conv_precision="highest"``.
+   of one request (its decode replayed as a CUDA graph), and one of the
+   same request with the vocoder at ``conv_precision="highest"``.
 6. Hold kernel K3 (``amp_block``, a whole AMPBlock in one launch) against
    its plain version at the 12 AMPBlock shapes of a 640-frame request, and
    time it beside three float32 ``amp_layer`` calls (3xTF32, equal to it
@@ -62,7 +62,20 @@ Phases (any failure exits non-zero and prints no result line):
    stitched stream against the batched wav in the interior);
    ``vocoder_mode="chunked"`` against batched; and a request conditioned on
    a 3 s, 24 kHz reference wav.
-8. Print the ``kernels`` JSON line, the GPU line and the result line.
+8. Decode graphs (``models/decode_graph.py``): ``Synthesizer.prewarm(grid=
+   "speculative", max_phones=64, streaming=True)`` and its rows; every
+   captured graph's capture time and memory, the largest frame bucket's
+   (2048) included; requests with the decode as
+   graphs against the same requests with the eager decode, bit for bit
+   (noise from the generator, and x_T with zero noise); eager and graph
+   two-phase requests in alternated turns (wall, RTF); a profile of an
+   eager request beside phase 5's graph request (device time, device-busy
+   share, host-issued launches); a PLMS-10 request (``pndm_speedup=10``,
+   graph against eager bit for bit) and a request with bf16 decode
+   storage (``infer_io_dtype`` and ``decode_param_dtype``), each timed and
+   profiled; the decode alone per graph replay for each, and with TF32 on
+   (which the port does not use) for comparison.
+9. Print the ``kernels`` JSON line, the GPU line and the result line.
 
 TF32 is switched off for cuDNN convolutions and cuBLAS matrix products, so
 the plain versions are full float32 references; the bf16 plain version
@@ -118,6 +131,8 @@ WAV_BF16_ATOL = 1e-2
 STREAM_ATOL = 5e-3
 CHUNK, HALO, FIRST_CHUNK = 256, 16, 64
 N_TURNS = 4  # alternated runs of each of two serving variants
+N_ALT = 5  # alternated eager-decode and graph-decode requests, each
+PLMS_SPEEDUP = 10
 # a spin kernel queued before a request's inputs are staged: 1e9 clock
 # cycles, about 0.5 s at the H100's 1.98 GHz, far longer than the staging
 SPIN_CYCLES = 1_000_000_000
@@ -472,7 +487,7 @@ def main() -> int:
           f"{steady * 1e3:.1f} ms (min {min(walls) * 1e3:.1f}, max "
           f"{max(walls[N_REQUESTS:]) * 1e3:.1f}), RTF {steady / audio_s:.5f}",
           flush=True)
-    profile_request(synth, seqs, prompts, gpu, steady)
+    graph_profile = profile_request(synth, seqs, prompts, gpu, steady)
     set_conv_precision(vocoder, "highest")
     try:
         profile_request(synth, seqs, prompts, gpu, None, "highest")
@@ -485,6 +500,10 @@ def main() -> int:
     # -- phase 7: the serving paths --------------------------------------------
     phase_serving(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
                   gpu, failures)
+
+    # -- phase 8: decode graphs against the eager decode --------------------
+    phase_graphs(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
+                 gpu, failures, graph_profile, audio_s)
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
@@ -985,10 +1004,195 @@ def phase_serving(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
                         f"{bool(np.isfinite(w).all())}")
 
 
-def profile_request(synth, seqs, prompts, gpu, wall_s, precision="default"):
-    """Device time by kernel over one request (torch.profiler) at the
-    vocoder's ``precision``; the table goes to
-    build/chip_smoke/profile_request_<precision>.txt."""
+def _eager_decode(decoder, cond, x_T=None, zero_noise=False,
+                  generator=None):
+    """The decode without its graph: ``GaussianDiffusion.inference``."""
+    return decoder.inference(cond, x_T, zero_noise, generator)
+
+
+def phase_graphs(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
+                 gpu, failures, graph_profile, audio_s):
+    """The decode as CUDA graphs: prewarm, capture costs, bits and timings
+    against the eager decode, PLMS-10 and bf16 decode storage."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from promptttspp_tpu_torch.models import decode_graph
+
+    dev, tok = synth.device, synth.tokenizer
+    kw = dict(use_max=True, noise_scale=0.0)
+    eager = lambda: mock.patch.object(decode_graph, "decode", _eager_decode)
+
+    def same_bits(label, a, b):
+        ok = all(np.array_equal(x, y) for x, y in zip(a[0] + a[1],
+                                                      b[0] + b[1]))
+        if not ok:
+            failures.append(f"{label}: graph decode differs from eager")
+        return ok
+
+    # prewarm: the speculative grid up to the request's 64 phones
+    pw = Synthesizer(model, vocoder, tokenizer=tok, device=dev,
+                     speculative=True, spec_frames_per_phone=10.0,
+                     chunk_frames=CHUNK, halo_frames=HALO,
+                     first_chunk_frames=FIRST_CHUNK)
+    _zero_counts(k1, k2)
+    t0 = time.perf_counter()
+    rows = pw.prewarm(grid="speculative", max_phones=PHONES, streaming=True)
+    t_pw = time.perf_counter() - t0
+    print(f"[{gpu}] phase 8: prewarm(grid=\"speculative\", max_phones="
+          f"{PHONES}, streaming=True): {len(rows)} rows in {t_pw:.1f} s, "
+          f"kernel launches {_counts(k1, k2)}", flush=True)
+    for row in rows:
+        print(f"  prewarm {json.dumps(row)}")
+    captured = decode_graph.captured(model.decoder)
+    pw.synthesize(seqs, prompts, seed=0, **kw)
+    if decode_graph.captured(model.decoder) != captured:
+        failures.append("a request on a prewarmed shape captured a graph")
+    # the request's conditioning, for the decode alone
+    _, _, req = synth._request(seqs, prompts, None, None, True, 0.0, 0)
+    with torch.inference_mode():
+        cond = model.infer_cond(req["phoneme"], req["plens"], FRAMES,
+                                req["prompt_ids"], req["prompt_mask"],
+                                use_max=True, noise_scale=0.0)[0]
+    # the largest bucket (max_frames_cap frames) too, for its memory
+    g = torch.Generator(device=dev).manual_seed(1)
+    cond_cap = torch.randn((1, synth.max_frames_cap, cond.shape[-1]),
+                           generator=g, device=dev)
+    decode_graph.decode(model.decoder, cond_cap, generator=g)
+    for c in decode_graph.captured(model.decoder):
+        print(f"[{gpu}] phase 8: decode graph B={c['B']} T={c['T']}: "
+              f"captured in {c['capture_s']:.2f} s (with its warm-up run), "
+              f"static buffers and output {c['buffer_bytes'] / 2**20:.1f} "
+              f"MiB, device memory held grew by "
+              f"{c['reserved_bytes'] / 2**20:.1f} MiB", flush=True)
+
+    # graph against eager, bit for bit
+    x_T = torch.randn((1, FRAMES, model.decoder.out_dim), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(11))
+    cases = {"noise from the generator": dict(seed=5, **kw),
+             "x_T and zero noise": dict(seed=7, x_T=x_T, zero_noise=True,
+                                        **kw)}
+    for label, args in cases.items():
+        got = synth.synthesize(seqs, prompts, **args)
+        with eager():
+            want = synth.synthesize(seqs, prompts, **args)
+        ok = same_bits(f"request with {label}", got, want)
+        print(f"[{gpu}] phase 8: request with {label}: graph decode vs "
+              f"eager decode {'equal bit for bit' if ok else 'DIFFER'} "
+              "(mel and wav)", flush=True)
+
+    # eager and graph requests in turns
+    walls = {"eager": [], "graph": []}
+    for i in range(N_ALT):
+        for mode in (("eager", "graph") if i % 2 == 0
+                     else ("graph", "eager")):
+            with (eager() if mode == "eager" else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                synth.synthesize(seqs, prompts, seed=i % 3, **kw)
+                walls[mode].append(time.perf_counter() - t0)
+    med = {m: float(np.median(w)) for m, w in walls.items()}
+    for m, w in walls.items():
+        print(f"[{gpu}] phase 8: {m} decode, two-phase request: median wall "
+              f"{med[m] * 1e3:.1f} ms, RTF {med[m] / audio_s:.5f} "
+              f"({[round(x * 1e3, 1) for x in w]} ms)", flush=True)
+    diff = [round((g - e) * 1e3, 1)
+            for e, g in zip(walls["eager"], walls["graph"])]
+    print(f"[{gpu}] phase 8: graph minus eager wall per turn: {diff} ms",
+          flush=True)
+    with eager():
+        eager_profile = profile_request(synth, seqs, prompts, gpu,
+                                        med["eager"], "eager")
+    for m, prof in (("eager", eager_profile), ("graph", graph_profile)):
+        if prof is not None:
+            print(f"[{gpu}] phase 8: {m} decode: device "
+                  f"{prof['device_ms']:.1f} ms of the {med[m] * 1e3:.1f} ms "
+                  "median wall, device busy "
+                  f"{prof['device_ms'] / (med[m] * 1e3):.1%}; host-issued "
+                  f"launches per request {prof['host_launches']} "
+                  f"({prof['launches']})", flush=True)
+
+
+    def decode_ms(decoder):
+        g = torch.Generator(device=dev).manual_seed(0)
+        return cuda_ms(lambda: decode_graph.decode(decoder, cond,
+                                                   generator=g), iters=5)
+
+    # PLMS-10: 11 denoiser calls instead of 100
+    plms = Synthesizer(model, vocoder, tokenizer=tok, device=dev)
+    plms._decoder = model.decoder.clone(pndm_speedup=PLMS_SPEEDUP)
+    # bf16 decode storage: cond projections and denoiser parameters
+    bf16 = Synthesizer(model, vocoder, tokenizer=tok, device=dev,
+                       decode_param_dtype="bfloat16")
+    bf16._decoder = bf16._decoder.clone(infer_io_dtype="bfloat16")
+    det = cases["x_T and zero noise"]
+    ref_mel = synth.synthesize(seqs, prompts, **det)[1][0]
+    for label, sy in ((f"PLMS-{PLMS_SPEEDUP}", plms), ("bf16 storage", bf16)):
+        got = sy.synthesize(seqs, prompts, **det)
+        with eager():
+            want = sy.synthesize(seqs, prompts, **det)
+        ok = same_bits(f"{label} request", got, want)
+        w = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            wavs, _ = sy.synthesize(seqs, prompts, seed=i, **kw)
+            w.append(time.perf_counter() - t0)
+        if wavs[0].shape != (FRAMES * 240,) or not np.isfinite(
+                wavs[0]).all():
+            failures.append(f"{label} request: wav {wavs[0].shape}")
+        dev_f32 = float(np.abs(got[1][0] - ref_mel).max())
+        print(f"[{gpu}] phase 8: {label} request: graph vs eager "
+              f"{'equal bit for bit' if ok else 'DIFFER'}; mel max abs dev "
+              f"from the float32 ancestral decode {dev_f32:.3g}; wall "
+              f"median {np.median(w) * 1e3:.1f} ms "
+              f"({[round(x * 1e3, 1) for x in w]})", flush=True)
+        profile_request(sy, seqs, prompts, gpu, float(np.median(w)),
+                        label.split()[0].lower())
+    g = torch.Generator(device=dev).manual_seed(0)
+    cap_ms = cuda_ms(lambda: decode_graph.decode(model.decoder, cond_cap,
+                                                 generator=g), iters=3)
+    print(f"[{gpu}] phase 8: decode alone at B=1 T={synth.max_frames_cap}, "
+          f"ancestral: {cap_ms:.3f} ms per graph replay", flush=True)
+    for label, dec in ((f"ancestral (K={model.decoder.K_step})",
+                        model.decoder),
+                       (f"PLMS-{PLMS_SPEEDUP}", plms._decoder),
+                       ("bf16 storage", bf16._decoder)):
+        print(f"[{gpu}] phase 8: decode alone at B=1 T={FRAMES}, "
+              f"{label}: {decode_ms(dec):.3f} ms per graph replay (CUDA "
+              "events, input copy and draws included)", flush=True)
+
+    # what TF32 would give (the port does not use it): the decode captured
+    # with the float32 scope lifted and TF32 on for cuDNN and cuBLAS
+    from promptttspp_tpu_torch.models import diffusion
+
+    tf32 = model.decoder.clone()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with mock.patch.object(diffusion, "float32_math",
+                               contextlib.nullcontext):
+            tf32_ms = decode_ms(tf32)
+            g = torch.Generator(device=dev).manual_seed(0)
+            mel_tf32 = decode_graph.decode(tf32, cond, generator=g)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(0)
+    mel_f32 = decode_graph.decode(model.decoder, cond, generator=g)
+    dev_tf32 = (mel_tf32 - mel_f32).abs().max().item()
+    print(f"[{gpu}] phase 8: decode alone at B=1 T={FRAMES} with TF32 (not "
+          f"used by the port): {tf32_ms:.3f} ms per graph replay; mel max "
+          f"abs dev from float32 {dev_tf32:.3g}", flush=True)
+
+
+def profile_request(synth, seqs, prompts, gpu, wall_s, label="default"):
+    """Device time by kernel over one request (torch.profiler), and the
+    operations the host issued for it: kernel launches, graph launches and
+    copies or fills (runtime API calls). The table goes to
+    build/chip_smoke/profile_request_<label>.txt. Returns {"device_ms",
+    "kernels", "launches": {kind: n}, "host_launches"}, or None when the
+    profiler recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1006,28 +1210,43 @@ def profile_request(synth, seqs, prompts, gpu, wall_s, precision="default"):
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                   reverse=True)
     total_us = sum(r[0] for r in rows)
+    api = {"kernel": ("cudaLaunchKernel", "cuLaunchKernel"),
+           "graph": ("cudaGraphLaunch",),
+           "copy/fill": ("cudaMemcpyAsync", "cudaMemsetAsync")}
+    launches = {kind: sum(e.count for e in events
+                          if e.device_type == DeviceType.CPU
+                          and e.key.startswith(names))
+                for kind, names in api.items()}
     if total_us == 0:
-        print(f"[{gpu}] profile ({precision}): no device time recorded (not "
-              "measured)")
-        return
+        print(f"[{gpu}] profile ({label}): no device time recorded (not "
+              f"measured); host-issued {launches}")
+        return None
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     lines = [f"{us / 1e3:10.3f} ms {n:7d}x  {key}" for us, n, key in rows]
     ours = {"K2-bf16": "Bf16Mix", "K2": "Tf32x3Mix",
             "K1": "antialias_snake_kernel"}
     sums = {name: [sum(r[i] for r in rows if pat in r[2]) for i in (0, 1)]
             for name, pat in ours.items()}
-    (OUT_DIR / f"profile_request_{precision}.txt").write_text(
-        f"{gpu}\none two-phase 640-frame request, conv_precision "
-        f"{precision}; device ms, calls, name\n" + "\n".join(lines) + "\n")
-    wall = "" if wall_s is None else f" of {wall_s * 1e3:.1f} ms wall"
-    print(f"[{gpu}] profile of one request ({precision}): device busy "
-          f"{total_us / 1e3:.1f} ms (sum of kernel times){wall}; the port's "
+    (OUT_DIR / f"profile_request_{label}.txt").write_text(
+        f"{gpu}\none two-phase 640-frame request ({label}); device ms, "
+        "calls, name\n" + "\n".join(lines) + "\n")
+    wall = "" if wall_s is None else (
+        f" of {wall_s * 1e3:.1f} ms wall (device busy "
+        f"{total_us / 1e3 / (wall_s * 1e3):.1%})")
+    summary = dict(device_ms=total_us / 1e3,
+                   kernels=sum(r[1] for r in rows), launches=launches,
+                   host_launches=sum(launches.values()))
+    print(f"[{gpu}] profile of one request ({label}): device busy "
+          f"{total_us / 1e3:.1f} ms (sum of kernel times){wall}; "
+          f"{summary['kernels']} kernels ran, the host issued "
+          f"{summary['host_launches']} launches ({launches}); the port's "
           "kernels: "
           + ", ".join(f"{name} {us / 1e3:.3f} ms ({n} launches)"
                       for name, (us, n) in sums.items())
           + "; top kernels:")
     for line in lines[:12]:
         print("   " + line)
+    return summary
 
 
 if __name__ == "__main__":

@@ -115,18 +115,12 @@ _FIXED = {
         return_mask=False),
     ("variance_adaptor",): dict(energy_predictor=None, energy_emb=None),
     ("style_mdn",): dict(dim_wise=True),
-    # The fields of the JAX GaussianDiffusion, DiffNet and SinusoidalPosEmb
-    # (promptttspp_tpu/models/diffusion.py) that a config can set, other
-    # than the ones _model_from_config reads (out_dim, norm_scale, K_step
-    # and DiffNet's widths), at JAX's defaults: the ancestral sampler on
-    # the linear schedule, float32 decode inputs, no pipelined decode, step
-    # embedding scale 1 (DiffNet passes its ``scale`` to SinusoidalPosEmb).
-    # GaussianDiffusion's in_dim is read by nothing in JAX, and a_min/a_max
-    # only when norm_scale is None, which _check_fixed refuses.
-    ("decoder",): dict(schedule_type="linear", pndm_speedup=None,
-                       infer_io_dtype=None, pipeline_mesh=None,
-                       pipeline_microbatches=None, pipeline_batch_axis=None),
-    ("decoder", "denoise_fn"): dict(scale=1.0),
+    # The fields of the JAX GaussianDiffusion (promptttspp_tpu/models/
+    # diffusion.py) that a config can set, other than the ones
+    # _model_from_config reads, at JAX's defaults: no pipelined decode.
+    # GaussianDiffusion's in_dim is read by nothing in JAX.
+    ("decoder",): dict(pipeline_mesh=None, pipeline_microbatches=None,
+                       pipeline_batch_axis=None),
 }
 
 
@@ -139,9 +133,6 @@ def _check_fixed(cfg: Mapping, bert_config: BertConfig):
             if section.get(key, value) != value:
                 raise ValueError(f"model config {'.'.join(path + (key,))}="
                                  f"{section[key]!r} is not ported")
-    if cfg["decoder"].get("norm_scale") is None:
-        raise ValueError("model config decoder.norm_scale=None (the a_min/"
-                         "a_max normalisation) is not ported")
     enc = cfg["encoder"]
     if enc["idim"] != enc["attention_dim"]:
         raise ValueError("encoder idim != attention_dim is not ported")
@@ -185,9 +176,14 @@ def _model_from_config(cfg: Mapping, bert_config: BertConfig):
         decoder=GaussianDiffusion(
             DiffNet(dn["in_dim"], dn["encoder_hidden_dim"],
                     dn["residual_layers"], dn["residual_channels"],
-                    dn["kernel_size"], dn["dilation_cycle_length"]),
-            out_dim=dec["out_dim"], norm_scale=dec["norm_scale"],
-            K_step=dec.get("K_step", 100)),
+                    dn["kernel_size"], dn["dilation_cycle_length"],
+                    dn.get("scale", 1.0)),
+            out_dim=dec["out_dim"], norm_scale=dec.get("norm_scale"),
+            K_step=dec.get("K_step", 100),
+            schedule_type=dec.get("schedule_type", "linear"),
+            a_min=dec.get("a_min", 0.0), a_max=dec.get("a_max", 20.0),
+            pndm_speedup=dec.get("pndm_speedup"),
+            infer_io_dtype=dec.get("infer_io_dtype")),
         style_mdn=MDNLayer(sm["in_dim"], sm["out_dim"], sm["num_gaussians"]),
     )
 

@@ -24,21 +24,43 @@ Vocoding is batched (one call over the utterance batch) or chunked
 (``vocoder_mode="chunked"``: fixed-size chunks with halo context folded into
 the batch axis); ``synthesize_streaming`` yields the waveform chunk by chunk
 (``vocoders/streaming.py``). Sharded vocoding and the frame-sharded decode
-need several GPUs and are not ported; neither is XLA-style prewarm.
+need several GPUs and are not ported.
+
+On the GPU every path's diffusion decode runs as the CUDA graph of its
+(batch, frame bucket) (``models/decode_graph.py``), the counterpart of
+JAX's jitted decode: captured at the first request of a shape, or ahead of
+it by ``prewarm``, as JAX compiles at first use or in its prewarm. The rest
+of the pass (BERT, the conformers, the variance adaptor, the vocoder with
+its kernels) runs eagerly.
 """
 
 from __future__ import annotations
 
+import copy
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from promptttspp_tpu_torch.data.batching import bucket_shape
+from promptttspp_tpu_torch.models import decode_graph
 from promptttspp_tpu_torch.ops.filters import lowpass_filter
 from promptttspp_tpu_torch.platform import resolve_device
 from promptttspp_tpu_torch.vocoders.streaming import (
     vocode_chunked, vocode_streaming)
+
+
+def _rounded_decoder(decoder, dtype: str):
+    """A sampler with ``decoder``'s options around a copy of its denoiser
+    whose floating parameters hold values rounded to ``dtype``."""
+    denoise_fn = copy.deepcopy(decoder.denoise_fn)
+    denoise_fn.param_dtype = getattr(torch, dtype)
+    with torch.no_grad():
+        for p in denoise_fn.parameters():
+            if p.is_floating_point():
+                p.copy_(p.to(denoise_fn.param_dtype))
+    return decoder.clone(denoise_fn=denoise_fn)
 
 
 class _PendingRequest:
@@ -71,7 +93,8 @@ class Synthesizer:
                  spec_duration_table: Optional[np.ndarray] = None,
                  spec_duration_std: Optional[np.ndarray] = None,
                  spec_margin: float = 3.0, spec_rate_margin: float = 0.2,
-                 return_int16: bool = False, device="cuda"):
+                 return_int16: bool = False,
+                 decode_param_dtype: Optional[str] = None, device="cuda"):
         """model / vocoder: the port's modules; they are moved to
         ``device`` and put in eval mode. ``device`` defaults to ``cuda`` and
         raises if no GPU is present. ``to_mel``: a
@@ -95,12 +118,22 @@ class Synthesizer:
         the JAX ``Synthesizer`` does: with ``vocoder_mode="batched"``
         (two-phase requests, those with ``x_T`` or ``zero_noise`` included,
         speculative and ``synthesize_async``). Chunked vocoding returns
-        float32, and ``synthesize_streaming`` yields float32 chunks."""
+        float32, and ``synthesize_streaming`` yields float32 chunks.
+
+        decode_param_dtype: round the diffusion denoiser's floating
+        parameters to this dtype ("bfloat16"), as JAX's bf16-stored decode
+        weights; the math stays float32, as flax promotes bf16 parameters
+        against float32 activations. The rounded values are kept in float32
+        storage, because the decode's float32 convolutions and products
+        read float32: the model passed in is not changed."""
         if vocoder_mode not in ("batched", "chunked"):
             raise ValueError(f"vocoder_mode {vocoder_mode!r}: 'batched' or "
                              "'chunked' (sharded vocoding is not ported)")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self._decoder = (model.decoder if decode_param_dtype is None
+                         else _rounded_decoder(model.decoder,
+                                               decode_param_dtype))
         self.vocoder = (None if vocoder is None
                         else vocoder.to(self.device).eval())
         self.mel_stats = mel_stats or {"mean": 0.0, "std": 1.0}
@@ -238,15 +271,17 @@ class Synthesizer:
 
     def _acoustic(self, req, max_frames: int, x_T=None,
                   zero_noise: bool = False):
-        """model.infer + F0 post + mel denormalization -> (mel_denorm, f0,
-        frame_lengths, raw_frame_lengths), all on the device."""
-        mel, flens, log_cf0, vuv, raw = self.model.infer(
+        """``model.infer`` with the decode as a graph (``decode_graph``) +
+        F0 post + mel denormalization -> (mel_denorm, f0, frame_lengths,
+        raw_frame_lengths), all on the device."""
+        cond, flens, fmask, log_cf0, vuv, raw = self.model.infer_cond(
             req["phoneme"], req["plens"], max_frames, req["prompt_ids"],
             req["prompt_mask"], req["ref_mel"], req["ref_lens"],
             use_max=req["use_max"], noise_scale=req["noise_scale"],
-            style_generator=self._generator(req["seed"]),
-            diffusion_generator=self._generator(req["seed"] + 1), x_T=x_T,
-            zero_noise=zero_noise)
+            style_generator=self._generator(req["seed"]))
+        mel = decode_graph.decode(self._decoder, cond, x_T, zero_noise,
+                                  self._generator(req["seed"] + 1))
+        mel = mel * fmask[:, :, None].to(mel.dtype)
         f0, mel_denorm = self._postprocess(mel, log_cf0, vuv)
         return mel_denorm, f0, flens, raw
 
@@ -362,6 +397,119 @@ class Synthesizer:
 
         return _PendingRequest(self, n_items,
                                self._speculative(phoneme, plens, run))
+
+    # ----------------------------------------------------------- prewarm
+    def _speculative_grid(self, max_phones: int):
+        """The (phone bucket, frame bucket) pairs that speculative serving
+        dispatches for phone counts up to ``max_phones``: for each phone
+        bucket, the frame buckets its phone counts predict (with a duration
+        table, one frame bucket more on each side, since its prediction
+        depends on the phones). Every phone bucket up to ``max_phones`` is
+        listed, also past the one whose prediction reaches
+        ``max_frames_cap``."""
+        pq, fq = self.phone_quantum, self.frame_quantum
+        if self.spec_duration_table is not None:
+            t = self.spec_duration_table[1:]
+            s = self.spec_duration_std[1:]
+            mean_fpp = float(t[t > 0].mean()) if (t > 0).any() else 10.0
+            mean_var = float((s[t > 0] ** 2).mean()) if (t > 0).any() else 0.0
+        pairs = []
+        for p in range(pq, bucket_shape(max_phones, pq) + 1, pq):
+            frames = set()
+            for n in range(p - pq + 1, p + 1):
+                if self.spec_duration_table is not None:
+                    f = (n * mean_fpp * (1.0 + self.spec_rate_margin)
+                         + self.spec_margin * np.sqrt(n * mean_var))
+                else:
+                    f = n * self.spec_frames_per_phone
+                fb = min(bucket_shape(max(1, int(np.ceil(f))), fq),
+                         self.max_frames_cap)
+                frames.add(fb)
+                if self.spec_duration_table is not None:
+                    frames.add(max(fq, fb - fq))
+                    frames.add(min(self.max_frames_cap, fb + fq))
+            pairs.extend((p, f) for f in sorted(frames))
+        return pairs
+
+    @torch.inference_mode()
+    def prewarm(self, batch_sizes=(1,), prompt_lens=(32,),
+                grid: str = "speculative", max_phones: int = 256,
+                use_max: bool = True, noise_scale: float = 0.5,
+                streaming: bool = False, log=None):
+        """Run one full text -> wav pass at every serving shape ahead of
+        the first request: on the GPU it captures the decode graph of each
+        (batch, frame bucket), builds the kernels and sets up cuDNN's and
+        cuBLAS's plans, which a request would otherwise pay at its first
+        shape. The duration pre-pass runs once per phone bucket.
+
+        grid="speculative": the shapes speculative serving dispatches for
+        phone counts up to ``max_phones`` (``_speculative_grid``);
+        grid="full": every (phone, frame) bucket pair up to (max_phones,
+        ``max_frames_cap``), mispredict re-dispatches included.
+        streaming=True also runs the acoustic-only pass of
+        ``synthesize_streaming`` at every grid entry and the streaming
+        vocoder over a first chunk and one full chunk. Returns
+        [{B, Tp, Tf, L, seconds}, ...], one row per grid entry, and with
+        ``streaming`` one row per batch size with
+        ``program="streaming_vocoder_chunks"``."""
+        if self.vocoder is None:
+            raise ValueError("prewarm requires a vocoder")
+        pq, fq = self.phone_quantum, self.frame_quantum
+        if grid == "speculative":
+            pairs = self._speculative_grid(max_phones)
+        elif grid == "full":
+            phones = range(pq, bucket_shape(max_phones, pq) + 1, pq)
+            pairs = [(p, f) for p in phones
+                     for f in range(fq, self.max_frames_cap + 1, fq)]
+        else:
+            raise ValueError(f"unknown prewarm grid {grid!r}")
+        rows = []
+        for B in batch_sizes:
+            for L in prompt_lens:
+                ones = np.ones((B, L), np.int64)
+                warmed = set()
+                for p, f in pairs:
+                    req = dict(phoneme=self._to(np.ones((B, p), np.int64)),
+                               plens=self._to(np.full((B,), p, np.int64)),
+                               prompt_ids=self._to(ones),
+                               prompt_mask=self._to(ones), ref_mel=None,
+                               ref_lens=None, use_max=use_max,
+                               noise_scale=noise_scale, seed=0)
+                    t0 = time.perf_counter()
+                    self._readback(self._full_pass(req, f)[2])
+                    if streaming:
+                        self._readback(self._acoustic(req, f)[2])
+                    if p not in warmed:
+                        warmed.add(p)
+                        self._frame_bucket(req)
+                    dt = time.perf_counter() - t0
+                    rows.append(dict(B=B, Tp=p, Tf=f, L=L,
+                                     seconds=round(dt, 2)))
+                    if log is not None:
+                        log(f"prewarm B={B} Tp={p} Tf={f} L={L}: "
+                            f"{dt:.1f}s")
+            if streaming:
+                t0 = time.perf_counter()
+                T = (self.first_chunk_frames
+                     or self.chunk_frames) + self.chunk_frames
+                mel = torch.zeros((B, T, self.model.decoder.out_dim),
+                                  device=self.device)
+                f0 = torch.zeros((B, T, 1), device=self.device)
+                for wav in vocode_streaming(
+                        self.vocoder, mel, f0,
+                        chunk_frames=self.chunk_frames,
+                        halo_frames=self.halo_frames,
+                        upsample=self.upsample,
+                        first_chunk_frames=self.first_chunk_frames,
+                        deterministic=True):
+                    self._readback(wav)
+                dt = time.perf_counter() - t0
+                rows.append(dict(B=B, Tp=0, Tf=T, L=0, seconds=round(dt, 2),
+                                 program="streaming_vocoder_chunks"))
+                if log is not None:
+                    log(f"prewarm streaming vocoder chunks B={B}: "
+                        f"{dt:.1f}s")
+        return rows
 
     # --------------------------------------------------------------- API
     @torch.inference_mode()

@@ -411,3 +411,117 @@ def test_reference_mel_request(dev):
     wavs, mels = synth.synthesize(SEQS, reference_mels=[ref], seed=1)
     assert wavs[0].shape == (21 * 240,) and np.isfinite(wavs[0]).all()
     assert mels[0].shape == (21, MEL)
+
+
+def _decode_both(decoder, cond, **kw):
+    """(eager, graph) decodes of ``cond``, each from a generator seeded
+    alike."""
+    from promptttspp_tpu_torch.models import decode_graph
+
+    seed = kw.pop("seed", 5)
+    gen = lambda: torch.Generator(device=cond.device).manual_seed(seed)
+    with torch.inference_mode():
+        eager = decoder.inference(cond, generator=gen(), **kw)
+    return eager, decode_graph.decode(decoder, cond, generator=gen(), **kw)
+
+
+@pytest.mark.parametrize("sampler", ["ancestral", "x_T+zero_noise",
+                                     "plms"])
+def test_graph_decode_equals_eager(dev, sampler):
+    """The decode's CUDA graph gives the eager decode's bits: the
+    ancestral sampler with its noise drawn from the generator, with
+    ``x_T`` and ``zero_noise``, and PLMS. A second replay at another seed
+    equals its own eager decode, so each replay reads its own draws."""
+    from promptttspp_tpu_torch.models import decode_graph
+
+    model = flagship.build_model(tiny_model_config(), dev, 0, TINY_BERT)
+    decoder = model.decoder.clone(pndm_speedup=5) if sampler == "plms" \
+        else model.decoder
+    g = torch.Generator(device=dev).manual_seed(3)
+    cond = _randn(g, 2, 128, C)
+    kw = {}
+    if sampler == "x_T+zero_noise":
+        kw = dict(x_T=_randn(g, 2, 128, MEL), zero_noise=True)
+    eager, graph = _decode_both(decoder, cond, **kw)
+    assert graph.shape == (2, 128, MEL) and torch.isfinite(graph).all()
+    torch.testing.assert_close(graph, eager, atol=0, rtol=0)
+    eager2, graph2 = _decode_both(decoder, cond, seed=6, **kw)
+    torch.testing.assert_close(graph2, eager2, atol=0, rtol=0)
+    # a fixed x_T and zero noise leave nothing to the seed
+    assert (sampler != "x_T+zero_noise") == bool((graph2 != graph).any())
+    assert [(c["B"], c["T"]) for c in decode_graph.captured(decoder)] == [
+        (2, 128)]
+
+
+def test_decode_is_float32_whatever_the_tf32_flags(dev):
+    """With TF32 switched on for cuDNN and cuBLAS, the decode (eager and
+    captured) gives the bits it gives with TF32 off, and the caller's
+    flags are as they were after it."""
+    model = flagship.build_model(tiny_model_config(), dev, 0, TINY_BERT)
+    cond = _randn(torch.Generator(device=dev).manual_seed(4), 1, 256, C)
+    off = _decode_both(model.decoder, cond)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = _decode_both(model.decoder.clone(), cond)
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for a, b in zip(on, off):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_async_requests_on_one_bucket(dev):
+    """Two ``synthesize_async`` requests in flight on one frame bucket
+    share its graph's buffers; each result equals its two-phase twin."""
+    synth = _tiny_synth(dev)
+    spec = Synthesizer(synth.model, synth.vocoder, tokenizer=Tok(),
+                       device=dev, speculative=True,
+                       spec_frames_per_phone=4.0)
+    want = [synth.synthesize(SEQS, PROMPTS, seed=s)[0][0] for s in (1, 2)]
+    handles = [spec.synthesize_async(SEQS, PROMPTS, seed=s) for s in (1, 2)]
+    got = [h.result()[0][0] for h in handles]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(got[0], got[1])
+    assert spec.spec_mispredicts == 0
+
+
+def test_prewarmed_shape_captures_nothing_new(dev):
+    """``prewarm`` captures the decode graph of each grid entry's frame
+    bucket; a request on a prewarmed shape then captures nothing."""
+    from promptttspp_tpu_torch.models import decode_graph
+
+    synth = _tiny_synth(dev, speculative=True, spec_frames_per_phone=4.0)
+    rows = synth.prewarm(prompt_lens=(16,), max_phones=16)
+    assert {(r["Tp"], r["Tf"]) for r in rows} == {(16, 128)}
+    before = decode_graph.captured(synth.model.decoder)
+    assert [(c["B"], c["T"]) for c in before] == [(1, 128)]
+    synth.synthesize(SEQS, PROMPTS, seed=3)
+    assert decode_graph.captured(synth.model.decoder) == before
+
+
+def test_failed_capture_raises(dev):
+    """A decode whose capture fails (here: an error raised inside the
+    captured loop, only while it is captured) raises instead of running
+    eagerly, keeps no graph, and leaves the decoder usable."""
+    from promptttspp_tpu_torch.models import decode_graph
+
+    model = flagship.build_model(tiny_model_config(), dev, 0, TINY_BERT)
+    decoder = model.decoder
+    cond = _randn(torch.Generator(device=dev).manual_seed(5), 1, 128, C)
+    denorm = decoder._denorm
+
+    def failing(x):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("forced capture failure")
+        return denorm(x)
+
+    with mock.patch.object(decoder, "_denorm", failing):
+        with pytest.raises(RuntimeError, match="forced capture failure"):
+            decode_graph.decode(decoder, cond)
+    assert decode_graph.captured(decoder) == []
+    eager, graph = _decode_both(decoder, cond)
+    torch.testing.assert_close(graph, eager, atol=0, rtol=0)
