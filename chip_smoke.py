@@ -75,7 +75,20 @@ Phases (any failure exits non-zero and prints no result line):
    storage (``infer_io_dtype`` and ``decode_param_dtype``), each timed and
    profiled; the decode alone per graph replay for each, and with TF32 on
    (which the port does not use) for comparison.
-9. Print the ``kernels`` JSON line, the GPU line and the result line.
+9. Real-checkpoint serving through the port's own entry point, at full
+   flagship width with the demo model (legacy relative positions) and the
+   flagship vocoder: reference-format checkpoints written from seeded
+   modules (the model as ``{epoch, model, optimizer}``, the vocoder as
+   ``{generator}`` with its convolutions split into ``weight_g`` /
+   ``weight_v``), a synthetic eval corpus (2 utterances of 64 phones, a
+   30,522-line stand-in vocabulary, ``stats.yaml``, 3 s reference wavs),
+   then the synthesize CLI's ``main`` in-process: the loaded parameters
+   against the saved ones (bit for bit where unfolded), its eval tree, 4
+   requests with K1 once and K2-bf16 72 times each, a prompt request of its
+   synthesizer against the in-memory one on the original modules, the load
+   and first-request times, and the demo model's steady wall beside the
+   flagship's in alternated turns. The files are deleted at the end.
+10. Print the ``kernels`` JSON line, the GPU line and the result line.
 
 TF32 is switched off for cuDNN convolutions and cuBLAS matrix products, so
 the plain versions are full float32 references; the bf16 plain version
@@ -371,6 +384,8 @@ def main() -> int:
         return 1
 
     # -- phase 4: the main path ---------------------------------------------
+    print(f"phase 4 starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     t0 = time.perf_counter()
     model = flagship.build_flagship_model(dev, seed=0, frames_per_phone=10.0)
     vocoder = flagship.build_vocoder(dev, seed=1)
@@ -475,6 +490,8 @@ def main() -> int:
                         f"{wav_c16[0].dtype}, not float32")
 
     # -- phase 5: timings ----------------------------------------------------
+    print(f"phase 5 starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     for i, wall in enumerate(walls):
         print(f"[{gpu}] request {i}: wall {wall * 1e3:.1f} ms for "
               f"{audio_s:.1f} s of audio, RTF {wall / audio_s:.5f}")
@@ -495,15 +512,27 @@ def main() -> int:
         set_conv_precision(vocoder, "default")
 
     # -- phase 6: K3 against its plain version ------------------------------
+    print(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     k3_row = phase_k3(k2, randn, voc_cfg, gpu, failures)
 
     # -- phase 7: the serving paths --------------------------------------------
+    print(f"phase 7 starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     phase_serving(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
                   gpu, failures)
 
     # -- phase 8: decode graphs against the eager decode --------------------
+    print(f"phase 8 starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     phase_graphs(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
                  gpu, failures, graph_profile, audio_s)
+
+    # -- phase 9: reference checkpoints through the synthesize CLI ---------
+    print(f"phase 9 starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    phase_cli(Synthesizer, k1, k2, vocoder, synth, seqs, prompts, gpu,
+              failures)
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
@@ -1184,6 +1213,168 @@ def phase_graphs(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
     print(f"[{gpu}] phase 8: decode alone at B=1 T={FRAMES} with TF32 (not "
           f"used by the port): {tf32_ms:.3f} ms per graph replay; mel max "
           f"abs dev from float32 {dev_tf32:.3g}", flush=True)
+
+
+def phase_cli(Synthesizer, k1, k2, vocoder, synth, seqs, prompts, gpu,
+              failures):
+    """The demo model and the flagship vocoder written as reference
+    checkpoints, served by the synthesize CLI in-process (see phase 9 of
+    the module docstring). ``synth`` is phase 4's flagship synthesizer."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from promptttspp_tpu_torch import flagship
+    from promptttspp_tpu_torch.bin import synthesize as cli
+    from promptttspp_tpu_torch.compat.torch_ckpt import (
+        BIGVGAN_WEIGHT_NORMED, to_reference_state_dict)
+    from promptttspp_tpu_torch.tools.synthetic_corpus import write_corpus
+
+    t_phase = time.perf_counter()
+    dev = synth.device
+    root = OUT_DIR / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    demo = flagship.bias_duration_head(
+        flagship.build_model(flagship.MODEL_DEMO, dev, seed=2), 10.0)
+    rng = np.random.RandomState(9)
+    rows = [dict(spk_id=spk, item_name=f"utt_{spk}_{i}",
+                 seq=list(rng.randint(1, 90, PHONES)), style_prompt_key=key)
+            for i, (spk, key) in enumerate(((1034, "M_p-low_s-slow_e-low"),
+                                            (2277, "F_p-high_s-fast_e-high")))]
+    cands = {"M_p-low_s-slow_e-low": [
+                 "A man speaks slowly with a low voice and low energy",
+                 "A deep, calm male voice speaking slowly"],
+             "F_p-high_s-fast_e-high": [
+                 "A woman speaks quickly and loudly with a high pitch",
+                 "A bright, energetic female voice, fast"]}
+    t0 = time.perf_counter()
+    write_corpus(root, rows, cands, wav_seconds=3.0, mel_mean=0.0,
+                 mel_std=1.0)
+    saved = to_reference_state_dict(demo)
+    torch.save({"epoch": 0, "model": saved, "optimizer": {}},
+               root / "model.ckpt")
+    saved_voc = to_reference_state_dict(vocoder, BIGVGAN_WEIGHT_NORMED.match)
+    torch.save({"generator": saved_voc}, root / "vocoder.ckpt")
+    n_params = sum(p.numel() for p in demo.parameters())
+    print(f"phase 9: wrote {root / 'model.ckpt'} "
+          f"({(root / 'model.ckpt').stat().st_size / 1e9:.2f} GB, "
+          f"{n_params / 1e6:.1f} M parameters), the vocoder's "
+          f"({(root / 'vocoder.ckpt').stat().st_size / 1e6:.1f} MB, "
+          f"{sum(k.endswith('_g') for k in saved_voc)} weight-normed "
+          f"convolutions) and the corpus in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    built, walls = [], []
+    build, synthesize = cli.build_synthesizer, Synthesizer.synthesize
+
+    def timed_build(cfg, *a, **kw):
+        t = time.perf_counter()
+        built.append(build(cfg, *a, **kw))
+        torch.cuda.synchronize()
+        walls.append(("load", time.perf_counter() - t))
+        return built[-1]
+
+    def timed_request(self, *a, **kw):
+        t = time.perf_counter()
+        out = synthesize(self, *a, **kw)
+        walls.append(("request", time.perf_counter() - t))
+        return out
+
+    out_dir, cwd = root / "out", os.getcwd()
+    argv = [f"path.root={root}", f"model_ckpt={root / 'model.ckpt'}",
+            f"vocoder_ckpt={root / 'vocoder.ckpt'}", f"output_dir={out_dir}",
+            f"hydra.run.dir={root / 'run'}", "num_eval_utts=2",
+            "model=prompttts_mdn_v2_wo_erg_final_demo", "noise_scale=0"]
+    _zero_counts(k1, k2)
+    try:
+        with mock.patch.object(cli, "build_synthesizer", timed_build), \
+                mock.patch.object(Synthesizer, "synthesize", timed_request):
+            cli.main(argv)
+    finally:
+        os.chdir(cwd)
+    launches = _counts(k1, k2)
+    expect = {"antialias_snake": 4, "amp_layer_bf16": 4 * 72,
+              "amp_layer": 0, "amp_block": 0}
+    served = built[0]
+    requests = [w for kind, w in walls if kind == "request"]
+    print(f"[{gpu}] phase 9: synthesize CLI (demo model): load "
+          f"{walls[0][1]:.2f} s, first request {requests[0]:.2f} s, then "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in requests[1:])} ms; 4 "
+          f"requests, launches {launches} (expected {expect})", flush=True)
+    if launches != expect:
+        failures.append(f"CLI: launch counts {launches} != {expect}")
+
+    wavs = sorted(out_dir.rglob("*.wav"))
+    want = [out_dir / str(r["spk_id"]) / m / "wav" / f"{r['item_name']}.wav"
+            for r in rows for m in ("prompt", "ref")]
+    if sorted(want) != wavs or not (out_dir / "finish").exists():
+        failures.append(f"CLI tree: {wavs}, finish "
+                        f"{(out_dir / 'finish').exists()}")
+    from scipy.io import wavfile
+    lengths = [len(wavfile.read(p)[1]) for p in wavs]
+    print(f"phase 9: tree {[p.relative_to(out_dir).as_posix() for p in wavs]}"
+          f", wav lengths {lengths}", flush=True)
+    if lengths != [PHONES * 10 * 240] * len(wavs):
+        failures.append(f"CLI wav lengths {lengths}")
+
+    # loaded against saved: bit for bit, but for the folded weight norm
+    mismatch, rel = [], 0.0
+    for module, sd in ((served.model, saved), (served.vocoder, saved_voc)):
+        for k, v in module.state_dict().items():
+            v = v.cpu()
+            if k in sd:
+                if not torch.equal(v, sd[k]):
+                    mismatch.append(k)
+            else:
+                ref = sd[k + "_v"].double()
+                rel = max(rel, float((v.double() - ref).abs().max()
+                                     / ref.abs().max()))
+    print(f"phase 9: loaded parameters against the saved ones: "
+          f"{len(mismatch)} unfolded tensors differ; the folded weight norm's "
+          f"max relative error {rel:.3g}", flush=True)
+    if mismatch or not rel <= 1e-6:
+        failures.append(f"CLI load: {mismatch[:4]} differ, folded rel err "
+                        f"{rel:.3g}")
+
+    # the CLI's synthesizer against the in-memory one on the original
+    # modules: one prompt request, the diffusion noise drawn from the same
+    # seed (each decoder's graph for this shape is then captured once)
+    memory = Synthesizer(demo, vocoder, tokenizer=served.tokenizer,
+                         mel_stats=served.mel_stats, device=dev)
+    det = dict(use_max=True, noise_scale=0.0, seed=7)
+    text = [f"{cands['M_p-low_s-slow_e-low'][1]}."]
+    wav_c, mel_c = served.synthesize(seqs, text, **det)
+    wav_m, mel_m = memory.synthesize(seqs, text, **det)
+    err = float(np.abs(wav_c[0] - wav_m[0]).max())
+    print(f"[{gpu}] phase 9: CLI synthesizer vs in-memory modules: wav max "
+          f"abs err {err:.3g} (tol {WAV_BF16_ATOL}), mel "
+          f"{float(np.abs(mel_c[0] - mel_m[0]).max()):.3g}", flush=True)
+    if wav_c[0].shape != wav_m[0].shape or not err <= WAV_BF16_ATOL:
+        failures.append(f"CLI vs in-memory wav: {err:.3g}")
+
+    # the demo (legacy, T x T attention) and the flagship ('new', T x
+    # (2T-1)) models in alternated turns, the same request shape
+    demo_synth = Synthesizer(demo, vocoder, tokenizer=synth.tokenizer,
+                             device=dev)
+    demo_synth.synthesize(seqs, prompts, use_max=True, noise_scale=0.0)
+    turns = {"flagship": [], "demo": []}
+    for order in (("flagship", "demo"), ("demo", "flagship")) * 2:
+        for name in order:
+            s = synth if name == "flagship" else demo_synth
+            t = time.perf_counter()
+            s.synthesize(seqs, prompts, use_max=True, noise_scale=0.0)
+            turns[name].append(time.perf_counter() - t)
+    print(f"[{gpu}] phase 9: steady two-phase request in alternated turns: "
+          + ", ".join(f"{name} median {np.median(w) * 1e3:.1f} ms "
+                      f"({', '.join(f'{x * 1e3:.1f}' for x in w)})"
+                      for name, w in turns.items()), flush=True)
+    del demo, demo_synth, memory, served, built
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s in all",
+          flush=True)
 
 
 def profile_request(synth, seqs, prompts, gpu, wall_s, label="default"):

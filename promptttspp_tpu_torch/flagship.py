@@ -1,23 +1,27 @@
-"""Construction of the flagship model and vocoder.
+"""Construction of the flagship model, the demo model and the vocoder.
 
 The widths are Python constants copied from
-``conf/model/prompttts_mdn_v2_wo_erg_final.yaml`` (``MODEL``, interpolations
-resolved, ``_target_`` keys dropped) and ``conf/vocoder/bigvgan_f0.yaml``
-(``VOCODER``), because the machine with the GPU reads no YAML; a CPU test
-holds them equal to the YAML files. ``build_model`` builds the port's
-modules from a config of that shape (the flagship's or a smaller one) with
-seeded random weights; real checkpoints load through
-``compat/from_jax.py``.
+``conf/model/prompttts_mdn_v2_wo_erg_final.yaml`` (``MODEL_YAML`` as
+written, ``_target_`` keys dropped; ``MODEL`` with the interpolations
+resolved), its ``_demo`` variant (``MODEL_DEMO_YAML``, ``MODEL_DEMO``:
+legacy relative positions, as the published demo checkpoint was trained)
+and ``conf/vocoder/bigvgan_f0.yaml`` (``VOCODER``), because the machine with
+the GPU reads no YAML; a CPU test holds them equal to the YAML files.
+``build_model`` builds the port's modules from a config of that shape (the
+flagship's or a smaller one) with seeded random weights; trained weights
+load through ``compat/torch_ckpt.py`` (the reference's torch checkpoints)
+or ``compat/from_jax.py`` (a JAX parameter tree).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
+from promptttspp_tpu_torch.config import resolve
 from promptttspp_tpu_torch.models.bert import BertConfig
 from promptttspp_tpu_torch.models.diffusion import DiffNet, GaussianDiffusion
 from promptttspp_tpu_torch.models.frame_prior import FramePriorNetwork
@@ -33,7 +37,9 @@ from promptttspp_tpu_torch.nn.mdn import MDNLayer
 from promptttspp_tpu_torch.platform import resolve_device
 from promptttspp_tpu_torch.vocoders.bigvgan_f0 import F0AwareBigVGAN
 
-MODEL = {
+# conf/model/prompttts_mdn_v2_wo_erg_final.yaml as written (interpolations
+# kept, so an override of a width moves the widths that follow it)
+MODEL_YAML = {
     "norm_style_emb": True,
     "mdn_disable_amp": True,
     "phoneme_embedding": {"num_vocab": 90, "channels": 256,
@@ -50,35 +56,50 @@ MODEL = {
         "return_mask": False, "rel_pos_type": "new"},
     "variance_adaptor": {
         "duration_predictor": {
-            "channels": 256, "out_channels": 1, "kernel_size": 3,
-            "dropout": 0.5, "num_layers": 2, "num_gaussians": 4,
-            "detach": True, "disable_amp": True},
+            "channels": "${...phoneme_embedding.channels}",
+            "out_channels": 1, "kernel_size": 3, "dropout": 0.5,
+            "num_layers": 2, "num_gaussians": 4, "detach": True,
+            "disable_amp": "${...mdn_disable_amp}"},
         "pitch_predictor": {
-            "channels": 256, "out_channels": 2, "kernel_size": 5,
-            "dropout": 0.5, "num_layers": 5, "detach": False},
-        "pitch_emb": {"in_channels": 1, "out_channels": 256,
+            "channels": "${...phoneme_embedding.channels}",
+            "out_channels": 2, "kernel_size": 5,
+            "dropout": "${..duration_predictor.dropout}", "num_layers": 5,
+            "detach": False},
+        "pitch_emb": {"in_channels": 1,
+                      "out_channels": "${...phoneme_embedding.channels}",
                       "kernel_size": 1},
         "energy_predictor": None,
         "energy_emb": None,
         "frame_prior_network": {
-            "out_channels": 256, "hidden_channels": 256, "n_layers": 6,
-            "kernel_size": 17, "p_dropout": 0.1}},
+            "out_channels": "${...phoneme_embedding.channels}",
+            "hidden_channels": "${...phoneme_embedding.channels}",
+            "n_layers": 6, "kernel_size": 17, "p_dropout": 0.1}},
     "reference_encoder": {
         "idim": 80, "gst_tokens": 10, "gst_heads": 4, "conv_layers": 6,
         "conv_chans_list": [128, 128, 256, 256, 512, 512],
         "conv_kernel_size": 3, "conv_stride": 2, "gru_layers": 1,
-        "gru_units": 256},
+        "gru_units": "${..phoneme_embedding.channels}"},
     "prompt_encoder": {"model_name": "bert-base-uncased", "in_channels": 768,
-                       "mid_channels": 512, "out_channels": 256},
-    "style_mdn": {"in_dim": 256, "out_dim": 256, "num_gaussians": 10,
-                  "dim_wise": True},
+                       "mid_channels": 512,
+                       "out_channels": "${..phoneme_embedding.channels}"},
+    "style_mdn": {"in_dim": "${..phoneme_embedding.channels}",
+                  "out_dim": "${..phoneme_embedding.channels}",
+                  "num_gaussians": 10, "dim_wise": True},
     "decoder": {
-        "in_dim": 256, "out_dim": 80, "norm_scale": 6.0,
+        "in_dim": "${..encoder.attention_dim}", "out_dim": 80,
+        "norm_scale": 6.0,
         "denoise_fn": {
-            "in_dim": 80, "encoder_hidden_dim": 256, "residual_layers": 20,
-            "residual_channels": 256, "kernel_size": 3,
-            "dilation_cycle_length": 4}},
+            "in_dim": 80,
+            "encoder_hidden_dim": "${...phoneme_embedding.channels}",
+            "residual_layers": 20, "residual_channels": 256,
+            "kernel_size": 3, "dilation_cycle_length": 4}},
 }
+# its _demo variant (conf/model/prompttts_mdn_v2_wo_erg_final_demo.yaml)
+MODEL_DEMO_YAML = copy.deepcopy(MODEL_YAML)
+MODEL_DEMO_YAML["encoder"]["rel_pos_type"] = "legacy"
+# both with the interpolations resolved
+MODEL = resolve(MODEL_YAML)
+MODEL_DEMO = resolve(MODEL_DEMO_YAML)
 
 VOCODER = {
     "sampling_rate": 24000, "harmonic_num": 8, "in_channel": 80,
@@ -90,6 +111,18 @@ VOCODER = {
 
 # bert-base-uncased (prompt_encoder.model_name)
 BERT_BASE = BertConfig()
+
+
+def bert_config_of(prompt_encoder: Mapping) -> BertConfig:
+    """The BERT that JAX's PromptEncoder builds from its config fields:
+    hidden size ``in_channels``, ``bert_num_layers`` and ``bert_num_heads``
+    (12 each by default), intermediate size 4 x hidden."""
+    hidden = prompt_encoder["in_channels"]
+    return BertConfig(
+        hidden_size=hidden,
+        num_hidden_layers=prompt_encoder.get("bert_num_layers", 12),
+        num_attention_heads=prompt_encoder.get("bert_num_heads", 12),
+        intermediate_size=4 * hidden)
 
 
 def _seeded(device: torch.device, seed: int, build):
@@ -110,9 +143,8 @@ _FIXED = {
     ("phoneme_embedding",): dict(do_scale=False),
     ("encoder",): dict(
         positionwise_layer_type="conv1d", pos_enc_layer_type="rel_pos",
-        selfattention_layer_type="rel_selfattn", rel_pos_type="new",
-        macaron_style=True, use_cnn_module=True, activation_type="swish",
-        return_mask=False),
+        selfattention_layer_type="rel_selfattn", macaron_style=True,
+        use_cnn_module=True, activation_type="swish", return_mask=False),
     ("variance_adaptor",): dict(energy_predictor=None, energy_emb=None),
     ("style_mdn",): dict(dim_wise=True),
     # The fields of the JAX GaussianDiffusion (promptttspp_tpu/models/
@@ -124,15 +156,41 @@ _FIXED = {
 }
 
 
+# The defaults of the JAX dataclass fields behind the _FIXED keys (JAX's
+# PromptTTSMDNDurCFG, PhonemeEmbedding, ConformerEncoder, VarianceAdaptor,
+# MDNLayer, GaussianDiffusion): a config that omits a key builds the JAX
+# model with these, so the port reads an absent key the same way.
+_JAX_DEFAULTS = {
+    (): dict(norm_style_emb=False, mdn_disable_amp=False),
+    ("phoneme_embedding",): dict(do_scale=True),
+    ("encoder",): dict(
+        positionwise_layer_type="linear", pos_enc_layer_type="abs_pos",
+        selfattention_layer_type="selfattn", macaron_style=False,
+        use_cnn_module=False, activation_type="swish", return_mask=False),
+    ("variance_adaptor",): dict(energy_predictor=None, energy_emb=None),
+    ("style_mdn",): dict(dim_wise=False),
+    ("decoder",): dict(pipeline_mesh=None, pipeline_microbatches=None,
+                       pipeline_batch_axis=None),
+}
+
+
 def _check_fixed(cfg: Mapping, bert_config: BertConfig):
+    """Raise, naming the key, where ``cfg`` (or JAX's default for a key it
+    omits) asks for a switch value that the port does not implement."""
     for path, fixed in _FIXED.items():
         section = cfg
         for key in path:
             section = section[key]
         for key, value in fixed.items():
-            if section.get(key, value) != value:
-                raise ValueError(f"model config {'.'.join(path + (key,))}="
-                                 f"{section[key]!r} is not ported")
+            name = ".".join(path + (key,))
+            if key in section:
+                if section[key] != value:
+                    raise ValueError(f"model config {name}={section[key]!r} "
+                                     "is not ported")
+            elif _JAX_DEFAULTS[path][key] != value:
+                raise ValueError(
+                    f"model config {name} is absent: JAX builds its default "
+                    f"{_JAX_DEFAULTS[path][key]!r}, which is not ported")
     enc = cfg["encoder"]
     if enc["idim"] != enc["attention_dim"]:
         raise ValueError("encoder idim != attention_dim is not ported")
@@ -154,7 +212,8 @@ def _model_from_config(cfg: Mapping, bert_config: BertConfig):
         encoder=ConformerEncoder(
             enc["attention_dim"], enc["attention_heads"],
             enc["linear_units"], enc["num_blocks"],
-            enc["positionwise_conv_kernel_size"], enc["cnn_module_kernel"]),
+            enc["positionwise_conv_kernel_size"], enc["cnn_module_kernel"],
+            enc.get("rel_pos_type")),
         variance_adaptor=VarianceAdaptor(
             duration_predictor=MDNPredictor(
                 dp["channels"], dp["out_channels"], dp["kernel_size"],
@@ -189,11 +248,14 @@ def _model_from_config(cfg: Mapping, bert_config: BertConfig):
 
 
 def build_model(cfg: Mapping = MODEL, device="cuda", seed: int = 0,
-                bert_config: BertConfig = BERT_BASE):
+                bert_config: Optional[BertConfig] = None):
     """PromptTTS++ (prompt and reference branches) from a config of
     ``MODEL``'s shape, with random weights drawn from ``seed``, in eval mode
-    on ``device``."""
+    on ``device``. ``bert_config`` defaults to the BERT that JAX builds from
+    ``cfg["prompt_encoder"]`` (``bert_config_of``)."""
     dev = resolve_device(device)
+    if bert_config is None:
+        bert_config = bert_config_of(cfg["prompt_encoder"])
     return _seeded(dev, seed, lambda: _model_from_config(cfg, bert_config))
 
 

@@ -615,3 +615,11 @@ class Synthesizer:
                     return flens_np
                 wav = wav[:, :, 0].cpu().numpy()
             yield wav
+
+
+def write_wav(path, wav: np.ndarray, sample_rate: int = 24000):
+    """float wav in [-1, 1] (clipped) -> 16-bit PCM file."""
+    from scipy.io import wavfile
+
+    wav = np.clip(wav, -1.0, 1.0)
+    wavfile.write(path, sample_rate, (wav * 32767.0).astype(np.int16))

@@ -152,6 +152,27 @@ def float32_math():
 _SCHEDULES = {"linear": linear_beta_schedule, "cosine": cosine_beta_schedule}
 
 
+def schedule_tables(K_step: int, schedule_type: str = "linear"):
+    """The sampler's tables in float64, by the names of the reference's
+    buffers (its checkpoints store them, rounded to float32)."""
+    betas = _SCHEDULES[schedule_type](K_step)
+    alphas = 1.0 - betas
+    ac = np.cumprod(alphas)
+    ac_prev = np.append(1.0, ac[:-1])
+    post_var = betas * (1.0 - ac_prev) / (1.0 - ac)
+    return dict(
+        betas=betas, alphas_cumprod=ac, alphas_cumprod_prev=ac_prev,
+        sqrt_alphas_cumprod=np.sqrt(ac),
+        sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - ac),
+        log_one_minus_alphas_cumprod=np.log(1.0 - ac),
+        sqrt_recip_alphas_cumprod=np.sqrt(1.0 / ac),
+        sqrt_recipm1_alphas_cumprod=np.sqrt(1.0 / ac - 1.0),
+        posterior_variance=post_var,
+        posterior_log_variance_clipped=np.log(np.maximum(post_var, 1e-20)),
+        posterior_mean_coef1=betas * np.sqrt(ac_prev) / (1.0 - ac),
+        posterior_mean_coef2=(1.0 - ac_prev) * np.sqrt(alphas) / (1.0 - ac))
+
+
 class GaussianDiffusion(nn.Module):
     """The decoder's sampler around ``denoise_fn``.
 
@@ -182,20 +203,13 @@ class GaussianDiffusion(nn.Module):
         self.pndm_speedup = int(pndm_speedup) if pndm_speedup else None
         self.io_dtype = (getattr(torch, infer_io_dtype) if infer_io_dtype
                          else None)
-        betas = _SCHEDULES[schedule_type](K_step)
-        alphas = 1.0 - betas
-        ac = np.cumprod(alphas)
-        ac_prev = np.append(1.0, ac[:-1])
-        post_var = betas * (1.0 - ac_prev) / (1.0 - ac)
+        tables = schedule_tables(K_step, schedule_type)
         f32 = lambda a: [float(v) for v in np.asarray(a, np.float32)]
-        self.alphas_cumprod = f32(ac)
-        self.sqrt_recip_alphas_cumprod = f32(np.sqrt(1.0 / ac))
-        self.sqrt_recipm1_alphas_cumprod = f32(np.sqrt(1.0 / ac - 1.0))
-        self.posterior_log_variance_clipped = f32(
-            np.log(np.maximum(post_var, 1e-20)))
-        self.posterior_mean_coef1 = f32(betas * np.sqrt(ac_prev) / (1.0 - ac))
-        self.posterior_mean_coef2 = f32(
-            (1.0 - ac_prev) * np.sqrt(alphas) / (1.0 - ac))
+        for name in ("alphas_cumprod", "sqrt_recip_alphas_cumprod",
+                     "sqrt_recipm1_alphas_cumprod",
+                     "posterior_log_variance_clipped", "posterior_mean_coef1",
+                     "posterior_mean_coef2"):
+            setattr(self, name, f32(tables[name]))
 
     def clone(self, denoise_fn: Optional[DiffNet] = None, **options):
         """A new sampler with these options, ``options`` changed, around

@@ -83,6 +83,22 @@ class PromptTTSMDNDurCFG(nn.Module):
         return self._style_from_prompt_dist(log_pi, log_sigma, mu, use_max,
                                             noise_scale, generator)
 
+    def generate_style_emb(self, prompt_ids, prompt_mask, reference_mel,
+                           ref_lengths, use_max: bool = True,
+                           noise_scale: float = 1.0, generator=None):
+        """Both branches' style vectors -> (prompt_emb, ref_emb), each
+        [B, 1, C]. The prompt's is drawn from the style MDN with
+        ``generator`` and normalized once more after the draw, as JAX
+        does."""
+        prompt_emb = l2_normalize(self.prompt_encoder(prompt_ids,
+                                                      prompt_mask))
+        log_pi, log_sigma, mu = self.style_mdn(prompt_emb.float())
+        prompt_emb = l2_normalize(self._style_from_prompt_dist(
+            log_pi, log_sigma, mu, use_max, noise_scale, generator))
+        ref_emb = l2_normalize(self.reference_encoder(reference_mel,
+                                                      ref_lengths))
+        return prompt_emb, ref_emb
+
     def infer_cond(self, phoneme, phone_lengths, max_frames: int,
                    prompt_ids=None, prompt_mask=None, reference_mel=None,
                    ref_lengths=None, use_max: bool = True,

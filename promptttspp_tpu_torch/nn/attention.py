@@ -1,8 +1,9 @@
-"""Relative-position multi-head attention ('new' 2T-1 variant) and the GST
-token cross-attention, eval mode.
+"""Relative-position multi-head attention ('new' 2T-1 variant and the
+legacy T variant) and the GST token cross-attention, eval mode.
 
 Counterpart of ``promptttspp_tpu/nn/attention.py``
-(``RelPositionMultiHeadedAttention``, ``GSTCrossAttention``). The
+(``RelPositionMultiHeadedAttention``,
+``LegacyRelPositionMultiHeadedAttention``, ``GSTCrossAttention``). The
 relative-position attention takes Transformer-XL scores
 ``(q + u) k^T + rel_shift((q + v) p^T)`` over sqrt(d_k), masked with the
 dtype's minimum and re-zeroed so fully padded rows give zeros, not NaNs. Masks are boolean [B, Tq, Tk] (True = attend).
@@ -33,7 +34,19 @@ def rel_shift(x):
     return x[:, :, 1:].reshape(B, H, T, P)[..., : P // 2 + 1]
 
 
+def rel_shift_legacy(x):
+    """[B, H, T, T] legacy shift: pad one zero column, view as [T+1, T],
+    drop the first row."""
+    B, H, T1, T2 = x.shape
+    x = F.pad(x, (1, 0)).reshape(B, H, T2 + 1, T1)
+    return x[:, :, 1:].reshape(B, H, T1, T2)
+
+
 class RelPositionMultiHeadedAttention(nn.Module):
+    """'New' variant: ``pos_emb`` [1, 2T-1, C], ``rel_shift``."""
+
+    shift = staticmethod(rel_shift)
+
     def __init__(self, n_head: int, n_feat: int):
         super().__init__()
         assert n_feat % n_head == 0
@@ -55,15 +68,22 @@ class RelPositionMultiHeadedAttention(nn.Module):
         q = self._split(self.linear_q(query))  # [B, H, T, d_k]
         k = self._split(self.linear_k(key))
         v = self._split(self.linear_v(value))
-        p = self._split(self.linear_pos(pos_emb))  # [1, H, 2T-1, d_k]
+        p = self._split(self.linear_pos(pos_emb))  # [1, H, 2T-1 or T, d_k]
         q_u = q + self.pos_bias_u[None, :, None, :]
         q_v = q + self.pos_bias_v[None, :, None, :]
         matrix_ac = q_u @ k.transpose(-1, -2)
-        matrix_bd = rel_shift(q_v @ p.transpose(-1, -2))
+        matrix_bd = self.shift(q_v @ p.transpose(-1, -2))
         scores = (matrix_ac + matrix_bd) / math.sqrt(self.d_k)
         x = masked_softmax(scores, mask) @ v
         x = x.transpose(1, 2).reshape(x.shape[0], -1, self.h * self.d_k)
         return self.linear_out(x)
+
+
+class LegacyRelPositionMultiHeadedAttention(RelPositionMultiHeadedAttention):
+    """Legacy variant: ``pos_emb`` [1, T, C], ``rel_shift_legacy``; the
+    same parameters and names as the 'new' variant."""
+
+    shift = staticmethod(rel_shift_legacy)
 
 
 class GSTCrossAttention(nn.Module):

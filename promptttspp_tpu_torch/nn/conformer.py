@@ -1,8 +1,10 @@
 """Conformer encoder stack, eval mode.
 
-Counterpart of ``promptttspp_tpu/nn/conformer.py`` for the configuration
-the flagship runs (``conf/model/prompttts_mdn_v2_wo_erg_final.yaml``):
-'new' relative positions, conv1d position-wise FFN, macaron style (0.5 x
+Counterpart of ``promptttspp_tpu/nn/conformer.py`` for the configurations
+the flagship and the demo model run
+(``conf/model/prompttts_mdn_v2_wo_erg_final.yaml`` and its ``_demo``
+variant): 'new' or legacy relative positions (``rel_pos_type``; None means
+legacy, as in JAX), conv1d position-wise FFN, macaron style (0.5 x
 FFN before attention), conv module (pointwise + GLU, depthwise k,
 BatchNorm with running stats, swish, pointwise), LayerNorm eps 1e-12,
 and the reference's mask-multiply points. Other options of the JAX module
@@ -14,10 +16,29 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from promptttspp_tpu_torch.nn.attention import RelPositionMultiHeadedAttention
-from promptttspp_tpu_torch.nn.embedding import RelPositionalEncoding
+from promptttspp_tpu_torch.nn.attention import (
+    LegacyRelPositionMultiHeadedAttention, RelPositionMultiHeadedAttention)
+from promptttspp_tpu_torch.nn.embedding import (
+    LegacyRelPositionalEncoding, RelPositionalEncoding)
 from promptttspp_tpu_torch.nn.layers import Conv1d, layer_norm, swish
 from promptttspp_tpu_torch.ops.masks import sequence_mask
+
+# rel_pos_type -> (positional encoding, attention)
+_REL_POS = {
+    "new": (RelPositionalEncoding, RelPositionMultiHeadedAttention),
+    "legacy": (LegacyRelPositionalEncoding,
+               LegacyRelPositionMultiHeadedAttention),
+}
+
+
+def rel_pos_variant(rel_pos_type):
+    """JAX's reading of ``rel_pos_type``: None or "legacy" -> "legacy",
+    "new" -> "new", anything else raises."""
+    if rel_pos_type is None or rel_pos_type == "legacy":
+        return "legacy"
+    if rel_pos_type != "new":
+        raise ValueError(f"Unknown rel_pos_type: {rel_pos_type}")
+    return "new"
 
 
 class ConvolutionModule(nn.Module):
@@ -53,10 +74,10 @@ class MultiLayeredConv1d(nn.Module):
 
 class EncoderLayer(nn.Module):
     def __init__(self, size: int, attention_heads: int, linear_units: int,
-                 positionwise_conv_kernel_size: int, cnn_module_kernel: int):
+                 positionwise_conv_kernel_size: int, cnn_module_kernel: int,
+                 rel_pos_type: str = "new"):
         super().__init__()
-        self.self_attn = RelPositionMultiHeadedAttention(attention_heads,
-                                                         size)
+        self.self_attn = _REL_POS[rel_pos_type][1](attention_heads, size)
         self.feed_forward = MultiLayeredConv1d(
             size, linear_units, positionwise_conv_kernel_size)
         self.feed_forward_macaron = MultiLayeredConv1d(
@@ -69,7 +90,8 @@ class EncoderLayer(nn.Module):
         self.norm_final = layer_norm(size)
 
     def forward(self, x, pos_emb, attn_mask, mask):
-        """x [B,T,C]; pos_emb [1,2T-1,C]; attn_mask bool [B,T,T];
+        """x [B,T,C]; pos_emb [1,2T-1,C] ('new') or [1,T,C] (legacy);
+        attn_mask bool [B,T,T];
         mask float [B,T,1]."""
         x = x * mask
         x = x + 0.5 * self.feed_forward_macaron(self.norm_ff_macaron(x),
@@ -84,12 +106,14 @@ class EncoderLayer(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, attention_dim: int, attention_heads: int,
                  linear_units: int, num_blocks: int,
-                 positionwise_conv_kernel_size: int, cnn_module_kernel: int):
+                 positionwise_conv_kernel_size: int, cnn_module_kernel: int,
+                 rel_pos_type: str = "new"):
         super().__init__()
-        self.pos_enc = RelPositionalEncoding(attention_dim)
+        self.pos_enc = _REL_POS[rel_pos_type][0](attention_dim)
         self.encoders = nn.ModuleList(
             EncoderLayer(attention_dim, attention_heads, linear_units,
-                         positionwise_conv_kernel_size, cnn_module_kernel)
+                         positionwise_conv_kernel_size, cnn_module_kernel,
+                         rel_pos_type)
             for _ in range(num_blocks))
         self.after_norm = layer_norm(attention_dim)
 
@@ -102,15 +126,18 @@ class Encoder(nn.Module):
 
 class ConformerEncoder(nn.Module):
     """The reference wrapper: square length mask, encoder, re-mask.
-    [B, T, C] in and out (input width == attention_dim)."""
+    [B, T, C] in and out (input width == attention_dim). ``rel_pos_type``
+    as in JAX: None or "legacy" (the default of JAX's module) or "new"."""
 
     def __init__(self, attention_dim: int, attention_heads: int,
                  linear_units: int, num_blocks: int,
-                 positionwise_conv_kernel_size: int, cnn_module_kernel: int):
+                 positionwise_conv_kernel_size: int, cnn_module_kernel: int,
+                 rel_pos_type=None):
         super().__init__()
         self.encoder = Encoder(attention_dim, attention_heads, linear_units,
                                num_blocks, positionwise_conv_kernel_size,
-                               cnn_module_kernel)
+                               cnn_module_kernel,
+                               rel_pos_variant(rel_pos_type))
 
     def forward(self, emb, input_lens):
         """emb [B, T, C]; input_lens [B] -> [B, T, C]."""

@@ -1,10 +1,11 @@
 """Sinusoidal positional encodings (eval mode: no dropout).
 
 Counterpart of ``promptttspp_tpu/nn/embedding.py``: the absolute encoding
-the frame prior uses and the 'new' relative encoding of the conformer.
-Tables are numpy float32 constants, as in the JAX package, copied to each
-device once per length: a copy from host memory waits for the device's
-queue, so a request must not make one on every call.
+the frame prior uses and the 'new' and legacy relative encodings of the
+conformer. Tables are numpy float32 constants, as in the JAX package,
+copied to each device once per length (the legacy table once per device):
+a copy from host memory waits for the device's queue, so a request must not
+make one on every call.
 """
 
 from __future__ import annotations
@@ -23,9 +24,14 @@ def _div_term(d_model: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def sinusoid_table(length: int, d_model: int) -> np.ndarray:
-    """[length, d_model]: sin on even dims, cos on odd."""
-    position = np.arange(0, length, dtype=np.float32)[:, None]
+def sinusoid_table(length: int, d_model: int,
+                   reverse: bool = False) -> np.ndarray:
+    """[length, d_model]: sin on even dims, cos on odd; positions 0 ..
+    length-1, or length-1 .. 0 with ``reverse``."""
+    if reverse:
+        position = np.arange(length - 1, -1, -1.0, dtype=np.float32)[:, None]
+    else:
+        position = np.arange(0, length, dtype=np.float32)[:, None]
     div_term = _div_term(d_model)
     pe = np.zeros((length, d_model), dtype=np.float32)
     pe[:, 0::2] = np.sin(position * div_term)
@@ -45,6 +51,12 @@ def rel_sinusoid_table(length: int, d_model: int) -> np.ndarray:
     neg[:, 0::2] = np.sin(-position * div_term)
     neg[:, 1::2] = np.cos(-position * div_term)
     return np.concatenate([pos[::-1], neg[1:]], axis=0)
+
+
+def legacy_rel_table(length: int, d_model: int) -> np.ndarray:
+    """[length, d_model]: positions length-1 .. 0 (the legacy encoding's
+    table before it is sliced)."""
+    return sinusoid_table(length, d_model, reverse=True)
 
 
 @functools.lru_cache(maxsize=32)
@@ -79,3 +91,21 @@ class RelPositionalEncoding(nn.Module):
         pos_emb = _device_table(rel_sinusoid_table, x.shape[1],
                                 self.d_model, x.device)
         return x * math.sqrt(self.d_model), pos_emb[None]
+
+
+class LegacyRelPositionalEncoding(nn.Module):
+    """Legacy relative PE: (x * sqrt(d), pos_emb [1, T, d]). ``pos_emb`` is
+    the first T rows of the reversed ``max_len`` table, positions
+    max_len-1 .. max_len-T (not T-1 .. 0): the reference grows its table
+    only when T exceeds ``max_len``, and the JAX package keeps that quirk.
+    One table of ``max(max_len, T)`` rows per device, sliced per call."""
+
+    def __init__(self, d_model: int, max_len: int = 5000):
+        super().__init__()
+        self.d_model, self.max_len = d_model, max_len
+
+    def forward(self, x):
+        T = x.shape[1]
+        table = _device_table(legacy_rel_table, max(self.max_len, T),
+                              self.d_model, x.device)
+        return x * math.sqrt(self.d_model), table[None, :T]

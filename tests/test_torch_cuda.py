@@ -525,3 +525,105 @@ def test_failed_capture_raises(dev):
     assert decode_graph.captured(decoder) == []
     eager, graph = _decode_both(decoder, cond)
     torch.testing.assert_close(graph, eager, atol=0, rtol=0)
+
+
+# The tiny model and vocoder of the CLI tests, as command-line overrides of
+# conf/synthesize.yaml (the model's equal tests/test_e2e_cli.py's
+# TINY_MODEL_OVERRIDES; tests/test_torch_cli.py holds them equal). The
+# vocoder's channels (32, 16, 8, 4 after its four upsamples) are multiples of
+# 4, which K2 needs on the card.
+TINY_CLI_MODEL = [
+    "model.phoneme_embedding.channels=64",
+    "model.encoder.idim=64", "model.encoder.attention_dim=64",
+    "model.encoder.linear_units=128", "model.encoder.num_blocks=1",
+    "model.decoder.denoise_fn.residual_layers=2",
+    "model.decoder.denoise_fn.residual_channels=32",
+    "model.variance_adaptor.frame_prior_network.n_layers=1",
+    "model.prompt_encoder.in_channels=64",
+    "model.prompt_encoder.mid_channels=64",
+    "+model.prompt_encoder.bert_num_layers=1",
+    "+model.prompt_encoder.bert_num_heads=4",
+    "model.reference_encoder.conv_chans_list=[4,4,8,8,16,16]",
+    "+model.reference_encoder.gst_token_dim=64",
+]
+TINY_CLI_VOCODER = ["vocoder.upsample_initial_channel=64",
+                    "vocoder.harmonic_num=3",
+                    "vocoder.resblock_kernel_sizes=[3]",
+                    "vocoder.resblock_dilations=[[1,3]]"]
+CLI_PROMPTS = {"K1": ["a man speaks slowly with low voice",
+                      "a calm low slow male voice"],
+               "K2": ["A woman speaks fast, with a bright voice",
+                      "a bright quick female voice", "fast and clear"]}
+CLI_ROWS = [dict(spk_id=11, item_name="utt_11_0", style_prompt_key="K1",
+                 seq=[5, 17, 33, 45, 8, 61, 29, 74, 5, 50, 12]),
+            dict(spk_id=22, item_name="utt_22_1", style_prompt_key="K2",
+                 seq=[2, 19, 44, 71, 3, 60, 28, 15, 40, 66, 21, 8, 35, 50]),
+            dict(spk_id=22, item_name="utt_22_2", style_prompt_key="K2",
+                 seq=[9, 30, 5, 44])]
+
+
+def tiny_cli_overrides():
+    return TINY_CLI_MODEL + TINY_CLI_VOCODER
+
+
+def write_tiny_cli_setup(root, frames_per_phone=3.0):
+    """A synthetic corpus under ``root`` (``tools/synthetic_corpus.py``,
+    1.5 s wavs, a 64-token vocabulary) and reference-format checkpoints of
+    a seeded tiny model and vocoder (the model's duration head biased to
+    about ``frames_per_phone``; the vocoder's convolutions weight-normed) ->
+    the CLI's arguments for them, without ``device``."""
+    from pathlib import Path
+
+    from promptttspp_tpu_torch.bin import conf
+    from promptttspp_tpu_torch.compat.torch_ckpt import (
+        BIGVGAN_WEIGHT_NORMED, to_reference_state_dict)
+    from promptttspp_tpu_torch.tools.synthetic_corpus import write_corpus
+
+    root = Path(root)
+    write_corpus(root, CLI_ROWS, CLI_PROMPTS, vocab_size=64,
+                 wav_seconds=1.5, mel_mean=-4.2, mel_std=2.3)
+    cfg = conf.compose("synthesize", tiny_cli_overrides())
+    model = flagship.bias_duration_head(
+        flagship.build_model(cfg["model"], "cpu", seed=7), frames_per_phone)
+    # durations that vary with the phone and the style (log-duration std
+    # about 0.4)
+    g = torch.Generator().manual_seed(9)
+    head = model.variance_adaptor.duration_predictor.out_layer
+    head.mu.weight.copy_(0.05 * torch.randn(head.mu.weight.shape,
+                                            generator=g))
+    torch.save({"epoch": 3, "model": to_reference_state_dict(model),
+                "optimizer": {}}, root / "model.ckpt")
+    vocoder = flagship.build_vocoder("cpu", seed=8, cfg=cfg["vocoder"])
+    torch.save({"generator": to_reference_state_dict(
+        vocoder, BIGVGAN_WEIGHT_NORMED.match)}, root / "vocoder.ckpt")
+    return [f"path.root={root}", f"model_ckpt={root / 'model.ckpt'}",
+            f"vocoder_ckpt={root / 'vocoder.ckpt'}", *tiny_cli_overrides()]
+
+
+def test_synthesize_cli_on_the_card(dev, tmp_path):
+    """The port's synthesize CLI, run in-process on the card (its default
+    device) on a tiny corpus and tiny checkpoints: the eval tree, its
+    finish marker and finite 24 kHz wavs of 240 samples per frame."""
+    import os
+
+    from scipy.io import wavfile
+
+    from promptttspp_tpu_torch.bin import synthesize as cli
+
+    argv = write_tiny_cli_setup(tmp_path / "corpus")
+    out = tmp_path / "out"
+    cwd = os.getcwd()
+    try:
+        cli.main(argv + [f"output_dir={out}", f"hydra.run.dir={tmp_path}",
+                         "num_eval_utts=2"])
+    finally:
+        os.chdir(cwd)
+    wavs = sorted(p.relative_to(out).as_posix() for p in out.rglob("*.wav"))
+    assert wavs == [f"{s}/{m}/wav/{u}.wav" for s, u in
+                    (("11", "utt_11_0"), ("22", "utt_22_1"))
+                    for m in ("prompt", "ref")]
+    assert (out / "finish").read_text() == "finish"
+    for p in out.rglob("*.wav"):
+        sr, data = wavfile.read(p)
+        assert sr == 24000 and data.dtype == np.int16
+        assert len(data) > 0 and len(data) % 240 == 0

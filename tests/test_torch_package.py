@@ -10,9 +10,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from promptttspp_tpu_torch import flagship
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "promptttspp_tpu_torch"
@@ -74,10 +77,19 @@ def _strip_targets(node):
 
 def test_flagship_constants_equal_yaml():
     from promptttspp_tpu.config import compose
+    from promptttspp_tpu.config.compose import load_yaml
     from promptttspp_tpu_torch import flagship
 
     model = compose(REPO / "conf", "train").model.to_dict()
     assert _strip_targets(model) == flagship.MODEL
+    demo = compose(REPO / "conf", "demo").model.to_dict()
+    assert _strip_targets(demo) == flagship.MODEL_DEMO
+    assert flagship.MODEL_DEMO["encoder"]["rel_pos_type"] == "legacy"
+    for name, written in (
+            ("prompttts_mdn_v2_wo_erg_final", flagship.MODEL_YAML),
+            ("prompttts_mdn_v2_wo_erg_final_demo", flagship.MODEL_DEMO_YAML)):
+        raw = load_yaml(REPO / "conf" / "model" / f"{name}.yaml").to_dict()
+        assert _strip_targets(raw) == written
     voc = compose(REPO / "conf", "synthesize",
                   overrides=["vocoder=bigvgan_f0"]).vocoder.to_dict()
     assert _strip_targets(voc) == flagship.VOCODER
@@ -122,7 +134,7 @@ def test_host_helpers_equal_their_originals():
 
 def test_build_model_at_reduced_depth():
     """``flagship.build_model`` accepts the flagship's options and rejects
-    an option the port does not have."""
+    an unknown ``rel_pos_type`` as JAX's ConformerEncoder does."""
     import copy
 
     from promptttspp_tpu_torch import flagship
@@ -134,8 +146,8 @@ def test_build_model_at_reduced_depth():
     head = model.variance_adaptor.duration_predictor.out_layer
     assert torch.all(head.mu.weight == 0)
     bad = copy.deepcopy(tiny_model_config())
-    bad["encoder"]["rel_pos_type"] = "legacy"
-    with pytest.raises(ValueError, match="rel_pos_type"):
+    bad["encoder"]["rel_pos_type"] = "relative"
+    with pytest.raises(ValueError, match="Unknown rel_pos_type: relative"):
         flagship.build_model(bad, "cpu", 0, TINY_BERT)
 
 
@@ -197,3 +209,105 @@ def test_unported_decoder_switch_raises(path, value):
     section[path[-1]] = value
     with pytest.raises(ValueError, match=".".join(path)):
         flagship.build_model(cfg, "cpu", 0, TINY_BERT)
+
+
+# The JAX module behind each section of flagship._FIXED
+_JAX_CLASSES = {
+    (): "promptttspp_tpu.models.prompttts.PromptTTSMDNDurCFG",
+    ("phoneme_embedding",):
+        "promptttspp_tpu.models.phoneme_embedding.PhonemeEmbedding",
+    ("encoder",): "promptttspp_tpu.nn.conformer.ConformerEncoder",
+    ("variance_adaptor",):
+        "promptttspp_tpu.models.variance_adaptor.VarianceAdaptor",
+    ("style_mdn",): "promptttspp_tpu.nn.mdn.MDNLayer",
+    ("decoder",): "promptttspp_tpu.models.diffusion.GaussianDiffusion",
+}
+
+
+def _jax_class(path):
+    import importlib
+
+    module, _, name = _JAX_CLASSES[path].rpartition(".")
+    return getattr(importlib.import_module(module), name)
+
+
+def test_jax_defaults_are_the_jax_fields():
+    """``flagship._JAX_DEFAULTS`` (what an absent fixed key means) equals
+    the defaults of the JAX dataclass fields, so a changed JAX default
+    fails here; the conformer's ``rel_pos_type`` defaults to None."""
+    from promptttspp_tpu_torch import flagship
+
+    assert set(flagship._JAX_DEFAULTS) == set(flagship._FIXED) \
+        == set(_JAX_CLASSES)
+    for path, fixed in flagship._FIXED.items():
+        fields = _jax_fields(_jax_class(path))
+        assert flagship._JAX_DEFAULTS[path] == {k: fields[k] for k in fixed}
+    assert _jax_fields(_jax_class(("encoder",)))["rel_pos_type"] is None
+
+
+_ABSENT_KEYS = [(path, key) for path, fixed in flagship._FIXED.items()
+                for key in fixed] + [(("encoder",), "rel_pos_type")]
+
+
+@pytest.fixture(scope="module")
+def jax_twins():
+    from tests.test_torch_acoustic import init_jax_twins
+
+    return init_jax_twins(seed=5)
+
+
+@pytest.mark.parametrize("path,key", _ABSENT_KEYS,
+                         ids=[".".join(p + (k,)) for p, k in _ABSENT_KEYS])
+def test_absent_fixed_key_raises_or_builds_the_jax_model(jax_twins, path,
+                                                         key):
+    """A config without one of the fixed switches: the port either raises,
+    naming the key (and then JAX's default is a value the port does not
+    implement), or builds the model JAX builds with its default, which
+    gives JAX's frame lengths and decoder conditioning on the same weights
+    (none of the keys reaches the decoder's arithmetic)."""
+    import copy
+
+    from promptttspp_tpu_torch import flagship
+    from promptttspp_tpu_torch.compat.from_jax import load_jax_variables
+    from tests.test_torch_acoustic import _inputs, _t
+    from tests.test_torch_cuda import TINY_BERT, tiny_model_config
+
+    default = _jax_fields(_jax_class(path))[key]
+    cfg = copy.deepcopy(tiny_model_config())
+    section = cfg
+    for k in path:
+        section = section[k]
+    section.pop(key, None)
+    try:
+        port = flagship.build_model(cfg, "cpu", 0, TINY_BERT)
+    except ValueError as e:
+        assert ".".join(path + (key,)) in str(e)
+        assert default != flagship._FIXED[path][key]
+        return
+    model, variables, _ = jax_twins
+    if path:
+        sub = getattr(model, path[0]).clone(**{key: default})
+        model = model.clone(**{path[0]: sub})
+    else:
+        model = model.clone(**{key: default})
+    load_jax_variables(port, variables)
+    phoneme, plens, ids, mask = _inputs()
+    kw = dict(prompt_ids=jnp.asarray(ids), prompt_mask=jnp.asarray(mask),
+              use_max=True, noise_scale=0.0)
+    jflens = np.asarray(model.apply(
+        variables, jnp.asarray(phoneme), jnp.asarray(plens),
+        method=type(model).infer_frame_lengths, **kw))
+    max_frames = 64 * int(np.ceil(int(jflens.max()) / 64))
+    ref = model.apply(variables, jnp.asarray(phoneme), jnp.asarray(plens),
+                      max_frames, method=type(model).infer_cond, **kw)
+    with torch.no_grad():
+        flens = port.infer_frame_lengths(_t(phoneme), _t(plens), _t(ids),
+                                         _t(mask))
+        out = port.infer_cond(_t(phoneme), _t(plens), max_frames, _t(ids),
+                              _t(mask), use_max=True, noise_scale=0.0)
+    np.testing.assert_array_equal(flens.numpy(), jflens)
+    # tests/test_torch_acoustic.py::TOL
+    for name, o, r in zip(("cond", "flens", "fmask", "log_cf0", "vuv",
+                           "raw"), out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), err_msg=name,
+                                   atol=1e-4, rtol=1e-4)
