@@ -400,13 +400,20 @@ aa_conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
     }
   }
   // epilogue: fragment element (m, n, e) is row (lane >> 2) + 8 * (e >> 1),
-  // column 2 * (lane & 3) + (e & 1) of its 16 x 8 tile
+  // column 2 * (lane & 3) + (e & 1) of its 16 x 8 tile. co is even, so at
+  // an even C the pair (co, co + 1) lies inside the row and is 8-byte
+  // aligned; at an odd C it is written as scalars, the second only if
+  // co + 1 < C.
   const size_t batch = (size_t)blockIdx.z * T * C;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int co = pass * g.bn + col0 + n * 8 + 2 * (lane & 3);
     if (co >= C) continue;
-    const float2 bv = *reinterpret_cast<const float2*>(bias + co);
+    const bool pair = (C & 1) == 0;
+    const bool second = co + 1 < C;
+    const float2 bv =
+        pair ? *reinterpret_cast<const float2*>(bias + co)
+             : make_float2(bias[co], second ? bias[co + 1] : 0.f);
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
 #pragma unroll
@@ -416,12 +423,22 @@ aa_conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
         const size_t off = batch + (size_t)t * C + co;
         float2 o = make_float2(acc[m][n][2 * h] + bv.x,
                                acc[m][n][2 * h + 1] + bv.y);
-        if (residual != nullptr) {
-          const float2 rv = *reinterpret_cast<const float2*>(residual + off);
-          o.x += rv.x;
-          o.y += rv.y;
+        if (pair) {
+          if (residual != nullptr) {
+            const float2 rv =
+                *reinterpret_cast<const float2*>(residual + off);
+            o.x += rv.x;
+            o.y += rv.y;
+          }
+          *reinterpret_cast<float2*>(y + off) = o;
+        } else {
+          if (residual != nullptr) {
+            o.x += residual[off];
+            if (second) o.y += residual[off + 1];
+          }
+          y[off] = o.x;
+          if (second) y[off + 1] = o.y;
         }
-        *reinterpret_cast<float2*>(y + off) = o;
       }
     }
   }
@@ -452,8 +469,7 @@ int aa_conv(const float* x, const float* alpha, const void* w,
             const float* bias, const float* residual, float* y, int B, int T,
             int C, int k, int d, void* stream) {
   using Elem = typename Mix::Elem;
-  if (B <= 0 || T <= 0 || C <= 0 || C % 4 != 0 || k <= 0 || k % 2 == 0 ||
-      d <= 0)
+  if (B <= 0 || T <= 0 || C <= 0 || k <= 0 || k % 2 == 0 || d <= 0)
     return (int)cudaErrorInvalidValue;
   if (!aligned16(w) || !aligned16(bias) || !aligned16(y) ||
       (residual != nullptr && !aligned16(residual)))
@@ -499,7 +515,7 @@ extern "C" int amp_tc_weight_cols(int C) {
 // x, residual (nullable), y: [B, T, C] float32; alpha, bias: [C] float32;
 // w: [k, NP, CP] ([tap][out][in], zero beyond C; NP and CP from the
 // functions above), bf16 for amp_aa_conv_tc (K2-bf16) and float32 for
-// amp_aa_conv_tf32x3 (the float32 K2). Need C % 4 == 0, odd k, d >= 1,
+// amp_aa_conv_tf32x3 (the float32 K2). Take any C >= 1; need odd k, d >= 1,
 // 16-byte aligned w, bias, residual and y. Return the CUDA error code (0 on
 // success).
 extern "C" int amp_aa_conv_tc(const float* x, const float* alpha,

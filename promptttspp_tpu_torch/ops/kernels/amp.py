@@ -221,16 +221,15 @@ def amp_layer(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int,
     ``mxu_bf16``: on a CUDA tensor it selects K2-bf16, else the float32
     (3xTF32) K2.
     On a CPU tensor the float32 plain version runs whatever ``bf16`` says,
-    as JAX on the CPU runs the unfused float32 layer. On CUDA, C must be a
-    multiple of 4."""
+    as JAX on the CPU runs the unfused float32 layer. On CUDA it takes any
+    C >= 1, as the JAX ``AMPLayer`` does, and an odd k."""
     if x.device.type == "cpu":
         return amp_layer_plain(x, alpha1, w1, b1, alpha2, w2, b2, dilation)
     B, T, C = x.shape
     _build.check(x, "x", (B, T, C), x.device)
     k = w1.shape[-1]
-    if C % 4 or k % 2 == 0:
-        raise ValueError(f"amp_layer kernel needs C % 4 == 0 and odd k, "
-                         f"got C={C}, k={k}")
+    if k % 2 == 0:
+        raise ValueError(f"amp_layer kernel needs an odd k, got k={k}")
     _check_layer(C, k, alpha1, w1, b1, alpha2, w2, b2, x.device)
     h = _aa_conv(x, alpha1, w1, b1, None, dilation, bf16)
     return _aa_conv(h, alpha2, w2, b2, x, 1, bf16)

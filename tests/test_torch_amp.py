@@ -241,3 +241,34 @@ def test_3xtf32_product_keeps_float32_accuracy():
     assert rel.max() < 1.5 * 2.0 ** -20
     one_pass = np.abs(ab * bb - exact) / np.abs(exact)
     assert one_pass.max() > 2.0 ** -12
+
+
+@pytest.mark.parametrize("conv_precision", ["default", "highest"])
+@pytest.mark.parametrize("C", [1, 2, 3, 5])
+def test_module_on_cpu_at_odd_and_small_channel_counts(conv_precision, C):
+    """Every C that the JAX ``AMPLayer`` takes: on a CPU tensor the port
+    runs the float32 plain version for both precisions, held to JAX's
+    unfused layer, and no kernel is counted."""
+    T, k, dil = 70, 7, 3
+    p = _params(T, C, k, seed=C)
+    jparams = {
+        "act1": {"act": {"alpha": p["a1"]}},
+        "act2": {"act": {"alpha": p["a2"]}},
+        "conv1": {"kernel": p["w1"], "bias": p["b1"]},
+        "conv2": {"kernel": p["w2"], "bias": p["b2"]},
+    }
+    ref = JaxAMPLayer(C, k, dil, conv_precision=conv_precision).apply(
+        {"params": jparams}, jnp.asarray(p["x"]))
+    layer = AMPLayer(C, k, dil, conv_precision=conv_precision)
+    with torch.no_grad():
+        layer.act1.act.alpha.copy_(torch.from_numpy(p["a1"]))
+        layer.act2.act.alpha.copy_(torch.from_numpy(p["a2"]))
+        layer.conv1.weight.copy_(_torch_w(p["w1"]))
+        layer.conv1.bias.copy_(torch.from_numpy(p["b1"]))
+        layer.conv2.weight.copy_(_torch_w(p["w2"]))
+        layer.conv2.bias.copy_(torch.from_numpy(p["b2"]))
+        before = (k2.amp_layer.launches, k2.amp_layer.launches_bf16)
+        out = layer(torch.from_numpy(p["x"]))
+    assert (k2.amp_layer.launches, k2.amp_layer.launches_bf16) == before
+    assert out.shape == (1, T, C)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)

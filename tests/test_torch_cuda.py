@@ -183,6 +183,63 @@ def test_k2_bf16_at_other_shapes(dev, B, T, C, k, d):
                                **K2_BF16_TOL)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B,T,C,k,d", [
+    (1, 300, 1, 3, 1), (2, 77, 2, 7, 3), (1, 500, 3, 11, 5),
+    (2, 129, 6, 3, 5), (1, 64, 12, 7, 1), (1, 200, 5, 3, 3),
+    (1, 150, 33, 7, 1), (1, 90, 130, 3, 1)])
+def test_k2_takes_every_channel_count(dev, bf16, B, T, C, k, d):
+    """F5: both precisions take the odd and small channel counts that the
+    JAX ``AMPLayer`` serves (ragged T and batches too), held to their plain
+    versions at the usual tolerances; two launches are equal bit for
+    bit."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    ws = min(0.05, 1.0 / math.sqrt(k * C))
+    args = (_randn(g, B, T, C, scale=0.3), _randn(g, C, scale=0.2),
+            _randn(g, C, C, k, scale=ws), _randn(g, C, scale=0.1),
+            _randn(g, C, scale=0.2), _randn(g, C, C, k, scale=ws),
+            _randn(g, C, scale=0.1), d)
+    out = k2.amp_layer(*args, bf16=bf16)
+    torch.testing.assert_close(out, k2.amp_layer(*args, bf16=bf16),
+                               atol=0, rtol=0)
+    if bf16:
+        torch.testing.assert_close(out, k2.amp_layer_plain(*args, bf16=True),
+                                   **K2_BF16_TOL)
+        torch.testing.assert_close(out, k2.amp_layer_plain(*args),
+                                   **K2_BF16_F32_TOL)
+    else:
+        torch.testing.assert_close(out, k2.amp_layer_plain(*args), **K2_TOL)
+
+
+@pytest.mark.parametrize("conv_precision", ["default", "highest"])
+def test_vocoder_with_a_two_channel_stage(dev, conv_precision):
+    """F5: a vocoder whose last upsample stage has 2 channels (the narrow
+    vocoder of tests/test_e2e_cli.py) runs its AMPLayers through K2 in
+    either precision, within the tolerance of its plain versions."""
+    cfg = dict(flagship.VOCODER, in_channel=MEL, upsample_initial_channel=32,
+               harmonic_num=3, resblock_kernel_sizes=[3],
+               resblock_dilations=[[1, 3]], conv_precision=conv_precision)
+    vocoder = flagship.build_vocoder(dev, 3, cfg)
+    g = torch.Generator(device=dev).manual_seed(3)
+    mel = _randn(g, 1, 24, MEL)
+    f0 = torch.full((1, 24, 1), 150.0, device=dev)
+    before = (k2.amp_layer.launches, k2.amp_layer.launches_bf16)
+    with torch.no_grad():
+        wav = vocoder(mel, f0, deterministic=True)
+        after = (k2.amp_layer.launches, k2.amp_layer.launches_bf16)
+        with mock.patch.object(k2, "amp_layer", k2.amp_layer_plain), \
+                mock.patch.object(k1, "antialias_snake",
+                                  k1.antialias_snake_plain):
+            ref = vocoder(mel, f0, deterministic=True)
+    n = 4 * 2 * 2  # 4 stages x 2 layers x 2 launches
+    bf16 = conv_precision == "default"
+    assert after == (before[0] + (0 if bf16 else n),
+                     before[1] + (n if bf16 else 0))
+    assert wav.shape == (1, 24 * 240, 1) and torch.isfinite(wav).all()
+    torch.testing.assert_close(wav, ref, atol=1e-2 if bf16 else 1e-4,
+                               rtol=0)
+
+
 def test_kernel_weight_bf16_layout(dev):
     """[k, NP, CP] bf16: [tap][out][in], rounded to nearest even, zero in
     the padding, prepared once and again after an in-place update."""
@@ -314,11 +371,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="is on"):
         k1.antialias_snake(x, alpha.cpu())
     w = torch.zeros(30, 30, 3, device=dev)
+    w4 = torch.zeros(30, 30, 4, device=dev)
     b = torch.zeros(30, device=dev)
     x30 = torch.zeros(1, 64, 30, device=dev)
     for bf16 in (False, True):
-        with pytest.raises(ValueError, match="C % 4"):
-            k2.amp_layer(x30, b, w, b, b, w, b, 1, bf16=bf16)
+        # any C is taken (F5); an even k, another device or dtype is not
+        assert k2.amp_layer(x30, b, w, b, b, w, b, 1, bf16=bf16).shape == (
+            1, 64, 30)
+        with pytest.raises(ValueError, match="odd k"):
+            k2.amp_layer(x30, b, w4, b, b, w4, b, 1, bf16=bf16)
+        with pytest.raises(ValueError, match="is on"):
+            k2.amp_layer(x30, b.cpu(), w, b, b, w, b, 1, bf16=bf16)
+        with pytest.raises(TypeError):
+            k2.amp_layer(x30.double(), b, w, b, b, w, b, 1, bf16=bf16)
 
 
 class Tok:
@@ -530,8 +595,8 @@ def test_failed_capture_raises(dev):
 # The tiny model and vocoder of the CLI tests, as command-line overrides of
 # conf/synthesize.yaml (the model's equal tests/test_e2e_cli.py's
 # TINY_MODEL_OVERRIDES; tests/test_torch_cli.py holds them equal). The
-# vocoder's channels (32, 16, 8, 4 after its four upsamples) are multiples of
-# 4, which K2 needs on the card.
+# vocoder is that file's too: 16, 8, 4 and 2 channels after its four
+# upsamples.
 TINY_CLI_MODEL = [
     "model.phoneme_embedding.channels=64",
     "model.encoder.idim=64", "model.encoder.attention_dim=64",
@@ -546,7 +611,7 @@ TINY_CLI_MODEL = [
     "model.reference_encoder.conv_chans_list=[4,4,8,8,16,16]",
     "+model.reference_encoder.gst_token_dim=64",
 ]
-TINY_CLI_VOCODER = ["vocoder.upsample_initial_channel=64",
+TINY_CLI_VOCODER = ["vocoder.upsample_initial_channel=32",
                     "vocoder.harmonic_num=3",
                     "vocoder.resblock_kernel_sizes=[3]",
                     "vocoder.resblock_dilations=[[1,3]]"]
