@@ -8,23 +8,28 @@ Run from the repository root, with no arguments:
 Phases (any failure exits non-zero and prints no result line):
 
 1. Build the hand-written kernels from ``promptttspp_tpu_torch/csrc/`` with
-   nvcc (one process per source, all at once) and print each kernel's
-   registers and shared memory (``-Xptxas -v``) and the counts of bf16 and
-   of TF32 tensor-core MMA instructions in K2's SASS (``cuobjdump -sass``;
-   none of either fails).
+   nvcc (one process per source, all at once, beside the ``mix_only``
+   build of K2-bf16 that phase 3 times) and print each kernel's registers
+   and shared memory (``-Xptxas -v``), the counts of bf16 and of TF32
+   tensor-core MMA instructions (HMMA) in the ``mma.sync`` K2's SASS and
+   of HGMMA (``wgmma``) in K2-bf16's (``cuobjdump -sass``; none of any
+   fails).
 2. Hold kernel K1 (``antialias_snake``) against its plain PyTorch version at
    the ``act_post`` shape [1, 153600, 32], at C=256 and at four small,
    ragged shapes; print its bandwidth and its share of the bound.
 3. Hold both precisions of kernel K2 (``amp_layer``) against their plain
    versions at every AMPLayer shape of a 640-frame request (each upsample
-   stage's (C, T) and every (kernel size, dilation)): K2-bf16 (bf16
-   channel mix on the tensor cores, the serving path's) against the bf16
-   plain version and against the float32 one at the JAX package's bf16
-   tolerance, and the float32 K2 (3xTF32 on the tensor cores) against the
-   float32 plain version; per-stage times, and the float32 K2 beside both
-   of its bounds (TF32 tensor cores, float32 CUDA cores). K2-bf16's output
-   bits must equal those of its earlier kernel
-   (``promptttspp_tpu_torch/tools/k2_bits.py``).
+   stage's (C, T) and every (kernel size, dilation)): K2-bf16 (the
+   ``wgmma`` kernel, bf16 channel mix, the serving path's) against the
+   bf16 plain version and against the float32 one at the JAX package's
+   bf16 tolerance, and bit for bit against the earlier ``mma.sync``
+   K2-bf16, with which it is timed in alternated turns, beside its mix
+   alone and two bf16 cuDNN convolutions of the layer's shapes (a
+   yardstick the port never calls); the float32 K2 (3xTF32 on the tensor
+   cores) against the float32 plain version; per-stage times, and both
+   beside their bounds (the float32 K2 beside both of its: TF32 tensor
+   cores, float32 CUDA cores). K2-bf16's output bits must equal those of
+   its earlier kernel (``promptttspp_tpu_torch/tools/k2_bits.py``).
 4. Build the flagship model and vocoder at full width from seeds (duration
    head biased to 10 frames per phone) and run 3 two-phase requests of 64
    phones and a 32-token prompt (640 frames, 6.4 s of audio each) through
@@ -106,6 +111,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -293,7 +299,7 @@ def main() -> int:
         from promptttspp_tpu_torch.ops.kernels import _build
         from promptttspp_tpu_torch.ops.kernels import amp as k2
         from promptttspp_tpu_torch.ops.kernels import snake as k1
-        from promptttspp_tpu_torch.tools import k2_bits
+        from promptttspp_tpu_torch.tools import k2_bits, k2_variants
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}",
               file=sys.stderr)
@@ -311,23 +317,31 @@ def main() -> int:
 
     # -- phase 1: build ---------------------------------------------------
     t0 = time.perf_counter()
-    reports = _build.build()
+    # the mix-alone build of K2-bf16 (phase 3) compiles beside the kernels
+    with ThreadPoolExecutor(1) as pool:
+        mix_only = pool.submit(k2_variants.build, ["mix_only"],
+                               "amp_aa_conv_wgmma", "wgmma")
+        reports = _build.build()
+        mix_only = mix_only.result()["mix_only"]
     for name in _build.KERNELS:
         _build.load(name)
-    print(f"phase 1: built {sorted(reports) or 'nothing (cached)'} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 1: built {sorted(reports) or 'nothing (cached)'} and "
+          f"K2-bf16's mix_only variant in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line \
                     or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     n_mma = tensor_core_mmas(_build, "amp_layer_tc")
-    print(f"phase 1: tensor-core MMA instructions (HMMA/HGMMA) in K2's "
-          f"SASS: {n_mma['bf16']} bf16 (K2-bf16), {n_mma['tf32']} TF32 "
-          "(the float32 K2)", flush=True)
-    if not (n_mma["bf16"] and n_mma["tf32"]):
-        print(f"chip_smoke: K2's SASS lacks bf16 or TF32 tensor-core MMA "
-              f"instructions: {n_mma}", file=sys.stderr)
+    n_gmma = tensor_core_mmas(_build, "amp_layer_wgmma")
+    print(f"phase 1: tensor-core MMA instructions in K2's SASS: "
+          f"amp_layer_tc HMMA {n_mma['bf16']} bf16 (the mma.sync K2-bf16), "
+          f"{n_mma['tf32']} TF32 (the float32 K2); amp_layer_wgmma HGMMA "
+          f"{n_gmma['hgmma']} ({n_gmma['bf16']} bf16, K2-bf16)", flush=True)
+    if not (n_mma["bf16"] and n_mma["tf32"] and n_gmma["hgmma"]):
+        print(f"chip_smoke: K2's SASS lacks bf16 or TF32 HMMA or bf16 HGMMA "
+              f"instructions: {n_mma}, {n_gmma}", file=sys.stderr)
         return 1
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -368,7 +382,8 @@ def main() -> int:
 
     # -- phase 3: both K2 precisions against their plain versions ----------
     voc_cfg = flagship.VOCODER
-    k2_row, k2bf_row = phase_k2(k2, randn, voc_cfg, gpu, failures)
+    k2_row, k2bf_row = phase_k2(k2, k2_variants, mix_only, randn, voc_cfg,
+                                gpu, failures)
     bits = k2_bits.fingerprints(k2, dev)
     same_bits = {case: fp == k2_bits.EARLIER.get(case)
                  for case, fp in bits.items()}
@@ -547,14 +562,21 @@ def main() -> int:
              bound_ms=k1_row["bound_ms"], bound_by=k1_row["bound_by"],
              library_ms=None, shape=k1_row["shape"]),
         dict(name="amp_layer_bf16", route="cuda",
-             source="promptttspp_tpu_torch/csrc/amp_layer_tc.cu",
+             source="promptttspp_tpu_torch/csrc/amp_layer_wgmma.cu",
              replaces="promptttspp_tpu/ops/pallas/amp.py:332",
              launches=launches["amp_layer_bf16"],
              max_abs_err=k2bf_row["err"], ms=k2bf_row["ms"],
              plain_ms=k2bf_row["plain_ms"], bound_ms=k2bf_row["bound_ms"],
              bound_by=k2bf_row["bound_by"], library_ms=None,
              max_abs_dev_from_fp32_plain=k2bf_row["dev_f32"],
-             per=f"{per_request} (72 launches), mxu_bf16=True"),
+             mma_sync_ms=k2bf_row["mma_sync_ms"],
+             max_abs_diff_from_mma_sync=k2bf_row["diff_mma_sync"],
+             mix_alone_ms=k2bf_row["mix_ms"],
+             cudnn_bf16_conv_ms=k2bf_row["cudnn_ms"],
+             per=f"{per_request} (72 launches), mxu_bf16=True; mma_sync_ms "
+                 "is the earlier K2-bf16 (amp_layer_tc.cu) in alternated "
+                 "turns, cudnn_bf16_conv_ms two bf16 cuDNN convolutions per "
+                 "layer (a yardstick, not the same function)"),
         dict(name="amp_layer", route="cuda",
              source="promptttspp_tpu_torch/csrc/amp_layer_tc.cu",
              replaces="promptttspp_tpu/ops/pallas/amp.py:332",
@@ -589,16 +611,18 @@ def main() -> int:
 
 def tensor_core_mmas(_build, name):
     """Tensor-core MMA instructions (HMMA, HGMMA) in a built library's SASS,
-    from the toolkit's ``cuobjdump -sass``, by operand type: {"bf16": n,
-    "tf32": n}."""
+    from the toolkit's ``cuobjdump -sass``, by operand type, and the HGMMA
+    (wgmma) among them: {"bf16": n, "tf32": n, "hgmma": n}."""
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
                          capture_output=True, text=True, timeout=300,
                          check=True)
     mmas = [line for line in out.stdout.splitlines()
             if "HMMA" in line or "HGMMA" in line]
-    return {t: sum(1 for line in mmas if t.upper() in line)
-            for t in ("bf16", "tf32")}
+    counts = {t: sum(1 for line in mmas if t.upper() in line)
+              for t in ("bf16", "tf32")}
+    counts["hgmma"] = sum(1 for line in mmas if "HGMMA" in line)
+    return counts
 
 
 def set_conv_precision(vocoder, precision):
@@ -609,24 +633,53 @@ def set_conv_precision(vocoder, precision):
             m.conv_precision = precision
 
 
-def phase_k2(k2, randn, voc_cfg, gpu, failures):
+def mma_sync_layer(k2, _build, x, a1, w1, b1, a2, w2, b2, d):
+    """An AMPLayer by the mma.sync K2-bf16 (``amp_aa_conv_tc``), which no
+    serving path calls: the yardstick that the wgmma kernel is timed and
+    held bit for bit against."""
+    import torch
+
+    lib = k2._tc_lib()
+    B, T, C = x.shape
+    h, y = torch.empty_like(x), torch.empty_like(x)
+    for src, a, w, b, res, dst, dil in ((x, a1, w1, b1, None, h, d),
+                                        (h, a2, w2, b2, x, y, 1)):
+        _build.launch(lib.amp_aa_conv_tc, x.device, src.data_ptr(),
+                      a.data_ptr(), k2.kernel_weight_bf16(w).data_ptr(),
+                      b.data_ptr(), 0 if res is None else res.data_ptr(),
+                      dst.data_ptr(), B, T, C, w.shape[-1], dil)
+    return y
+
+
+def phase_k2(k2, k2_variants, mix_only, randn, voc_cfg, gpu, failures):
     """Both K2 precisions at every AMPLayer shape of a request against
-    their plain versions, timed beside them and their bounds. The conv
-    weights have gain 1 at most (scale min(0.05, 1/sqrt(k*C)), as trained
-    BigVGAN convs have): at scale 0.05 a C=256, k=11 conv has gain 2.65,
-    the layer's output reaches 11, and bf16 rounding leaves the JAX
-    package's bf16 tolerance, which it checks at C=32, k=7 (gain 0.66)."""
+    their plain versions, timed beside them and their bounds. K2-bf16 (the
+    wgmma kernel) is also held bit for bit against the mma.sync K2-bf16
+    and timed in alternated turns with it (wgmma, mma.sync, mma.sync,
+    wgmma), beside its mix alone (``mix_only``, the launches of
+    ``tools/k2_variants.py``'s mix_only build: AA skipped, no residual)
+    and, as a yardstick the port never calls, two bf16 cuDNN convolutions
+    of the layer's shapes. The conv weights have gain 1 at most (scale
+    min(0.05, 1/sqrt(k*C)), as trained BigVGAN convs have): at scale 0.05
+    a C=256, k=11 conv has gain 2.65, the layer's output reaches 11, and
+    bf16 rounding leaves the JAX package's bf16 tolerance, which it checks
+    at C=32, k=7 (gain 0.66)."""
     import math
 
     import torch
+    import torch.nn.functional as F
+
+    from promptttspp_tpu_torch.ops.kernels import _build
 
     f32 = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_cc_ms=0.0,
                flops=0.0, t_bytes=0.0, t_mix=0.0, t_fp32=0.0)
     bf = dict(err=0.0, dev_f32=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-              t_bytes=0.0, t_mix=0.0, t_fp32=0.0)
+              t_bytes=0.0, t_mix=0.0, t_fp32=0.0, mma_sync_ms=0.0,
+              mix_ms=0.0, cudnn_ms=0.0, diff_mma_sync=0.0)
     for C, T in stage_shapes(voc_cfg, FRAMES):
         st = dict(ms=0.0, plain_ms=0.0, bf_ms=0.0, bf_plain_ms=0.0,
-                  bound=0.0, bound_cc=0.0, bf_bound=0.0)
+                  bound=0.0, bound_cc=0.0, bf_bound=0.0, mma_sync=0.0,
+                  mix=0.0, cudnn=0.0)
         for k, dils in zip(voc_cfg["resblock_kernel_sizes"],
                            voc_cfg["resblock_dilations"]):
             ws = min(0.05, 1.0 / math.sqrt(k * C))
@@ -635,17 +688,21 @@ def phase_k2(k2, randn, voc_cfg, gpu, failures):
                          ws * randn(C, C, k), 0.1 * randn(C),
                          0.2 * randn(C), ws * randn(C, C, k),
                          0.1 * randn(C), d)
+                x, a1, w1, b1, a2, w2, b2, _ = args_
                 y = k2.amp_layer(*args_)
                 yb = k2.amp_layer(*args_, bf16=True)
+                yo = mma_sync_layer(k2, _build, *args_)
                 ref = k2.amp_layer_plain(*args_)
                 refb = k2.amp_layer_plain(*args_, bf16=True)
                 torch.cuda.synchronize()
                 err = (y - ref).abs().max().item()
                 errb = (yb - refb).abs().max().item()
                 dev = (yb - ref).abs().max().item()
+                diff = (yb - yo).abs().max().item()
                 f32["err"] = max(f32["err"], err)
                 bf["err"] = max(bf["err"], errb)
                 bf["dev_f32"] = max(bf["dev_f32"], dev)
+                bf["diff_mma_sync"] = max(bf["diff_mma_sync"], diff)
                 shape = f"C={C} T={T} k={k} d={d}"
                 if not torch.allclose(y, ref, **K2_TOL):
                     failures.append(f"K2 {shape}: max abs err {err:.3g}")
@@ -655,9 +712,28 @@ def phase_k2(k2, randn, voc_cfg, gpu, failures):
                 if not torch.allclose(yb, ref, **K2_BF16_F32_TOL):
                     failures.append(f"K2-bf16 {shape} vs float32: max abs "
                                     f"dev {dev:.3g}")
+                if diff != 0.0:
+                    failures.append(f"K2-bf16 {shape}: differs from the "
+                                    f"mma.sync kernel by {diff:.3g}")
+                mix1, _ = k2_variants.wgmma_call(mix_only, "mix_only", x, a1,
+                                                 w1, b1, d)
+                mix2, _ = k2_variants.wgmma_call(mix_only, "mix_only", x, a2,
+                                                 w2, b2, 1)
+                xc = x.permute(0, 2, 1).contiguous().to(torch.bfloat16)
+                wc1, wc2 = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+                bc1, bc2 = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+                pad = (k - 1) // 2
+                new = lambda: k2.amp_layer(*args_, bf16=True)
+                old = lambda: mma_sync_layer(k2, _build, *args_)
+                msb = cuda_ms(new, iters=10)
+                mso = cuda_ms(old, iters=10)
+                mso = (mso + cuda_ms(old, iters=10)) / 2
+                msb = (msb + cuda_ms(new, iters=10)) / 2
+                msm = cuda_ms(lambda: (mix1(), mix2()), iters=10)
+                msc = cuda_ms(lambda: (
+                    F.conv1d(xc, wc1, bc1, padding=pad * d, dilation=d),
+                    F.conv1d(xc, wc2, bc2, padding=pad)), iters=10)
                 ms = cuda_ms(lambda: k2.amp_layer(*args_), iters=10)
-                msb = cuda_ms(lambda: k2.amp_layer(*args_, bf16=True),
-                              iters=10)
                 plain = cuda_ms(lambda: k2.amp_layer_plain(*args_), iters=3,
                                 kernel=False)
                 plainb = cuda_ms(
@@ -679,35 +755,49 @@ def phase_k2(k2, randn, voc_cfg, gpu, failures):
                                ("bf_ms", msb), ("bf_plain_ms", plainb),
                                ("bound", max(times_f) * 1e3),
                                ("bound_cc", bms_cc),
-                               ("bf_bound", max(times) * 1e3)):
+                               ("bf_bound", max(times) * 1e3),
+                               ("mma_sync", mso), ("mix", msm),
+                               ("cudnn", msc)):
                     st[key] += v
                 print(f"  K2 {shape}: bf16 err {errb:.3g} (vs float32 plain "
-                      f"{dev:.3g}) kernel {msb:.4f} ms plain {plainb:.4f} "
-                      f"ms bound {max(times) * 1e3:.4f} ms; float32 err "
-                      f"{err:.3g} kernel {ms:.4f} ms plain {plain:.4f} ms "
-                      f"bound {max(times_f) * 1e3:.4f} ms (CUDA cores "
-                      f"{bms_cc:.4f} ms)", flush=True)
+                      f"{dev:.3g}, vs mma.sync {diff:.3g}) kernel "
+                      f"{msb:.4f} ms (mma.sync {mso:.4f}, mix alone "
+                      f"{msm:.4f}, cuDNN bf16 convs {msc:.4f}) plain "
+                      f"{plainb:.4f} ms bound {max(times) * 1e3:.4f} ms; "
+                      f"float32 err {err:.3g} kernel {ms:.4f} ms plain "
+                      f"{plain:.4f} ms bound {max(times_f) * 1e3:.4f} ms "
+                      f"(CUDA cores {bms_cc:.4f} ms)", flush=True)
         f32["ms"] += st["ms"]
         f32["plain_ms"] += st["plain_ms"]
         bf["ms"] += st["bf_ms"]
         bf["plain_ms"] += st["bf_plain_ms"]
+        bf["mma_sync_ms"] += st["mma_sync"]
+        bf["mix_ms"] += st["mix"]
+        bf["cudnn_ms"] += st["cudnn"]
         print(f"[{gpu}] phase 3: K2 amp_layer stage C={C} T={T} (9 layers): "
-              f"K2-bf16 {st['bf_ms']:.3f} ms (plain {st['bf_plain_ms']:.3f} "
-              f"ms, bound {st['bf_bound']:.3f} ms), float32 K2 "
-              f"{st['ms']:.3f} ms (plain {st['plain_ms']:.3f} ms, bound "
-              f"{st['bound']:.3f} ms on the TF32 tensor cores, "
-              f"{st['bound_cc']:.3f} ms on the CUDA cores)", flush=True)
+              f"K2-bf16 {st['bf_ms']:.3f} ms (mma.sync K2-bf16 "
+              f"{st['mma_sync']:.3f} ms in alternated turns, mix alone "
+              f"{st['mix']:.3f} ms, cuDNN bf16 convs {st['cudnn']:.3f} ms, "
+              f"plain {st['bf_plain_ms']:.3f} ms, bound {st['bf_bound']:.3f} "
+              f"ms), float32 K2 {st['ms']:.3f} ms (plain "
+              f"{st['plain_ms']:.3f} ms, bound {st['bound']:.3f} ms on the "
+              f"TF32 tensor cores, {st['bound_cc']:.3f} ms on the CUDA "
+              "cores)", flush=True)
     for row in (f32, bf):
         parts = {"bytes": row["t_bytes"],
                  "operations": max(row["t_mix"], row["t_fp32"])}
         row["bound_by"] = max(parts, key=parts.get)
     print(f"[{gpu}] phase 3: K2 amp_layer, 36 layers of a {FRAMES}-frame "
-          f"request: K2-bf16 {bf['ms']:.3f} ms, plain {bf['plain_ms']:.3f} "
+          f"request: K2-bf16 {bf['ms']:.3f} ms ({bf['bound_ms'] / bf['ms']:.0%}"
+          f" of its bound), mma.sync K2-bf16 {bf['mma_sync_ms']:.3f} ms, "
+          f"mix alone {bf['mix_ms']:.3f} ms, cuDNN bf16 convs "
+          f"{bf['cudnn_ms']:.3f} ms, plain {bf['plain_ms']:.3f} "
           f"ms, bound {bf['bound_ms']:.3f} ms (sums of bytes "
           f"{bf['t_bytes']:.3f}, bf16 mix {bf['t_mix']:.3f}, float32 "
           f"{bf['t_fp32']:.3f} ms), max abs err {bf['err']:.3g}, max abs "
-          f"dev from the float32 plain version {bf['dev_f32']:.3g}; float32 "
-          f"K2 (3xTF32) {f32['ms']:.3f} ms "
+          f"dev from the float32 plain version {bf['dev_f32']:.3g}, largest "
+          f"difference from the mma.sync kernel {bf['diff_mma_sync']:.3g}; "
+          f"float32 K2 (3xTF32) {f32['ms']:.3f} ms "
           f"({f32['flops'] / (f32['ms'] * 1e-3) / 1e12:.2f} TFLOP/s of "
           f"float32 work), plain {f32['plain_ms']:.3f} ms, bound "
           f"{f32['bound_ms']:.3f} ms on the TF32 tensor cores (sums of bytes "
@@ -1414,7 +1504,7 @@ def profile_request(synth, seqs, prompts, gpu, wall_s, label="default"):
         return None
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     lines = [f"{us / 1e3:10.3f} ms {n:7d}x  {key}" for us, n, key in rows]
-    ours = {"K2-bf16": "Bf16Mix", "K2": "Tf32x3Mix",
+    ours = {"K2-bf16": "aa_conv_wgmma_kernel", "K2": "Tf32x3Mix",
             "K1": "antialias_snake_kernel"}
     sums = {name: [sum(r[i] for r in rows if pat in r[2]) for i in (0, 1)]
             for name, pat in ours.items()}

@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-KERNELS = ("antialias_snake", "amp_layer_tc", "amp_block")
+KERNELS = ("antialias_snake", "amp_layer_tc", "amp_layer_wgmma",
+           "amp_block")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -6,21 +6,28 @@ K2, ``amp_layer``: ``y = x + conv2(AA2(conv1(AA1(x))))``. Replaces
 of kernel K1; conv1 is a k-tap SAME conv with dilation d, conv2 a k-tap
 SAME conv; both C x C with bias.
 
-K2 is one kernel, ``csrc/amp_layer_tc.cu``, in the two precisions of the
-JAX kernel's ``mxu_bf16`` flag, which the JAX ``AMPLayer`` sets from
-``conv_precision``. Both run the channel mix on the tensor cores
-(``mma.sync``) with float32 accumulation; AA, bias and residual stay
-float32:
+K2 comes in the two precisions of the JAX kernel's ``mxu_bf16`` flag,
+which the JAX ``AMPLayer`` sets from ``conv_precision``. Both run the
+channel mix on the tensor cores with float32 accumulation; AA, bias and
+residual stay float32:
 
-- ``bf16=True`` (``conv_precision="default"``, the flagship's): K2-bf16.
-  The two operands of each channel mix, AA's output and the conv weight,
-  are rounded to bf16 (m16n8k16). The TPU kernel also feeds AA's FIRs to
-  the MXU in bf16 at C < 128; the port rounds only the channel mix.
-- ``bf16=False`` (``conv_precision="highest"``): the float32 K2, 3xTF32.
-  Each operand is split into a TF32 big part (rounded to nearest) and the
-  float32 remainder, and each product is small*big + big*small + big*big
-  (m16n8k8), which keeps the mix at float32 accuracy. One-pass TF32 would
-  not.
+- ``bf16=True`` (``conv_precision="default"``, the flagship's): K2-bf16,
+  ``csrc/amp_layer_wgmma.cu``. The two operands of each channel mix, AA's
+  output and the conv weight, are rounded to bf16 (``wgmma`` m64nNk16). A
+  persistent, warp-specialised block computes AA for its next time tile
+  while it mixes the current one; the weights arrive by bulk copies in the
+  shared-memory layout of ``kernel_weight_wgmma``; the tiling is
+  ``wgmma_plan``'s. The TPU kernel also feeds AA's FIRs to the MXU in bf16
+  at C < 128; the port rounds only the channel mix.
+- ``bf16=False`` (``conv_precision="highest"``): the float32 K2, 3xTF32,
+  ``csrc/amp_layer_tc.cu`` (``mma.sync``). Each operand is split into a
+  TF32 big part (rounded to nearest) and the float32 remainder, and each
+  product is small*big + big*small + big*big (m16n8k8), which keeps the
+  mix at float32 accuracy. One-pass TF32 would not.
+
+``amp_layer_tc.cu`` also keeps the earlier K2-bf16 (``mma.sync``,
+``amp_aa_conv_tc``, weights from ``kernel_weight_bf16``) as a yardstick
+for timing and output bits; no serving path calls it.
 
 The kernel is launched twice per layer:
 
@@ -50,8 +57,8 @@ x/y traffic. K3, in float32 on the CUDA cores, is bound by operations;
 K2-bf16 by AA's float32 work and the bytes about as much as by its mix;
 the float32 K2 by its three TF32 passes. All take the conv weights in a
 kernel layout prepared once per weight tensor (``kernel_weight`` for K3,
-``kernel_weight_bf16`` and ``kernel_weight_tf32x3`` for K2; change weights
-under ``torch.no_grad()``, not through ``w.data``).
+``kernel_weight_wgmma`` and ``kernel_weight_tf32x3`` for K2; change
+weights under ``torch.no_grad()``, not through ``w.data``).
 
 ``amp_layer`` and ``amp_block`` launch their kernels for a CUDA tensor and
 run the plain float32 PyTorch versions only for a tensor on the CPU. Their
@@ -76,6 +83,23 @@ from promptttspp_tpu_torch.ops.kernels.snake import antialias_snake_plain
 AMP_BLOCK_CHANNELS = (32, 64, 128, 256)
 AMP_BLOCK_KERNEL_SIZES = (3, 7, 11)
 AMP_BLOCK_DILATIONS = ((1, 3, 5), (1, 3))
+
+# K2-bf16 (csrc/amp_layer_wgmma.cu): the configurations compiled there, as
+# (N output channels per pass, KS k16 steps per weight chunk, NWG consumer
+# warpgroups, MT m64 tiles per consumer warpgroup, PW AA producer warps).
+# The first of each N is wgmma_plan's, the fastest of those timed at the
+# flagship's shapes on an H100 (tools/k2_variants.py --kernel wgmma; the
+# others stay to be timed against it).
+WGMMA_CONFIGS = ((16, 1, 1, 2, 8), (32, 2, 2, 2, 15), (32, 2, 1, 4, 11),
+                 (32, 2, 1, 2, 19), (64, 4, 2, 1, 15), (64, 4, 2, 1, 19),
+                 (128, 4, 1, 1, 15), (128, 4, 1, 1, 11), (256, 4, 1, 1, 7))
+# output channels per pass above C = 128: two passes of 128 at C = 256
+WGMMA_WIDE_N = 128
+# the plan's fields in the order the launcher reads them
+WGMMA_PLAN_FIELDS = ("n", "passes", "cp", "ks", "nwg", "mt", "pw", "tt",
+                     "na", "nap", "resident", "nstage", "abufs", "smem")
+SMEM_PER_BLOCK = 232_448  # an H100 block's shared memory
+WGMMA_MAX_STAGES = 4
 
 
 def _round_bf16(t):
@@ -163,6 +187,135 @@ def kernel_weight_tf32x3(w: torch.Tensor) -> torch.Tensor:
     return _tc_layout(w, "_kernel_layout_tf32x3", torch.float32)
 
 
+def _wgmma_shape(C: int, n: int = None):
+    """C -> (N output channels per pass, passes, CP input channels, KS k16
+    steps per weight chunk) of K2-bf16: N the smallest of 16, 32, 64, 128
+    that covers C, else ``n`` (default ``WGMMA_WIDE_N``) in passes; CP = C
+    rounded up to 16 up to 32, else to whole chunks of 64."""
+    if n is None:
+        n = next((v for v in (16, 32, 64, 128) if C <= v), WGMMA_WIDE_N)
+    cp = (C + 15) // 16 * 16 if C <= 32 else (C + 63) // 64 * 64
+    return n, -(-C // n), cp, min(cp // 16, 4)
+
+
+def wgmma_plan(C: int, k: int, d: int, n: int = None,
+               split: tuple = None) -> dict:
+    """K2-bf16's plan for one launch at C channels, kernel size k and
+    dilation d: the configuration (``WGMMA_CONFIGS``; ``n`` and ``split`` =
+    (NWG, MT, PW) pick another compiled one) and its shared memory. The
+    weights of all k taps stay resident in a block where they fit beside
+    two A buffers (one pass only); otherwise they stream through a ring of
+    2 to ``WGMMA_MAX_STAGES`` chunks, beside one A buffer if two leave no
+    room for two chunks. Raises ValueError for a shape whose tiles do not
+    fit in a block's shared memory. Holds ``WGMMA_PLAN_FIELDS`` and the
+    byte counts."""
+    if C < 1 or k < 1 or k % 2 == 0 or d < 1:
+        raise ValueError(f"K2-bf16 takes C >= 1, odd k, d >= 1; got C={C}, "
+                         f"k={k}, d={d}")
+    n, passes, cp, ks = _wgmma_shape(C, n)
+    cfgs = [c for c in WGMMA_CONFIGS if c[:2] == (n, ks)
+            and (split is None or c[2:] == tuple(split))]
+    if not cfgs:
+        raise ValueError(f"no compiled K2-bf16 configuration for N={n}, "
+                         f"KS={ks}, split={split}")
+    _, _, nwg, mt, pw = cfgs[0]
+    tt = 64 * mt * nwg
+    na = tt + 2 * ((k - 1) // 2 * d)
+    nap = na | 1  # odd, so a warp's stores to 4 channel groups spread
+    a_bytes = nap * cp * 2
+    chunk = 16 * ks * n * 2
+    nkc = cp // (16 * ks)
+    bars = lambda nstage: 8 * (4 + 2 * nstage)
+    resident = (passes == 1 and k * nkc * chunk + 2 * a_bytes + bars(1)
+                <= SMEM_PER_BLOCK)
+    if resident:
+        abufs, nstage, w_bytes = 2, 1, k * nkc * chunk
+    else:
+        for abufs in (2, 1):
+            nstage = min(WGMMA_MAX_STAGES,
+                         (SMEM_PER_BLOCK - abufs * a_bytes - bars(0))
+                         // (chunk + 16))
+            if nstage >= 2:
+                break
+        else:
+            raise ValueError(f"K2-bf16 tiles do not fit in shared memory at "
+                             f"C={C}, k={k}, d={d}")
+        w_bytes = nstage * chunk
+    plan = dict(n=n, passes=passes, cp=cp, ks=ks, nwg=nwg, mt=mt, pw=pw,
+                tt=tt, na=na, nap=nap, resident=int(resident), nstage=nstage,
+                abufs=abufs,
+                smem=w_bytes + abufs * a_bytes + bars(nstage),
+                a_bytes=a_bytes, chunk_bytes=chunk, w_bytes=w_bytes,
+                weight_bytes=passes * k * nkc * chunk)
+    return plan
+
+
+def wgmma_grid(plan: dict, B: int, T: int, n_sm: int) -> int:
+    """Blocks of a K2-bf16 launch: one per SM, at most one per item (batch
+    row, time tile, pass)."""
+    return min(B * -(-T // plan["tt"]) * plan["passes"], n_sm)
+
+
+def wgmma_weight(v: torch.Tensor, n: int, cp: int) -> torch.Tensor:
+    """Torch conv weight [C_out, C_in, k] -> K2-bf16's bf16 weights
+    [P, k, CP/16, N/8, 2, 8, 8] (P = passes of N output channels), the
+    shared-memory image that the kernel's B descriptors read, chunk after
+    chunk in the order it consumes them: element (p, j, s, g, h, r, e) is
+    W[j][p*N + 8g + r][16s + 8h + e], bf16 rounded to nearest even, zero
+    beyond C. (g, h) is a core matrix of 8 output channels x 8 input
+    channels (16 bytes a row); a weight chunk is KS consecutive s."""
+    C, _, k = v.shape
+    passes = -(-C // n)
+    w = v.new_zeros((k, passes * n, cp), dtype=torch.bfloat16)
+    w[:, :C, :C] = v.permute(2, 0, 1)
+    w = w.view(k, passes, n // 8, 8, cp // 16, 2, 8)  # j p g r s h e
+    return w.permute(1, 0, 4, 2, 5, 3, 6).contiguous()
+
+
+def kernel_weight_wgmma(w: torch.Tensor) -> torch.Tensor:
+    """Torch conv weight [C_out, C_in, k] -> K2-bf16's ``wgmma_weight`` for
+    ``wgmma_plan``'s N and CP at this C. Kept on ``w`` under
+    ``kernel_weight``'s rules."""
+    n, _, cp, _ = _wgmma_shape(w.shape[0])
+    return _prepared(w, "_kernel_layout_wgmma",
+                     lambda v: wgmma_weight(v, n, cp))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def wgmma_launch(fn, x, alpha, w_k, b, residual, dilation, plan, k):
+    """Launch ``fn``, a K2-bf16 entry point with the signature of
+    ``amp_aa_conv_wgmma``, for ``plan`` on x's device and current stream
+    -> y."""
+    B, T, C = x.shape
+    y = torch.empty_like(x)
+    ints = (ctypes.c_int * len(WGMMA_PLAN_FIELDS))(
+        *(plan[f] for f in WGMMA_PLAN_FIELDS))
+    _build.launch(fn, x.device, x.data_ptr(), alpha.data_ptr(),
+                  w_k.data_ptr(), b.data_ptr(),
+                  0 if residual is None else residual.data_ptr(),
+                  y.data_ptr(), B, T, C, k, dilation, ints,
+                  wgmma_grid(plan, B, T, _sm_count(x.device)))
+    return y
+
+
+def wgmma_argtypes(fn):
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_lib():
+    lib = _build.load("amp_layer_wgmma")
+    wgmma_argtypes(lib.amp_aa_conv_wgmma)
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _tc_lib():
     lib = _build.load("amp_layer_tc")
@@ -199,18 +352,20 @@ def _check_layer(C, k, alpha1, w1, b1, alpha2, w2, b2, device):
 
 def _aa_conv(x, alpha, w, b, residual, dilation, bf16):
     B, T, C = x.shape
-    lib = _tc_lib()
-    fn, w_k = ((lib.amp_aa_conv_tc, kernel_weight_bf16(w)) if bf16
-               else (lib.amp_aa_conv_tf32x3, kernel_weight_tf32x3(w)))
-    y = torch.empty_like(x)
-    _build.launch(fn, x.device, x.data_ptr(), alpha.data_ptr(),
-                  w_k.data_ptr(), b.data_ptr(),
-                  0 if residual is None else residual.data_ptr(),
-                  y.data_ptr(), B, T, C, w.shape[-1], dilation)
+    k = w.shape[-1]
     if bf16:
+        y = wgmma_launch(_wgmma_lib().amp_aa_conv_wgmma, x, alpha,
+                         kernel_weight_wgmma(w), b, residual, dilation,
+                         wgmma_plan(C, k, dilation), k)
         amp_layer.launches_bf16 += 1
-    else:
-        amp_layer.launches += 1
+        return y
+    y = torch.empty_like(x)
+    _build.launch(_tc_lib().amp_aa_conv_tf32x3, x.device, x.data_ptr(),
+                  alpha.data_ptr(), kernel_weight_tf32x3(w).data_ptr(),
+                  b.data_ptr(),
+                  0 if residual is None else residual.data_ptr(),
+                  y.data_ptr(), B, T, C, k, dilation)
+    amp_layer.launches += 1
     return y
 
 
@@ -218,8 +373,8 @@ def amp_layer(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int,
               bf16: bool = False):
     """x [B, T, C] float32; alpha* [C]; w* torch conv weights [C, C, k]
     (odd k); b* [C] -> [B, T, C]. ``bf16`` is the JAX kernel's
-    ``mxu_bf16``: on a CUDA tensor it selects K2-bf16, else the float32
-    (3xTF32) K2.
+    ``mxu_bf16``: on a CUDA tensor it selects K2-bf16 (the ``wgmma``
+    kernel), else the float32 (3xTF32) K2.
     On a CPU tensor the float32 plain version runs whatever ``bf16`` says,
     as JAX on the CPU runs the unfused float32 layer. On CUDA it takes any
     C >= 1, as the JAX ``AMPLayer`` does, and an odd k."""

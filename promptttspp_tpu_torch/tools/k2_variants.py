@@ -1,24 +1,43 @@
-"""Time variants of kernel K2 (``csrc/amp_layer_tc.cu``), K2-bf16 or the
-float32 K2 (3xTF32), at the 36 AMPLayer shapes of a 640-frame request, on
-one GPU. From the repository root:
+"""Time variants of kernel K2-bf16 (``csrc/amp_layer_wgmma.cu``, the
+serving path's, with ``--kernel wgmma``) or of the ``mma.sync`` K2
+(``csrc/amp_layer_tc.cu``: its earlier K2-bf16 or, with ``--mix tf32x3``,
+the float32 K2) at the 36 AMPLayer shapes of a 640-frame request, on one
+GPU. From the repository root:
 
-    python3 -m promptttspp_tpu_torch.tools.k2_variants [--mix tf32x3] \
-        [--only a,b]
+    python3 -m promptttspp_tpu_torch.tools.k2_variants \
+        [--kernel tc|wgmma] [--mix bf16|tf32x3] [--only a,b]
 
 A variant is the committed source with literal text replacements, each of
-which must match once: ``aa_only`` skips the channel mix and its epilogue,
-``mix_only`` skips AA (phase 1); ``one_pass_c256`` gives a C=256 block all
-256 output channels instead of 128; ``run8`` and ``run24`` change the AA
-run length R from 16; ``stages4`` streams the weights four chunks deep
-instead of three; ``bounds_1`` drops the launch bounds' minimum of blocks
-per SM. The ``tf32_*`` variants change only the float32 K2's tiling:
-``tf32_mt2_c128`` gives its warps two m16 tiles from C=128 on (instead of
-256), ``tf32_kc64`` streams its weights in chunks of 64 input channels at
-every C (instead of only at C=64), ``tf32_min1`` asks for one block per SM
-in its launch bounds (no register cap); ``one_acc`` sums all of a layer's
-TF32 products in one accumulator instead of one per weight chunk. Each edit
-applies to both precisions' source; ``--mix`` picks the entry point that
-is timed. Each is built with nvcc (all at once) into ``build/k2_variants/``
+which must match once, and, for ``--kernel wgmma``, another plan
+(``ops/kernels/amp.py::wgmma_plan``) for the same compiled source.
+
+``--kernel wgmma``: ``aa_only`` skips the mix's ``wgmma``s and the
+epilogue (the consumers still take and hand back each A buffer and weight
+chunk), ``mix_only`` skips AA (the producers still hand over each A
+buffer, unwritten); ``split_<NWG>_<MT>_<PW>`` runs the compiled
+configuration of NWG consumer warpgroups of MT m64 tiles and PW producer
+warps (``amp.WGMMA_CONFIGS``; every one of them is timed when ``--only``
+is not given) at each C whose N has it, the plan's own elsewhere;
+``one_pass_c256`` runs C = 256 as one pass of 256
+output channels (AA once per tile) instead of two of 128; ``run8``
+computes AA in runs of 8 samples instead of 16; ``mma_sync`` times the
+earlier K2-bf16 (``amp_layer_tc.cu``, ``amp_aa_conv_tc``) beside them.
+
+``--kernel tc`` (the default): ``aa_only`` skips the channel mix and its
+epilogue, ``mix_only`` skips AA (phase 1); ``one_pass_c256`` gives a C=256
+block all 256 output channels instead of 128; ``run8`` and ``run24``
+change the AA run length R from 16; ``stages4`` streams the weights four
+chunks deep instead of three; ``bounds_1`` drops the launch bounds'
+minimum of blocks per SM. The ``tf32_*`` variants change only the float32
+K2's tiling: ``tf32_mt2_c128`` gives its warps two m16 tiles from C=128 on
+(instead of 256), ``tf32_kc64`` streams its weights in chunks of 64 input
+channels at every C (instead of only at C=64), ``tf32_min1`` asks for one
+block per SM in its launch bounds (no register cap); ``one_acc`` sums all
+of a layer's TF32 products in one accumulator instead of one per weight
+chunk. Each edit applies to both precisions' source; ``--mix`` picks the
+entry point that is timed.
+
+Each variant is built with nvcc (all at once) into ``build/k2_variants/``
 and run as the first launch of an AMPLayer (no residual) at every shape,
 with weights of gain at most 1, timed with CUDA events (mean of 20
 launches after one), and held against the launch's float32 plain version
@@ -72,28 +91,80 @@ VARIANTS = {
 }
 
 
-# --mix -> (entry point, weight layout)
+# --kernel wgmma: name -> ([(old, new), ...], wgmma_plan keywords at C,
+# equal to the committed kernel bit for bit); split_<NWG>_<MT>_<PW> (see
+# wgmma_variant) are made on demand
+WGMMA_VARIANTS = {
+    "committed": ([], lambda C: {}, True),
+    "aa_only": ([("            wgmma_ss<N>(acc[m], desc(a_k + m * 64 * 16, "
+                  "a_lbo, 128), bd);",
+                  "            (void)bd;"),
+                 ("      if (co >= p.C) continue;",
+                  "      if (co >= 0) continue;")], lambda C: {}, False),
+    "mix_only": ([("for (int run = first; run < n_runs; run += NPROD) {",
+                   "for (int run = first; run < 0; run += NPROD) {")],
+                 lambda C: {}, False),
+    "one_pass_c256": ([], lambda C: {"n": 256} if C > 128 else {}, True),
+    "run8": ([("constexpr int R = 16;", "constexpr int R = 8;")],
+             lambda C: {}, True),
+    # the mma.sync K2-bf16 (amp_layer_tc.cu's amp_aa_conv_tc) as it is
+    "mma_sync": (None, None, True),
+}
+
+def _split(name):
+    """split_<NWG>_<MT>_<PW> -> its split as a plan override: at each C
+    whose N has that compiled configuration, else the plan's own."""
+    nwg, mt, pw = (int(v) for v in name.split("_")[1:])
+
+    def plan_kw(C):
+        n, _, _, ks = k2._wgmma_shape(C)
+        return ({"split": (nwg, mt, pw)}
+                if (n, ks, nwg, mt, pw) in k2.WGMMA_CONFIGS else {})
+    return [], plan_kw, True
+
+
+def wgmma_variant(name):
+    return WGMMA_VARIANTS[name] if name in WGMMA_VARIANTS else _split(name)
+
+
+# --mix -> (entry point, weight layout) of --kernel tc
 MIXES = {"bf16": ("amp_aa_conv_tc", k2.kernel_weight_bf16),
          "tf32x3": ("amp_aa_conv_tf32x3", k2.kernel_weight_tf32x3)}
+# --kernel -> (source, variants)
+SOURCES = {"tc": ("amp_layer_tc", VARIANTS),
+           "wgmma": ("amp_layer_wgmma", WGMMA_VARIANTS)}
 
 
-def build(names, entry):
-    src = (_build.CSRC / "amp_layer_tc.cu").read_text()
+def build(names, entry, kernel="tc"):
+    """Build each variant of ``kernel``'s source (one nvcc each, all at
+    once; a variant without text edits shares the committed build) ->
+    name -> its entry point ``entry``."""
+    source, variants = SOURCES[kernel]
+    if kernel == "wgmma":
+        variants = {name: wgmma_variant(name) for name in names}
+    src = (_build.CSRC / f"{source}.cu").read_text()
     OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, alias = {}, {}
     for name in names:
+        if variants[name][0] is None:  # not a build of this source
+            continue
+        if not variants[name][0] and name != "committed":
+            alias[name] = "committed"
+            continue
         text = src
-        for old, new in VARIANTS[name][0]:
+        for old, new in variants[name][0]:
             if text.count(old) != 1:
                 raise SystemExit(f"variant {name}: {old!r} does not match "
                                  "once")
             text = text.replace(old, new)
-        cu = OUT / f"{name}.cu"
+        cu = OUT / f"{source}-{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o",
-             str(OUT / f"{name}.so"), str(cu)],
+             str(OUT / f"{source}-{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if alias and "committed" not in procs:
+        raise SystemExit("variants without text edits need 'committed'")
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
@@ -103,13 +174,36 @@ def build(names, entry):
                   if "spill" in line and not line.strip().startswith(
                       "0 bytes stack frame")]
         print(f"{name}: built; spills {spills or 'none'}", flush=True)
-        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
+        lib = ctypes.CDLL(str(OUT / f"{source}-{name}.so"))
         fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        if kernel == "wgmma":
+            k2.wgmma_argtypes(fn)
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         libs[name] = fn
+    for name, target in alias.items():
+        libs[name] = libs[target]
     return libs
+
+
+def wgmma_call(fn, variant, x, alpha, w, b, d):
+    """The first launch of an AMPLayer (no residual) by the K2-bf16 entry
+    point ``fn`` under ``variant``'s plan -> (call, y): ``call()`` launches
+    into ``y`` and returns the launch's error code."""
+    B, T, C = x.shape
+    k = w.shape[-1]
+    plan = k2.wgmma_plan(C, k, d, **wgmma_variant(variant)[1](C))
+    w_k = k2.wgmma_weight(w, plan["n"], plan["cp"])
+    ints = (ctypes.c_int * len(k2.WGMMA_PLAN_FIELDS))(
+        *(plan[f] for f in k2.WGMMA_PLAN_FIELDS))
+    grid = k2.wgmma_grid(plan, B, T, k2._sm_count(x.device))
+    y = torch.empty_like(x)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return (lambda: fn(x.data_ptr(), alpha.data_ptr(), w_k.data_ptr(),
+                       b.data_ptr(), None, y.data_ptr(), B, T, C, k, d,
+                       ints, grid, stream)), y
 
 
 def cuda_ms(fn, iters=20):
@@ -126,25 +220,42 @@ def cuda_ms(fn, iters=20):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=sorted(SOURCES), default="tc",
+                    help="the source whose variants are timed (default: "
+                    "tc, the mma.sync kernel)")
     ap.add_argument("--mix", choices=sorted(MIXES), default="bf16",
-                    help="the precision timed (default: bf16)")
+                    help="the precision timed with --kernel tc (default: "
+                    "bf16)")
     ap.add_argument("--only", default="",
                     help="comma-separated variants (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k2_variants: needs a CUDA GPU", file=sys.stderr)
         return 1
-    names = [n for n in args.only.split(",") if n] or list(VARIANTS)
+    variants = SOURCES[args.kernel][1]
+    names = [n for n in args.only.split(",") if n] or list(variants)
+    if args.kernel == "wgmma":
+        if not args.only:
+            names += sorted({f"split_{nwg}_{mt}_{pw}"
+                             for _, _, nwg, mt, pw in k2.WGMMA_CONFIGS})
+        variants = {name: wgmma_variant(name) for name in names
+                    if name in variants or name.startswith("split_")}
+    unknown = sorted(set(names) - set(variants))
+    if unknown:
+        ap.error(f"unknown variants of --kernel {args.kernel}: {unknown}")
     if "committed" not in names:
         names.insert(0, "committed")
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(f"[{gpu}] torch {torch.__version__}; mix {args.mix}", flush=True)
+    wgmma = args.kernel == "wgmma"
+    print(f"[{gpu}] torch {torch.__version__}; kernel {args.kernel}"
+          + ("" if wgmma else f", mix {args.mix}"), flush=True)
     torch.backends.cudnn.allow_tf32 = False  # a float32 plain version
-    entry, layout = MIXES[args.mix]
-    libs = build(names, entry)
+    entry, layout = (("amp_aa_conv_wgmma", None) if wgmma
+                     else MIXES[args.mix])
+    libs = build(names, entry, args.kernel)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=g, device=dev)
@@ -163,15 +274,26 @@ def main(argv=None) -> int:
                 x = 0.3 * randn(1, T, C)
                 alpha, b = 0.2 * randn(C), 0.1 * randn(C)
                 w = min(0.05, 1 / math.sqrt(k * C)) * randn(C, C, k)
-                w_k = layout(w)
+                w_k = None if wgmma else layout(w)
                 plain = conv1d_same(antialias_snake_plain(x, alpha), w, b, d)
                 ref, row = None, []
                 for name in names:
-                    y = torch.empty_like(x)
-                    call = lambda: libs[name](
-                        x.data_ptr(), alpha.data_ptr(), w_k.data_ptr(),
-                        b.data_ptr(), None, y.data_ptr(), 1, T, C, k, d,
-                        ctypes.c_void_p(stream))
+                    if name == "mma_sync":
+                        y = torch.empty_like(x)
+                        w_tc = k2.kernel_weight_bf16(w)
+                        call = lambda: k2._tc_lib().amp_aa_conv_tc(
+                            x.data_ptr(), alpha.data_ptr(), w_tc.data_ptr(),
+                            b.data_ptr(), None, y.data_ptr(), 1, T, C, k, d,
+                            ctypes.c_void_p(stream))
+                    elif wgmma:
+                        call, y = wgmma_call(libs[name], name, x, alpha, w,
+                                             b, d)
+                    else:
+                        y = torch.empty_like(x)
+                        call = lambda: libs[name](
+                            x.data_ptr(), alpha.data_ptr(), w_k.data_ptr(),
+                            b.data_ptr(), None, y.data_ptr(), 1, T, C, k, d,
+                            ctypes.c_void_p(stream))
                     err = call()
                     torch.cuda.synchronize()
                     if err:
@@ -181,7 +303,7 @@ def main(argv=None) -> int:
                                       (y - plain).abs().max().item())
                     if name == "committed":
                         ref = y.clone()
-                    elif VARIANTS[name][1] and not torch.equal(y, ref):
+                    elif variants[name][-1] and not torch.equal(y, ref):
                         note = " NOT EQUAL"
                     ms = cuda_ms(call)
                     total[name] += ms

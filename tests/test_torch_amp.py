@@ -16,6 +16,7 @@ import torch
 from promptttspp_tpu.ops.pallas.amp import fused_amp_layer
 from promptttspp_tpu.vocoders.bigvgan import AMPLayer as JaxAMPLayer
 from promptttspp_tpu_torch.ops.kernels import amp as k2
+from promptttspp_tpu_torch.tools import k2_bits
 from promptttspp_tpu_torch.vocoders.bigvgan import AMPLayer
 
 # tolerance of tests/test_pallas_amp.py:51 (f32)
@@ -272,3 +273,81 @@ def test_module_on_cpu_at_odd_and_small_channel_counts(conv_precision, C):
     assert (k2.amp_layer.launches, k2.amp_layer.launches_bf16) == before
     assert out.shape == (1, T, C)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("C", [1, 2, 3, 12, 32, 64, 128, 256])
+def test_kernel_weight_wgmma_layout(C, k):
+    """K2-bf16's weight layout against its documented index formula:
+    element (p, j, s, g, h, r, e) is W[j][p*N + 8g + r][16s + 8h + e], bf16
+    rounded to nearest even; inverted back to w, it gives w with zeros in
+    the padding. Prepared once and again after an in-place update."""
+    w = torch.randn(C, C, k, generator=torch.Generator().manual_seed(C + k))
+    plan = k2.wgmma_plan(C, k, 1)
+    n, cp = plan["n"], plan["cp"]
+    w_k = k2.kernel_weight_wgmma(w)
+    assert k2.kernel_weight_wgmma(w) is w_k
+    P = plan["passes"]
+    assert w_k.dtype == torch.bfloat16
+    assert w_k.shape == (P, k, cp // 16, n // 8, 2, 8, 8)
+    assert w_k.numel() * 2 == plan["weight_bytes"]
+    full = torch.zeros(k, P * n, cp, dtype=torch.bfloat16)
+    idx = torch.meshgrid(*(torch.arange(s) for s in w_k.shape),
+                         indexing="ij")
+    p, j, s, g, h, r, e = idx
+    full[j, p * n + 8 * g + r, 16 * s + 8 * h + e] = w_k[idx]
+    assert torch.equal(full[:, :C, :C], w.permute(2, 0, 1).to(torch.bfloat16))
+    assert not full[:, C:].any() and not full[:, :, C:].any()
+    with torch.no_grad():
+        w.mul_(2.0)
+    assert k2.kernel_weight_wgmma(w) is not w_k
+
+
+def _flagship_layer_shapes():
+    """(C, k, d) of every launch of the flagship vocoder's AMPLayers."""
+    from promptttspp_tpu_torch import flagship
+
+    cfg = flagship.VOCODER
+    out = set()
+    for i in range(len(cfg["upsample_rates"])):
+        C = cfg["upsample_initial_channel"] // 2 ** (i + 1)
+        for k, dils in zip(cfg["resblock_kernel_sizes"],
+                           cfg["resblock_dilations"]):
+            out |= {(C, k, d) for d in dils} | {(C, k, 1)}
+    return sorted(out)
+
+
+@pytest.mark.parametrize("C,k,d", sorted(
+    set(_flagship_layer_shapes())
+    | {(C, k, d) for _, _, C, k, d in k2_bits.CASES}))
+def test_wgmma_plan(C, k, d):
+    """K2-bf16's plan at every flagship launch and every k2_bits case: a
+    compiled configuration; shared memory within a block's 232,448 bytes;
+    N a multiple of 8 that covers C in its passes; tile rows a multiple of
+    64; the weights resident exactly where all of them fit beside two A
+    buffers (one pass), else a ring of at least two chunks."""
+    plan = k2.wgmma_plan(C, k, d)
+    cfg = (plan["n"], plan["ks"], plan["nwg"], plan["mt"], plan["pw"])
+    assert cfg in k2.WGMMA_CONFIGS
+    assert plan["smem"] <= 232_448
+    assert plan["n"] % 8 == 0 and plan["n"] * plan["passes"] >= C
+    assert plan["n"] * (plan["passes"] - 1) < C
+    assert plan["cp"] >= C and plan["cp"] % (16 * plan["ks"]) == 0
+    assert plan["tt"] % 64 == 0 and plan["tt"] == 64 * plan["nwg"] * plan["mt"]
+    hc = (k - 1) // 2 * d
+    assert plan["na"] == plan["tt"] + 2 * hc
+    a_bytes = (plan["na"] | 1) * plan["cp"] * 2
+    weights = k * plan["cp"] * plan["n"] * plan["passes"] * 2
+    fits = plan["passes"] == 1 and weights + 2 * a_bytes + 48 <= 232_448
+    assert plan["resident"] == int(fits)
+    if not fits:
+        assert plan["nstage"] >= 2
+    stages = weights if fits else plan["nstage"] * 16 * plan["ks"] \
+        * plan["n"] * 2
+    assert plan["smem"] == stages + plan["abufs"] * a_bytes \
+        + 8 * (4 + 2 * plan["nstage"])
+    assert [plan[f] for f in k2.WGMMA_PLAN_FIELDS]  # every field present
+    for B, T in ((1, 1), (2, 1000), (1, 153600)):
+        grid = k2.wgmma_grid(plan, B, T, 132)
+        assert 1 <= grid <= min(132, B * -(-T // plan["tt"])
+                                * plan["passes"])

@@ -240,6 +240,120 @@ def test_vocoder_with_a_two_channel_stage(dev, conv_precision):
                                rtol=0)
 
 
+def _flagship_layers():
+    """(C, T, k, d) of every launch shape of a 640-frame request's
+    AMPLayers: each stage's (C, T), kernel size and conv1 dilation."""
+    cfg, out, T = flagship.VOCODER, [], 640
+    for i, u in enumerate(cfg["upsample_rates"]):
+        T *= u
+        C = cfg["upsample_initial_channel"] // 2 ** (i + 1)
+        out += [(C, T, k, d) for k, dils in zip(cfg["resblock_kernel_sizes"],
+                                                cfg["resblock_dilations"])
+                for d in dils]
+    return out
+
+
+def _layer_args(g, B, T, C, k, d):
+    ws = min(0.05, 1.0 / math.sqrt(k * C))
+    return (_randn(g, B, T, C, scale=0.3), _randn(g, C, scale=0.2),
+            _randn(g, C, C, k, scale=ws), _randn(g, C, scale=0.1),
+            _randn(g, C, scale=0.2), _randn(g, C, C, k, scale=ws),
+            _randn(g, C, scale=0.1), d)
+
+
+def _mma_sync_layer(x, a1, w1, b1, a2, w2, b2, d):
+    """The AMPLayer by the earlier K2-bf16 (``amp_aa_conv_tc``, mma.sync),
+    which no serving path calls: the yardstick of the wgmma kernel's
+    bits."""
+    from promptttspp_tpu_torch.ops.kernels import _build
+
+    lib = k2._tc_lib()
+    B, T, C = x.shape
+    h, y = torch.empty_like(x), torch.empty_like(x)
+    for src, a, w, b, res, dst, dil in ((x, a1, w1, b1, None, h, d),
+                                        (h, a2, w2, b2, x, y, 1)):
+        _build.launch(lib.amp_aa_conv_tc, x.device, src.data_ptr(),
+                      a.data_ptr(), k2.kernel_weight_bf16(w).data_ptr(),
+                      b.data_ptr(), 0 if res is None else res.data_ptr(),
+                      dst.data_ptr(), B, T, C, w.shape[-1], dil)
+    return y
+
+
+@pytest.mark.parametrize("C,T,k,d", _flagship_layers())
+def test_k2_bf16_at_the_flagship_layers(dev, C, T, k, d):
+    """The wgmma K2-bf16 at each of the 36 AMPLayer shapes of a 640-frame
+    request (full T) against the bf16 plain version and the float32 one,
+    equal bit for bit to the mma.sync kernel and to itself, with two
+    launches per layer counted in ``launches_bf16``."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    args = _layer_args(g, 1, T, C, k, d)
+    before = (k2.amp_layer.launches, k2.amp_layer.launches_bf16)
+    out = k2.amp_layer(*args, bf16=True)
+    again = k2.amp_layer(*args, bf16=True)
+    torch.cuda.synchronize()
+    assert (k2.amp_layer.launches, k2.amp_layer.launches_bf16) == (
+        before[0], before[1] + 4)
+    torch.testing.assert_close(out, again, atol=0, rtol=0)
+    torch.testing.assert_close(out, _mma_sync_layer(*args), atol=0, rtol=0)
+    torch.testing.assert_close(out, k2.amp_layer_plain(*args, bf16=True),
+                               **K2_BF16_TOL)
+    torch.testing.assert_close(out, k2.amp_layer_plain(*args),
+                               **K2_BF16_F32_TOL)
+
+
+@pytest.mark.parametrize("B,T,C,k,d", [
+    (2, 777, 64, 7, 3), (1, 5, 8, 3, 5), (2, 300, 12, 7, 1),
+    (1, 97, 48, 11, 5), (1, 200, 80, 3, 3), (1, 100, 512, 3, 1),
+    (2, 1000, 256, 11, 5), (3, 333, 128, 7, 5), (1, 1, 4, 3, 1)])
+def test_k2_bf16_equals_the_mma_sync_kernel(dev, B, T, C, k, d):
+    """Batches, ragged and tiny T, padded channel counts, several output
+    passes: the wgmma kernel sums every output in the mma.sync kernel's
+    order, and its output equals that kernel's bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    args = _layer_args(g, B, T, C, k, d)
+    torch.testing.assert_close(k2.amp_layer(*args, bf16=True),
+                               _mma_sync_layer(*args), atol=0, rtol=0)
+
+
+def test_k2_bf16_in_a_cuda_graph(dev):
+    """Two AMPLayers (four launches, one of them a C = 256 layer whose
+    weights stream) captured in a CUDA graph and replayed on new inputs
+    give the eager launches' output bit for bit: the kernel allocates
+    nothing, does not synchronise and launches on the current stream."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    a = _layer_args(g, 1, 2000, 256, 11, 5)
+    b = _layer_args(g, 1, 4000, 32, 7, 3)
+    xa, xb = a[0].clone(), b[0].clone()
+    k2.amp_layer(xa, *a[1:], bf16=True)  # weight layouts prepared
+    k2.amp_layer(xb, *b[1:], bf16=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ya = k2.amp_layer(xa, *a[1:], bf16=True)
+        yb = k2.amp_layer(xb, *b[1:], bf16=True)
+    for seed in (14, 15):
+        g2 = torch.Generator(device=dev).manual_seed(seed)
+        xa.copy_(_randn(g2, *xa.shape, scale=0.3))
+        xb.copy_(_randn(g2, *xb.shape, scale=0.3))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(ya, k2.amp_layer(xa, *a[1:], bf16=True),
+                                   atol=0, rtol=0)
+        torch.testing.assert_close(yb, k2.amp_layer(xb, *b[1:], bf16=True),
+                                   atol=0, rtol=0)
+
+
+def test_kernel_weight_wgmma_on_the_card(dev):
+    """K2-bf16's weight layout made on the card equals the one made on the
+    CPU, is prepared once, and again after an in-place update."""
+    w = torch.randn(64, 64, 7, device=dev)
+    w_k = k2.kernel_weight_wgmma(w)
+    assert k2.kernel_weight_wgmma(w) is w_k
+    assert torch.equal(w_k.cpu(), k2.kernel_weight_wgmma(w.cpu()))
+    w.mul_(2.0)
+    assert k2.kernel_weight_wgmma(w) is not w_k
+
+
 def test_kernel_weight_bf16_layout(dev):
     """[k, NP, CP] bf16: [tap][out][in], rounded to nearest even, zero in
     the padding, prepared once and again after an in-place update."""
