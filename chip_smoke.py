@@ -633,24 +633,6 @@ def set_conv_precision(vocoder, precision):
             m.conv_precision = precision
 
 
-def mma_sync_layer(k2, _build, x, a1, w1, b1, a2, w2, b2, d):
-    """An AMPLayer by the mma.sync K2-bf16 (``amp_aa_conv_tc``), which no
-    serving path calls: the yardstick that the wgmma kernel is timed and
-    held bit for bit against."""
-    import torch
-
-    lib = k2._tc_lib()
-    B, T, C = x.shape
-    h, y = torch.empty_like(x), torch.empty_like(x)
-    for src, a, w, b, res, dst, dil in ((x, a1, w1, b1, None, h, d),
-                                        (h, a2, w2, b2, x, y, 1)):
-        _build.launch(lib.amp_aa_conv_tc, x.device, src.data_ptr(),
-                      a.data_ptr(), k2.kernel_weight_bf16(w).data_ptr(),
-                      b.data_ptr(), 0 if res is None else res.data_ptr(),
-                      dst.data_ptr(), B, T, C, w.shape[-1], dil)
-    return y
-
-
 def phase_k2(k2, k2_variants, mix_only, randn, voc_cfg, gpu, failures):
     """Both K2 precisions at every AMPLayer shape of a request against
     their plain versions, timed beside them and their bounds. K2-bf16 (the
@@ -668,8 +650,6 @@ def phase_k2(k2, k2_variants, mix_only, randn, voc_cfg, gpu, failures):
 
     import torch
     import torch.nn.functional as F
-
-    from promptttspp_tpu_torch.ops.kernels import _build
 
     f32 = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_cc_ms=0.0,
                flops=0.0, t_bytes=0.0, t_mix=0.0, t_fp32=0.0)
@@ -691,7 +671,7 @@ def phase_k2(k2, k2_variants, mix_only, randn, voc_cfg, gpu, failures):
                 x, a1, w1, b1, a2, w2, b2, _ = args_
                 y = k2.amp_layer(*args_)
                 yb = k2.amp_layer(*args_, bf16=True)
-                yo = mma_sync_layer(k2, _build, *args_)
+                yo = k2.amp_layer_mma_sync(*args_)
                 ref = k2.amp_layer_plain(*args_)
                 refb = k2.amp_layer_plain(*args_, bf16=True)
                 torch.cuda.synchronize()
@@ -724,7 +704,7 @@ def phase_k2(k2, k2_variants, mix_only, randn, voc_cfg, gpu, failures):
                 bc1, bc2 = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
                 pad = (k - 1) // 2
                 new = lambda: k2.amp_layer(*args_, bf16=True)
-                old = lambda: mma_sync_layer(k2, _build, *args_)
+                old = lambda: k2.amp_layer_mma_sync(*args_)
                 msb = cuda_ms(new, iters=10)
                 mso = cuda_ms(old, iters=10)
                 mso = (mso + cuda_ms(old, iters=10)) / 2
@@ -788,8 +768,9 @@ def phase_k2(k2, k2_variants, mix_only, randn, voc_cfg, gpu, failures):
                  "operations": max(row["t_mix"], row["t_fp32"])}
         row["bound_by"] = max(parts, key=parts.get)
     print(f"[{gpu}] phase 3: K2 amp_layer, 36 layers of a {FRAMES}-frame "
-          f"request: K2-bf16 {bf['ms']:.3f} ms ({bf['bound_ms'] / bf['ms']:.0%}"
-          f" of its bound), mma.sync K2-bf16 {bf['mma_sync_ms']:.3f} ms, "
+          f"request: K2-bf16 {bf['ms']:.3f} ms "
+          f"({bf['bound_ms'] / bf['ms']:.0%} of its bound), mma.sync K2-bf16 "
+          f"{bf['mma_sync_ms']:.3f} ms, "
           f"mix alone {bf['mix_ms']:.3f} ms, cuDNN bf16 convs "
           f"{bf['cudnn_ms']:.3f} ms, plain {bf['plain_ms']:.3f} "
           f"ms, bound {bf['bound_ms']:.3f} ms (sums of bytes "

@@ -13,6 +13,8 @@
 //   bf16 (round to nearest even) and multiplied with mma.sync m16n8k16 and
 //   float32 accumulation (amp.py:263-273). (At C < 128 the TPU kernel also
 //   runs AA's FIRs on the MXU in bf16; this kernel keeps them in float32.)
+//   The serving path runs csrc/amp_layer_wgmma.cu for this precision; this
+//   mix stays as the yardstick of that kernel's time and output bits.
 // - Tf32x3Mix (amp_aa_conv_tf32x3), mxu_bf16=False,
 //   conv_precision="highest": the mix to float32 accuracy (3xTF32). Each
 //   float32 operand v is split into a TF32 "big" part, v rounded to nearest

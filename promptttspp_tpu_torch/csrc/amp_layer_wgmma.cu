@@ -11,13 +11,14 @@
 // JAX AMPLayer's fused path at conv_precision="default"
 // (vocoders/bigvgan.py:131-139). Its arithmetic is that of the mma.sync
 // kernel amp_layer_tc.cu::Bf16Mix: AA in float32 from registers
-// (ptts::aa_run, the same run length), rounded once to bf16 (round to
-// nearest even) as the mix's A operand; bf16 weights; float32 sums; the
-// bias and the residual added in float32. AA clamps its input to [0, T),
-// the conv reads zeros outside [0, T). For each output the sum runs over
-// tap j, then input chunk, then k16 step, into one float32 accumulator,
-// with no split-K and no atomics: the kernel is deterministic, and its
-// order is the mma.sync kernel's.
+// (ptts::aa_run; the length of a run does not change its values), rounded
+// once to bf16 (round to nearest even) as the mix's A operand; bf16
+// weights; float32 sums; the bias and the residual added in float32. AA
+// clamps its input to [0, T), the conv reads zeros outside [0, T). For
+// each output the sum runs over tap j, then input chunk, then k16 step,
+// into one float32 accumulator, with no split-K and no atomics: the kernel
+// is deterministic, and its order is the mma.sync kernel's (its output
+// bits equal that kernel's: wgmma sums a k16 step as mma.sync does).
 //
 // Bound on an H100 SXM at 700 W, per 640-frame request (72 launches): the
 // mix ~2.6e11 flops, 0.265 ms at 989 TFLOP/s of bf16; AA ~2.2e10 flops of
@@ -73,8 +74,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int R = 16;  // AA samples per producer run (as amp_layer_tc.cu)
 
 // The host plan, as the launcher receives it (ops/kernels/amp.py::
 // WGMMA_PLAN_FIELDS, in this order).
@@ -350,19 +349,21 @@ __device__ __forceinline__ void wgmma_ss<256>(float (&d)[128],
 
 // A configuration: output channels per pass N, k16 steps per weight chunk
 // KS, consumer warpgroups NWG, m64 tiles per consumer warpgroup MT, AA
-// producer warps PW. A block is THREADS threads, one per SM. An SM's
-// registers are four files of 512 per thread lane, one per scheduler, and
-// warp w runs on scheduler w % 4, so a thread gets at most 512 / ceil(WARPS
-// / 4) registers, rounded down to 8 (80 at 24 warps, 128 at 16). Every role
+// producer warps PW, AA samples per producer run R. A block is THREADS
+// threads, one per SM. An SM's registers are four files of 512 per thread
+// lane, one per scheduler, and warp w runs on scheduler w % 4, so a thread
+// gets at most 512 / ceil(WARPS / 4) registers, rounded down to 8 (80 at
+// 24 warps, 128 at 16). Every role
 // is compiled within that count: ptxas (CUDA 12.9) compiles a kernel
 // within its launch count even in a region after setmaxnreg.inc (it
 // refuses an m64n256 wgmma there at 128 registers, C7602;
 // tools/setmaxnreg_probe.py), so the consumers' N/2 * MT accumulator
 // registers set how many warps a block can have, and AA, which bounds the
 // kernel, wants as many producers as possible.
-template <int N_, int KS_, int NWG_, int MT_, int PW_>
+template <int N_, int KS_, int NWG_, int MT_, int PW_, int R_>
 struct Cfg {
   static constexpr int N = N_, KS = KS_, NWG = NWG_, MT = MT_, PW = PW_;
+  static constexpr int R = R_;
   static constexpr int WARPS = 4 * NWG + PW + 1;
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int TT = 64 * MT * NWG;
@@ -418,7 +419,7 @@ template <class G>
 __device__ __forceinline__ void produce(const Params& p, bf16* abuf,
                                         uint64_t* a_full, uint64_t* a_empty,
                                         int ptid) {
-  constexpr int TT = G::TT;
+  constexpr int TT = G::TT, R = G::R;
   constexpr int NPROD = 32 * G::PW;
   const int per_tile = p.passes;
   const int n_runs = p.C * ((p.na + R - 1) / R);  // per item
@@ -666,18 +667,21 @@ int launch(const Params& p, int smem, int grid, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The compiled configurations (see Cfg; ops/kernels/amp.py::WGMMA_SPLITS
-// names the same ones).
+// The compiled configurations (see Cfg; ops/kernels/amp.py::WGMMA_CONFIGS
+// names the same ones, the plan's first for each N). The runs of 8 let 32
+// warps fit at 64 registers; they measured slower than runs of 16 at 24.
 #define AMP_WGMMA_CONFIGS(X) \
-  X(16, 1, 1, 2, 8)           \
-  X(32, 2, 2, 2, 15)          \
-  X(32, 2, 1, 4, 11)          \
-  X(32, 2, 1, 2, 19)          \
-  X(64, 4, 2, 1, 15)          \
-  X(64, 4, 2, 1, 19)          \
-  X(128, 4, 1, 1, 15)         \
-  X(128, 4, 1, 1, 11)         \
-  X(256, 4, 1, 1, 7)
+  X(16, 1, 1, 2, 8, 16)       \
+  X(32, 2, 2, 2, 15, 16)      \
+  X(32, 2, 1, 4, 11, 16)      \
+  X(32, 2, 1, 2, 19, 16)      \
+  X(32, 2, 2, 2, 23, 8)       \
+  X(64, 4, 2, 1, 15, 16)      \
+  X(64, 4, 2, 1, 19, 16)      \
+  X(64, 4, 2, 1, 23, 8)       \
+  X(128, 4, 1, 1, 15, 16)     \
+  X(128, 4, 1, 1, 11, 16)     \
+  X(256, 4, 1, 1, 7, 16)
 
 }  // namespace
 
@@ -738,10 +742,10 @@ extern "C" int amp_aa_conv_wgmma(const float* x, const float* alpha,
       grid > p.n_items)
     return (int)cudaErrorInvalidValue;
   const auto st = (cudaStream_t)stream;
-#define AMP_WGMMA_CASE(N_, KS_, NWG_, MT_, PW_)                          \
+#define AMP_WGMMA_CASE(N_, KS_, NWG_, MT_, PW_, R_)                      \
   if (n == N_ && ks == KS_ && plan[kNwg] == NWG_ && plan[kMt] == MT_ &&   \
       plan[kPw] == PW_)                                                   \
-    return launch<Cfg<N_, KS_, NWG_, MT_, PW_>>(p, smem, grid, st);
+    return launch<Cfg<N_, KS_, NWG_, MT_, PW_, R_>>(p, smem, grid, st);
   AMP_WGMMA_CONFIGS(AMP_WGMMA_CASE)
 #undef AMP_WGMMA_CASE
   return (int)cudaErrorInvalidConfiguration;

@@ -86,13 +86,15 @@ AMP_BLOCK_DILATIONS = ((1, 3, 5), (1, 3))
 
 # K2-bf16 (csrc/amp_layer_wgmma.cu): the configurations compiled there, as
 # (N output channels per pass, KS k16 steps per weight chunk, NWG consumer
-# warpgroups, MT m64 tiles per consumer warpgroup, PW AA producer warps).
-# The first of each N is wgmma_plan's, the fastest of those timed at the
-# flagship's shapes on an H100 (tools/k2_variants.py --kernel wgmma; the
-# others stay to be timed against it).
+# warpgroups, MT m64 tiles per consumer warpgroup, PW AA producer warps;
+# the source also gives each its AA run length). The first of each N is
+# wgmma_plan's, the fastest of those timed at the flagship's shapes on an
+# H100 (tools/k2_variants.py --kernel wgmma; the others stay to be timed
+# against it).
 WGMMA_CONFIGS = ((16, 1, 1, 2, 8), (32, 2, 2, 2, 15), (32, 2, 1, 4, 11),
-                 (32, 2, 1, 2, 19), (64, 4, 2, 1, 15), (64, 4, 2, 1, 19),
-                 (128, 4, 1, 1, 15), (128, 4, 1, 1, 11), (256, 4, 1, 1, 7))
+                 (32, 2, 1, 2, 19), (32, 2, 2, 2, 23), (64, 4, 2, 1, 15),
+                 (64, 4, 2, 1, 19), (64, 4, 2, 1, 23), (128, 4, 1, 1, 15),
+                 (128, 4, 1, 1, 11), (256, 4, 1, 1, 7))
 # output channels per pass above C = 128: two passes of 128 at C = 256
 WGMMA_WIDE_N = 128
 # the plan's fields in the order the launcher reads them
@@ -241,13 +243,11 @@ def wgmma_plan(C: int, k: int, d: int, n: int = None,
             raise ValueError(f"K2-bf16 tiles do not fit in shared memory at "
                              f"C={C}, k={k}, d={d}")
         w_bytes = nstage * chunk
-    plan = dict(n=n, passes=passes, cp=cp, ks=ks, nwg=nwg, mt=mt, pw=pw,
+    return dict(n=n, passes=passes, cp=cp, ks=ks, nwg=nwg, mt=mt, pw=pw,
                 tt=tt, na=na, nap=nap, resident=int(resident), nstage=nstage,
-                abufs=abufs,
-                smem=w_bytes + abufs * a_bytes + bars(nstage),
+                abufs=abufs, smem=w_bytes + abufs * a_bytes + bars(nstage),
                 a_bytes=a_bytes, chunk_bytes=chunk, w_bytes=w_bytes,
                 weight_bytes=passes * k * nkc * chunk)
-    return plan
 
 
 def wgmma_grid(plan: dict, B: int, T: int, n_sm: int) -> int:
@@ -286,20 +286,16 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def wgmma_launch(fn, x, alpha, w_k, b, residual, dilation, plan, k):
-    """Launch ``fn``, a K2-bf16 entry point with the signature of
-    ``amp_aa_conv_wgmma``, for ``plan`` on x's device and current stream
-    -> y."""
+def wgmma_args(x, alpha, w_k, b, residual, y, dilation, plan, k):
+    """The arguments of a K2-bf16 entry point (``amp_aa_conv_wgmma``'s
+    signature) for one launch of ``plan``, the stream aside."""
     B, T, C = x.shape
-    y = torch.empty_like(x)
     ints = (ctypes.c_int * len(WGMMA_PLAN_FIELDS))(
         *(plan[f] for f in WGMMA_PLAN_FIELDS))
-    _build.launch(fn, x.device, x.data_ptr(), alpha.data_ptr(),
-                  w_k.data_ptr(), b.data_ptr(),
-                  0 if residual is None else residual.data_ptr(),
-                  y.data_ptr(), B, T, C, k, dilation, ints,
-                  wgmma_grid(plan, B, T, _sm_count(x.device)))
-    return y
+    return (x.data_ptr(), alpha.data_ptr(), w_k.data_ptr(), b.data_ptr(),
+            0 if residual is None else residual.data_ptr(), y.data_ptr(),
+            B, T, C, k, dilation, ints,
+            wgmma_grid(plan, B, T, _sm_count(x.device)))
 
 
 def wgmma_argtypes(fn):
@@ -350,23 +346,43 @@ def _check_layer(C, k, alpha1, w1, b1, alpha2, w2, b2, device):
         _build.check(t, name, shape, device)
 
 
-def _aa_conv(x, alpha, w, b, residual, dilation, bf16):
+def _tc_launch(fn, x, alpha, w_k, b, residual, dilation, k):
+    """One launch of an ``amp_layer_tc.cu`` entry point -> y."""
     B, T, C = x.shape
-    k = w.shape[-1]
-    if bf16:
-        y = wgmma_launch(_wgmma_lib().amp_aa_conv_wgmma, x, alpha,
-                         kernel_weight_wgmma(w), b, residual, dilation,
-                         wgmma_plan(C, k, dilation), k)
-        amp_layer.launches_bf16 += 1
-        return y
     y = torch.empty_like(x)
-    _build.launch(_tc_lib().amp_aa_conv_tf32x3, x.device, x.data_ptr(),
-                  alpha.data_ptr(), kernel_weight_tf32x3(w).data_ptr(),
-                  b.data_ptr(),
+    _build.launch(fn, x.device, x.data_ptr(), alpha.data_ptr(),
+                  w_k.data_ptr(), b.data_ptr(),
                   0 if residual is None else residual.data_ptr(),
                   y.data_ptr(), B, T, C, k, dilation)
+    return y
+
+
+def _aa_conv(x, alpha, w, b, residual, dilation, bf16):
+    C, k = x.shape[-1], w.shape[-1]
+    if bf16:
+        y = torch.empty_like(x)
+        _build.launch(_wgmma_lib().amp_aa_conv_wgmma, x.device,
+                      *wgmma_args(x, alpha, kernel_weight_wgmma(w), b,
+                                  residual, y, dilation,
+                                  wgmma_plan(C, k, dilation), k))
+        amp_layer.launches_bf16 += 1
+        return y
+    y = _tc_launch(_tc_lib().amp_aa_conv_tf32x3, x, alpha,
+                   kernel_weight_tf32x3(w), b, residual, dilation, k)
     amp_layer.launches += 1
     return y
+
+
+def amp_layer_mma_sync(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int):
+    """The AMPLayer by the earlier K2-bf16 (``amp_layer_tc.cu``'s
+    ``amp_aa_conv_tc``, mma.sync, weights from ``kernel_weight_bf16``), on
+    a CUDA tensor. No serving path calls it and it is not counted: it is
+    the yardstick that the tests and ``chip_smoke.py`` hold K2-bf16's
+    output bits and time against."""
+    fn, k = _tc_lib().amp_aa_conv_tc, w1.shape[-1]
+    h = _tc_launch(fn, x, alpha1, kernel_weight_bf16(w1), b1, None,
+                   dilation, k)
+    return _tc_launch(fn, h, alpha2, kernel_weight_bf16(w2), b2, x, 1, k)
 
 
 def amp_layer(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int,

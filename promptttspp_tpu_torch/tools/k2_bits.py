@@ -1,6 +1,7 @@
 """Fingerprints of kernel K2-bf16's output bits at a few AMPLayer shapes,
-on one GPU, to hold a change of ``csrc/amp_layer_tc.cu`` to the kernel's
-earlier output bit for bit. From the root of a checkout:
+on one GPU, to hold a change of K2-bf16 (``csrc/amp_layer_wgmma.cu``, and
+before it ``csrc/amp_layer_tc.cu``) to the kernel's earlier output bit for
+bit. From the root of a checkout:
 
     PYTHONPATH=. python3 path/to/promptttspp_tpu_torch/tools/k2_bits.py
 

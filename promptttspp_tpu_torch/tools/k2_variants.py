@@ -18,10 +18,9 @@ buffer, unwritten); ``split_<NWG>_<MT>_<PW>`` runs the compiled
 configuration of NWG consumer warpgroups of MT m64 tiles and PW producer
 warps (``amp.WGMMA_CONFIGS``; every one of them is timed when ``--only``
 is not given) at each C whose N has it, the plan's own elsewhere;
-``one_pass_c256`` runs C = 256 as one pass of 256
-output channels (AA once per tile) instead of two of 128; ``run8``
-computes AA in runs of 8 samples instead of 16; ``mma_sync`` times the
-earlier K2-bf16 (``amp_layer_tc.cu``, ``amp_aa_conv_tc``) beside them.
+``one_pass_c256`` runs C = 256 as one pass of 256 output channels (AA
+once per tile) instead of two of 128; ``mma_sync`` times the earlier
+K2-bf16 (``amp_layer_tc.cu``, ``amp_aa_conv_tc``) beside them.
 
 ``--kernel tc`` (the default): ``aa_only`` skips the channel mix and its
 epilogue, ``mix_only`` skips AA (phase 1); ``one_pass_c256`` gives a C=256
@@ -53,7 +52,6 @@ import ctypes
 import math
 import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
@@ -105,11 +103,10 @@ WGMMA_VARIANTS = {
                    "for (int run = first; run < 0; run += NPROD) {")],
                  lambda C: {}, False),
     "one_pass_c256": ([], lambda C: {"n": 256} if C > 128 else {}, True),
-    "run8": ([("constexpr int R = 16;", "constexpr int R = 8;")],
-             lambda C: {}, True),
     # the mma.sync K2-bf16 (amp_layer_tc.cu's amp_aa_conv_tc) as it is
     "mma_sync": (None, None, True),
 }
+
 
 def _split(name):
     """split_<NWG>_<MT>_<PW> -> its split as a plan override: at each C
@@ -192,18 +189,13 @@ def wgmma_call(fn, variant, x, alpha, w, b, d):
     """The first launch of an AMPLayer (no residual) by the K2-bf16 entry
     point ``fn`` under ``variant``'s plan -> (call, y): ``call()`` launches
     into ``y`` and returns the launch's error code."""
-    B, T, C = x.shape
-    k = w.shape[-1]
+    C, k = x.shape[-1], w.shape[-1]
     plan = k2.wgmma_plan(C, k, d, **wgmma_variant(variant)[1](C))
     w_k = k2.wgmma_weight(w, plan["n"], plan["cp"])
-    ints = (ctypes.c_int * len(k2.WGMMA_PLAN_FIELDS))(
-        *(plan[f] for f in k2.WGMMA_PLAN_FIELDS))
-    grid = k2.wgmma_grid(plan, B, T, k2._sm_count(x.device))
     y = torch.empty_like(x)
+    args = k2.wgmma_args(x, alpha, w_k, b, None, y, d, plan, k)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    return (lambda: fn(x.data_ptr(), alpha.data_ptr(), w_k.data_ptr(),
-                       b.data_ptr(), None, y.data_ptr(), B, T, C, k, d,
-                       ints, grid, stream)), y
+    return (lambda: fn(*args, stream)), y
 
 
 def cuda_ms(fn, iters=20):

@@ -47,7 +47,8 @@ __global__ void {attr} probe(float* out, uint64_t desc) {{
     asm volatile(
         "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{ACC + 5}, 0;\\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {{{regs}}}, "
-        "{{%{ACC}, %{ACC + 1}, %{ACC + 2}, %{ACC + 3}}}, %{ACC + 4}, p, 1, 1, 0;\\n}}\\n"
+        "{{%{ACC}, %{ACC + 1}, %{ACC + 2}, %{ACC + 3}}}, %{ACC + 4}, "
+        "p, 1, 1, 0;\\n}}\\n"
         : {outs}
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
     asm volatile("wgmma.commit_group.sync.aligned;\\n" ::: "memory");

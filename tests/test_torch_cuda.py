@@ -261,24 +261,6 @@ def _layer_args(g, B, T, C, k, d):
             _randn(g, C, scale=0.1), d)
 
 
-def _mma_sync_layer(x, a1, w1, b1, a2, w2, b2, d):
-    """The AMPLayer by the earlier K2-bf16 (``amp_aa_conv_tc``, mma.sync),
-    which no serving path calls: the yardstick of the wgmma kernel's
-    bits."""
-    from promptttspp_tpu_torch.ops.kernels import _build
-
-    lib = k2._tc_lib()
-    B, T, C = x.shape
-    h, y = torch.empty_like(x), torch.empty_like(x)
-    for src, a, w, b, res, dst, dil in ((x, a1, w1, b1, None, h, d),
-                                        (h, a2, w2, b2, x, y, 1)):
-        _build.launch(lib.amp_aa_conv_tc, x.device, src.data_ptr(),
-                      a.data_ptr(), k2.kernel_weight_bf16(w).data_ptr(),
-                      b.data_ptr(), 0 if res is None else res.data_ptr(),
-                      dst.data_ptr(), B, T, C, w.shape[-1], dil)
-    return y
-
-
 @pytest.mark.parametrize("C,T,k,d", _flagship_layers())
 def test_k2_bf16_at_the_flagship_layers(dev, C, T, k, d):
     """The wgmma K2-bf16 at each of the 36 AMPLayer shapes of a 640-frame
@@ -294,7 +276,8 @@ def test_k2_bf16_at_the_flagship_layers(dev, C, T, k, d):
     assert (k2.amp_layer.launches, k2.amp_layer.launches_bf16) == (
         before[0], before[1] + 4)
     torch.testing.assert_close(out, again, atol=0, rtol=0)
-    torch.testing.assert_close(out, _mma_sync_layer(*args), atol=0, rtol=0)
+    torch.testing.assert_close(out, k2.amp_layer_mma_sync(*args), atol=0,
+                               rtol=0)
     torch.testing.assert_close(out, k2.amp_layer_plain(*args, bf16=True),
                                **K2_BF16_TOL)
     torch.testing.assert_close(out, k2.amp_layer_plain(*args),
@@ -312,7 +295,7 @@ def test_k2_bf16_equals_the_mma_sync_kernel(dev, B, T, C, k, d):
     g = torch.Generator(device=dev).manual_seed(12)
     args = _layer_args(g, B, T, C, k, d)
     torch.testing.assert_close(k2.amp_layer(*args, bf16=True),
-                               _mma_sync_layer(*args), atol=0, rtol=0)
+                               k2.amp_layer_mma_sync(*args), atol=0, rtol=0)
 
 
 def test_k2_bf16_in_a_cuda_graph(dev):
