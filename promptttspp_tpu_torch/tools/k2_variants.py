@@ -19,8 +19,10 @@ configuration of NWG consumer warpgroups of MT m64 tiles and PW producer
 warps (``amp.WGMMA_CONFIGS``; every one of them is timed when ``--only``
 is not given) at each C whose N has it, the plan's own elsewhere;
 ``one_pass_c256`` runs C = 256 as one pass of 256 output channels (AA
-once per tile) instead of two of 128; ``mma_sync`` times the earlier
-K2-bf16 (``amp_layer_tc.cu``, ``amp_aa_conv_tc``) beside them.
+once per tile) instead of two of 128; ``run24`` and ``run32`` give the
+plan's configurations AA runs of 24 or 32 samples instead of 16;
+``mma_sync`` times the earlier K2-bf16 (``amp_layer_tc.cu``,
+``amp_aa_conv_tc``) beside them.
 
 ``--kernel tc`` (the default): ``aa_only`` skips the channel mix and its
 epilogue, ``mix_only`` skips AA (phase 1); ``one_pass_c256`` gives a C=256
@@ -103,6 +105,12 @@ WGMMA_VARIANTS = {
                    "for (int run = first; run < 0; run += NPROD) {")],
                  lambda C: {}, False),
     "one_pass_c256": ([], lambda C: {"n": 256} if C > 128 else {}, True),
+    "run24": ([(f"X({cfg}, 16)", f"X({cfg}, 24)") for cfg in
+               ("32, 2, 2, 2, 15", "64, 4, 2, 1, 15", "128, 4, 1, 1, 15")],
+              lambda C: {}, True),
+    "run32": ([(f"X({cfg}, 16)", f"X({cfg}, 32)") for cfg in
+               ("32, 2, 2, 2, 15", "64, 4, 2, 1, 15", "128, 4, 1, 1, 15")],
+              lambda C: {}, True),
     # the mma.sync K2-bf16 (amp_layer_tc.cu's amp_aa_conv_tc) as it is
     "mma_sync": (None, None, True),
 }
