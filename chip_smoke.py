@@ -93,7 +93,25 @@ Phases (any failure exits non-zero and prints no result line):
    synthesizer against the in-memory one on the original modules, the load
    and first-request times, and the demo model's steady wall beside the
    flagship's in alternated turns. The files are deleted at the end.
-10. Print the ``kernels`` JSON line, the GPU line and the result line.
+10. Training on the card (``promptttspp_tpu_torch/train/``), about a
+    minute: (a) one train step of the flagship at full width (dropout rates
+    0, the diffusion steps and noise given, 2 short utterances) from the
+    same weights on the card and on the CPU, the losses and grad_norm
+    within 1e-4 / 1e-3 and every parameter and BatchNorm statistic after
+    the update within 1e-5;
+    (b) the train CLI's ``main`` in-process (``bin/train.py``, the
+    flagship, ``dataset.max_tokens=10000``, one epoch of at least 20
+    updates) on a synthetic training corpus written under
+    ``build/chip_smoke/train/`` by ``tools/synthetic_corpus.py``: the
+    median update time after 3 warm-up updates (CUDA events between update
+    starts, no synchronization added), frames/s, the peak of
+    ``torch.cuda.max_memory_allocated``, the device-busy share of 3
+    profiled updates (``train.profile_steps``), the first and last losses,
+    every loss finite; (c) its ``ckpt/last`` served by the synthesize
+    CLI's ``main`` for one utterance (a prompt and a reference request),
+    K1 once and K2-bf16 72 times per request. The files are deleted at the
+    end.
+11. Print the ``kernels`` JSON line, the GPU line and the result line.
 
 TF32 is switched off for cuDNN convolutions and cuBLAS matrix products, so
 the plain versions are full float32 references; the bf16 plain version
@@ -160,6 +178,15 @@ SPIN_CYCLES = 1_000_000_000
 TIMING_SPIN_CYCLES = 20_000_000
 
 PHONES, PROMPT_LEN, FRAMES, N_REQUESTS, N_TIMED = 64, 32, 640, 3, 7
+# phase 10: the training corpus (utterances, phones and frames per phone
+# [lo, hi)); one epoch at max_tokens 10000 then takes about 25 updates
+TRAIN_UTTS, TRAIN_PHONES, TRAIN_FPP, MAX_TOKENS = 720, (20, 80), (3, 12), \
+    10000
+TRAIN_WARMUP, PROFILE_STEP, MIN_STEPS = 3, 8, 20
+# phase 10 (a): the losses and grad_norm on the card against the CPU, and
+# the parameters after the update (cuDNN sums in another order)
+TRAIN_LOSS_TOL = dict(atol=1e-4, rtol=1e-3)
+TRAIN_PARAM_ATOL = 1e-5
 
 
 def gpu_line() -> str:
@@ -548,6 +575,13 @@ def main() -> int:
           flush=True)
     phase_cli(Synthesizer, k1, k2, vocoder, synth, seqs, prompts, gpu,
               failures)
+
+    # -- phase 10: training on the card --------------------------------------
+    print(f"phase 10 starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    del synth
+    torch.cuda.empty_cache()
+    phase_train(k1, k2, vocoder, dev, gpu, failures)
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
@@ -1446,6 +1480,244 @@ def phase_cli(Synthesizer, k1, k2, vocoder, synth, seqs, prompts, gpu,
     torch.cuda.empty_cache()
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s in all",
           flush=True)
+
+
+def train_batch(rng, lens, mel_dim=80, L=16):
+    """A numpy training batch of len(lens) utterances of ``lens`` phones,
+    2-5 frames per phone, a 64-frame bucket, and the diffusion steps and
+    noise given."""
+    import numpy as np
+
+    B, Tp = len(lens), max(lens)
+    duration = np.zeros((B, Tp), np.int64)
+    for b, n in enumerate(lens):
+        duration[b, :n] = rng.randint(2, 6, n)
+    flens = duration.sum(1)
+    Tf = -(-int(flens.max()) // 64) * 64
+    frame = (np.arange(Tf)[None] < flens[:, None])[:, :, None]
+    phoneme = rng.randint(1, 90, (B, Tp)) * (duration > 0)
+    ids = rng.randint(1000, 29000, (B, L))
+    ids[:, 0] = 101
+    return dict(
+        phoneme=phoneme, duration=duration, phone_lengths=np.asarray(lens),
+        mel=(rng.randn(B, Tf, mel_dim) * frame).astype(np.float32),
+        log_cf0=(rng.randn(B, Tf, 1) * frame).astype(np.float32),
+        vuv=((rng.rand(B, Tf, 1) > 0.3) * frame).astype(np.float32),
+        frame_lengths=flens, prompt_ids=ids, prompt_mask=np.ones_like(ids),
+        batch_weight=np.ones(B, np.float32),
+        diffusion_t=rng.randint(0, 100, B),
+        diffusion_noise=rng.randn(B, Tf, mel_dim).astype(np.float32))
+
+
+def phase_train(k1, k2, vocoder, dev, gpu, failures, model_cfg=None,
+                bert_config=None, train_overrides=(), synth_overrides=()):
+    """Training on the card (see phase 10 of the module docstring).
+    ``model_cfg`` (default the flagship's), ``bert_config`` (default
+    bert-base) and the overrides appended to the train and synthesize
+    CLIs' command lines exist to rehearse the phase at a smaller size."""
+    import copy
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from promptttspp_tpu_torch import flagship
+    from promptttspp_tpu_torch.bin import synthesize as synth_cli
+    from promptttspp_tpu_torch.bin import train as train_cli
+    from promptttspp_tpu_torch.compat.torch_ckpt import (
+        BIGVGAN_WEIGHT_NORMED, to_reference_state_dict)
+    from promptttspp_tpu_torch.data.dataset import (
+        read_prompt_candidate, read_spk_prompt_candidate)
+    from promptttspp_tpu_torch.tools.synthetic_corpus import (
+        training_rows, write_corpus, write_training_corpus)
+    from promptttspp_tpu_torch.train.state import TrainState
+
+    t_phase = time.perf_counter()
+    model_cfg = copy.deepcopy(model_cfg or flagship.MODEL)
+    bert_config = bert_config or flagship.bert_config_of(
+        model_cfg["prompt_encoder"])
+    mel_dim = model_cfg["decoder"]["out_dim"]
+
+    # (a) one train step on the card against the CPU, dropout rates 0
+    cfg0 = copy.deepcopy(model_cfg)
+    cfg0["encoder"].update(dropout_rate=0.0, positional_dropout_rate=0.0)
+    va = cfg0["variance_adaptor"]
+    va["duration_predictor"]["dropout"] = 0.0
+    va["pitch_predictor"]["dropout"] = 0.0
+    va["frame_prior_network"].update(p_dropout=0.0, pos_enc_p_dropout=0.0)
+    bert0 = dataclasses.replace(bert_config, hidden_dropout=0.0,
+                                attention_dropout=0.0)
+    cpu = flagship.build_model(cfg0, "cpu", seed=3, bert_config=bert0)
+    card = copy.deepcopy(cpu).to(dev)
+    init = {k: v.clone() for k, v in cpu.state_dict().items()}
+    batch = train_batch(np.random.RandomState(4), [24, 17], mel_dim)
+    outs, walls = [], []
+    for model, d in ((cpu, "cpu"), (card, dev)):
+        state = TrainState(model, seed=0)
+        tb = {k: torch.from_numpy(np.asarray(v)).to(d)
+              for k, v in batch.items()}
+        t0 = time.perf_counter()
+        outs.append({k: v.item() for k, v in state.train_step(tb).items()})
+        walls.append(time.perf_counter() - t0)
+    loss_ok = all(np.isclose(outs[1][k], v, **TRAIN_LOSS_TOL)
+                  for k, v in outs[0].items())
+    ref, params = cpu.state_dict(), dict(cpu.named_parameters())
+    diff = moved = 0.0
+    for k, v in card.state_dict().items():
+        if v.dtype.is_floating_point:
+            diff = max(diff, float((v.cpu() - ref[k]).abs().max()))
+            if k in params:
+                moved = max(moved, float((ref[k] - init[k]).abs().max()))
+    print(f"[{gpu}] phase 10 (a): one train step of the flagship "
+          f"({sum(p.numel() for p in cpu.parameters()) / 1e6:.1f} M params, "
+          f"{len(state.params)} trainable tensors), batch "
+          f"{list(batch['mel'].shape)}: card "
+          + ", ".join(f"{k} {v:.6g}" for k, v in outs[1].items())
+          + "; CPU " + ", ".join(f"{k} {v:.6g}" for k, v in outs[0].items())
+          + f"; parameters and BatchNorm statistics after the update: max "
+          f"abs diff {diff:.3g} (tol {TRAIN_PARAM_ATOL}; the update moved "
+          f"the parameters by up to {moved:.3g}); step wall card "
+          f"{walls[1] * 1e3:.1f} ms (first), CPU {walls[0]:.2f} s",
+          flush=True)
+    if not loss_ok or not diff <= TRAIN_PARAM_ATOL:
+        failures.append(f"train step card vs CPU: losses {outs}, params "
+                        f"{diff:.3g}")
+    del cpu, card, init, ref, state
+
+    # (b) the train CLI on a synthetic corpus
+    root = OUT_DIR / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    meta = ROOT / "metadata"
+    cands = read_prompt_candidate(meta / "style_prompt_candidates.csv")
+    spk = read_spk_prompt_candidate(meta / "speaker_prompt_candidates.csv")
+    rows = training_rows(TRAIN_UTTS, cands, spk, TRAIN_PHONES, TRAIN_FPP,
+                         valid_every=20, seed=5)
+    eval_rows = [dict(spk_id=r["spk_id"], item_name=f"eval_{i}",
+                      seq=r["seq"][:24], style_prompt_key=r[
+                          "style_prompt_key"])
+                 for i, r in enumerate(rows[:1])]
+    write_corpus(root, eval_rows, cands, wav_seconds=3.0, mel_mean=-5.0,
+                 mel_std=2.0)
+    write_training_corpus(root, rows, cands, spk, n_mels=mel_dim,
+                          mel_mean=-5.0, mel_std=2.0, seed=6)
+    n_frames = sum(sum(r["durations"]) for r in rows if r["split"] == "trn")
+    print(f"phase 10 (b): wrote {len(rows)} utterances ({n_frames} training "
+          f"frames) under {root} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    starts, losses, frames = [], [], []
+    step_fn = TrainState.train_step
+
+    def timed_step(self, b):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        starts.append(ev)
+        frames.append(b["frame_lengths"])
+        out = step_fn(self, b)
+        losses.append(torch.stack(list(out.values())))
+        return out
+
+    cwd = os.getcwd()
+    out_dir = root / "out"
+    argv = [f"path.root={root}", f"output_dir={out_dir}",
+            f"hydra.run.dir={root / 'run'}", "train.num_epochs=1",
+            f"dataset.max_tokens={MAX_TOKENS}",
+            f"+train.profile_steps={PROFILE_STEP}", *train_overrides]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.object(TrainState, "train_step", timed_step):
+            trainer = train_cli.main(argv)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    starts.append(end)
+    step_ms = [a.elapsed_time(b) for a, b in zip(starts[:-1], starts[1:])]
+    steady = step_ms[TRAIN_WARMUP:]
+    n = len(step_ms)
+    steady_frames = sum(int(f.sum()) for f in frames[TRAIN_WARMUP:])
+    vals = torch.stack(losses).cpu().numpy()
+    finite = bool(np.isfinite(vals).all())
+    busy = profile_busy(trainer.profile, trainer.profile_wall_s)
+    print(f"[{gpu}] phase 10 (b): train CLI, flagship, max_tokens "
+          f"{MAX_TOKENS}: {n} updates in one epoch, {wall:.1f} s in all "
+          f"(checkpoint included); update time median "
+          f"{np.median(steady):.1f} ms after {TRAIN_WARMUP} warm-up updates "
+          f"(min {min(steady):.1f}, max {max(steady):.1f}; first "
+          f"{step_ms[0]:.1f}), {steady_frames / (sum(steady) / 1e3):.0f} "
+          f"frames/s over those; peak memory allocated {peak / 2**30:.2f} "
+          f"GiB; {busy}; loss first {vals[0][0]:.4f}, last "
+          f"{vals[-1][0]:.4f}, all {vals.size} loss values finite: "
+          f"{finite}", flush=True)
+    log = (out_dir / "logs/train.log").read_text().splitlines()
+    print("  train.log: " + " | ".join(ln for ln in log if "epoch" in ln),
+          flush=True)
+    if n < MIN_STEPS or not finite:
+        failures.append(f"train CLI: {n} updates, losses finite {finite}")
+    if not (out_dir / "ckpt/last").exists():
+        failures.append("train CLI wrote no ckpt/last")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) ckpt/last served by the synthesize CLI
+    torch.save({"generator": to_reference_state_dict(
+        vocoder, BIGVGAN_WEIGHT_NORMED.match)}, root / "vocoder.ckpt")
+    wavs = root / "wavs"
+    _zero_counts(k1, k2)
+    try:
+        synth_cli.main([
+            f"path.root={root}", f"model_ckpt={out_dir / 'ckpt/last'}",
+            f"vocoder_ckpt={root / 'vocoder.ckpt'}", f"output_dir={wavs}",
+            f"hydra.run.dir={root / 'run'}", "num_eval_utts=1",
+            "noise_scale=0", *synth_overrides])
+    finally:
+        os.chdir(cwd)
+    launches = _counts(k1, k2)
+    expect = {"antialias_snake": 2, "amp_layer_bf16": 2 * 72,
+              "amp_layer": 0, "amp_block": 0}
+    from scipy.io import wavfile
+    files = sorted(wavs.rglob("*.wav"))
+    lengths = [len(wavfile.read(p)[1]) for p in files]
+    print(f"[{gpu}] phase 10 (c): the trained ckpt/last served by the "
+          f"synthesize CLI: {[p.relative_to(wavs).as_posix() for p in files]}"
+          f", wav lengths {lengths}; 2 requests, launches {launches} "
+          f"(expected {expect}: K1 1 and K2-bf16 72 per request)", flush=True)
+    if launches != expect:
+        failures.append(f"trained checkpoint: launch counts {launches} != "
+                        f"{expect}")
+    if len(files) != 2 or not all(lengths):
+        failures.append(f"trained checkpoint: wavs {files} {lengths}")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s in all",
+          flush=True)
+
+
+def profile_busy(prof, wall_s) -> str:
+    """The device-busy share of a torch.profiler window: the sum of its
+    kernels' device times over its wall time."""
+    from torch.autograd import DeviceType
+
+    if prof is None:
+        return "no profile (not measured)"
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0))
+    # kernels only: a user annotation's device time repeats its kernels'
+    total = sum(dev_us(e) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    if total == 0:
+        return "profile: no device time recorded (not measured)"
+    return (f"3 profiled updates: device busy {total / 1e3:.1f} ms of "
+            f"{wall_s * 1e3:.1f} ms wall ({total / 1e3 / (wall_s * 1e3):.1%})")
 
 
 def profile_request(synth, seqs, prompts, gpu, wall_s, label="default"):

@@ -1,10 +1,13 @@
 """The configs of the port's entry points: ``conf/synthesize.yaml``
-(``bin/synthesize.py``) and ``conf/demo.yaml`` (``app.py``) with their
-groups (``conf/path/default.yaml``, ``conf/transforms/mel.yaml``, the model
-and vocoder of ``flagship.py``), as Python constants with the
-interpolations kept as written: the machine with the GPU reads no YAML. A
-CPU test holds ``compose``'s result equal to the JAX ``compose`` of the
-same YAML files and overrides.
+(``bin/synthesize.py``), ``conf/demo.yaml`` (``app.py``) and
+``conf/train.yaml`` (``bin/train.py``) with their groups
+(``conf/path/default.yaml``, ``conf/transforms/mel.yaml``,
+``conf/optimizer/adamw.yaml``, ``conf/train/noam.yaml``,
+``conf/dataset/mel.yaml``, the model and vocoder of ``flagship.py``), as
+Python constants with the interpolations kept as written and the
+``_target_`` keys dropped: the machine with the GPU reads no YAML. A CPU
+test holds ``compose``'s result equal to the JAX ``compose`` of the same
+YAML files and overrides.
 
 The port adds one key, ``device`` (``cuda``; ``device=cpu`` runs on the
 CPU). ``model=<name>`` and ``vocoder=<name>`` switch a group among those
@@ -77,6 +80,37 @@ DEMO = {
 }
 DEMO_HYDRA_RUN_DIR = "./"
 
+# conf/optimizer/adamw.yaml
+OPTIMIZER = {"lr": 0.001, "betas": [0.9, 0.98], "weight_decay": 0.0}
+
+# conf/train/noam.yaml
+TRAIN_GROUP = {
+    "seed": 42, "num_epochs": 1000, "save_interval": 20, "batch_size": 32,
+    "num_workers": 8, "bf16": False, "fp16": False,
+    "lr_scheduler": {"warmup_steps": 4000}, "per_epoch_scheduler": False,
+}
+
+
+def _split(split_file: str):
+    return {
+        "file_path": "${...path." + split_file + "}",
+        "data_root": "${...path.data_root}",
+        "feats_dir": "${...path.feats_dir}",
+        "mel_dir": "${...path.mel_dir}",
+        "prompt_candidate_file": "${...path.prompt_candidate_file}",
+        "spk_prompt_candidate_file": "${...path.spk_prompt_candidate_file}",
+    }
+
+
+# conf/dataset/mel.yaml
+DATASET = {"collator": {}, "train": _split("train_file"),
+           "valid": _split("valid_file"), "dynamic_batch": True,
+           "max_tokens": 10000}
+
+# conf/train.yaml (its own keys)
+TRAIN = {"output_dir": "./out", "ckpt_path": None, "pretrained": None}
+TRAIN_HYDRA_RUN_DIR = "./out/hydra/train"
+
 # the group choices the port has (conf/model/*.yaml, conf/vocoder/*.yaml)
 MODELS = {"prompttts_mdn_v2_wo_erg_final": flagship.MODEL_YAML,
           "prompttts_mdn_v2_wo_erg_final_demo": flagship.MODEL_DEMO_YAML}
@@ -87,7 +121,14 @@ DEVICE = "cuda"
 
 
 def base_config(name: str) -> Dict[str, Any]:
-    """The unresolved config of ``synthesize`` or ``demo``."""
+    """The unresolved config of ``synthesize``, ``demo`` or ``train``."""
+    if name == "train":
+        cfg = {"model": MODELS["prompttts_mdn_v2_wo_erg_final"],
+               "optimizer": OPTIMIZER, "train": TRAIN_GROUP,
+               "dataset": DATASET, "transforms": TRANSFORMS, "path": PATH,
+               **TRAIN, "hydra": {"run": {"dir": TRAIN_HYDRA_RUN_DIR}},
+               "device": DEVICE}
+        return copy.deepcopy(cfg)
     if name == "synthesize":
         own, model, run_dir = (SYNTHESIZE, "prompttts_mdn_v2_wo_erg_final",
                                SYNTHESIZE_HYDRA_RUN_DIR)
@@ -95,7 +136,8 @@ def base_config(name: str) -> Dict[str, Any]:
         own, model, run_dir = (DEMO, "prompttts_mdn_v2_wo_erg_final_demo",
                                DEMO_HYDRA_RUN_DIR)
     else:
-        raise ValueError(f"unknown config {name!r}: synthesize or demo")
+        raise ValueError(f"unknown config {name!r}: synthesize, demo or "
+                         "train")
     cfg = {"model": MODELS[model], "transforms": TRANSFORMS, "path": PATH,
            "vocoder": VOCODERS["bigvgan_f0"], **own,
            "hydra": {"run": {"dir": run_dir}}, "device": DEVICE}
@@ -103,8 +145,8 @@ def base_config(name: str) -> Dict[str, Any]:
 
 
 def compose(name: str, overrides: Sequence[str] = ()) -> Dict[str, Any]:
-    """The ``synthesize`` or ``demo`` config with ``overrides`` applied and
-    every interpolation resolved."""
+    """The ``synthesize``, ``demo`` or ``train`` config with ``overrides``
+    applied and every interpolation resolved."""
     cfg = base_config(name)
     values = []
     for ov in overrides:

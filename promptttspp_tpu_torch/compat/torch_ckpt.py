@@ -21,10 +21,11 @@ carry the reference's ``state_dict`` names, so a checkpoint loads by name:
 - A parameter or buffer of the port that the file lacks raises, naming the
   keys; so does a key of the file that the port has no place for.
 
-Files: the reference trainer's ``{epoch, model, optimizer, ...}``, the
-vocoder's ``{generator: ...}``, a bare state dict (``.ckpt``, ``.pth``,
-``.pt``; unpickled, so load only files you trust) or an ``.npz`` of name ->
-array. A directory is an orbax checkpoint of a JAX-trained model, which the
+Files: the reference trainer's ``{epoch, model, optimizer, ...}`` (the
+port's trainer writes it too, as ``ckpt/last`` and ``ckpt/epoch-NNNN``),
+the vocoder's ``{generator: ...}``, a bare state dict (``.ckpt``, ``.pth``,
+``.pt`` or no suffix; unpickled, so load only files you trust) or an
+``.npz`` of name -> array. A directory is an orbax checkpoint of a JAX-trained model, which the
 port cannot read.
 """
 
@@ -80,9 +81,9 @@ def torch_state_dict(path, kind: str = "model") -> Dict[str, torch.Tensor]:
     if path.suffix == ".npz":
         with np.load(path, allow_pickle=False) as data:
             return {k: torch.from_numpy(data[k]) for k in data.files}
-    if path.suffix not in (".ckpt", ".pth", ".pt"):
-        raise ValueError(f"unsupported checkpoint {path}: .ckpt, .pth, .pt "
-                         "or .npz")
+    if path.suffix not in (".ckpt", ".pth", ".pt", ""):
+        raise ValueError(f"unsupported checkpoint {path}: .ckpt, .pth, .pt, "
+                         ".npz or no suffix (the trainer's ckpt/last)")
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     key = "model" if kind == "model" else "generator"
     return dict(ckpt[key] if key in ckpt else ckpt)

@@ -137,7 +137,8 @@ def _seeded(device: torch.device, seed: int, build):
 
 
 # Switches of the model config that the port implements at one value only
-# (the flagship's); dropout rates and init options do not apply in eval.
+# (the flagship's). The init options (phoneme_embedding.init_normal) are not
+# read: the port's weights are torch's seeded defaults or a checkpoint's.
 _FIXED = {
     (): dict(norm_style_emb=True, mdn_disable_amp=True),
     ("phoneme_embedding",): dict(do_scale=False),
@@ -199,6 +200,8 @@ def _check_fixed(cfg: Mapping, bert_config: BertConfig):
 
 
 def _model_from_config(cfg: Mapping, bert_config: BertConfig):
+    """The port's model of ``cfg``; an absent dropout rate or ``detach``
+    is the default of JAX's dataclass field."""
     _check_fixed(cfg, bert_config)
     pe, enc, va = (cfg["phoneme_embedding"], cfg["encoder"],
                    cfg["variance_adaptor"])
@@ -213,18 +216,23 @@ def _model_from_config(cfg: Mapping, bert_config: BertConfig):
             enc["attention_dim"], enc["attention_heads"],
             enc["linear_units"], enc["num_blocks"],
             enc["positionwise_conv_kernel_size"], enc["cnn_module_kernel"],
-            enc.get("rel_pos_type")),
+            enc.get("rel_pos_type"), enc.get("dropout_rate", 0.1),
+            enc.get("positional_dropout_rate", 0.1),
+            enc.get("attention_dropout_rate", 0.0)),
         variance_adaptor=VarianceAdaptor(
             duration_predictor=MDNPredictor(
                 dp["channels"], dp["out_channels"], dp["kernel_size"],
-                dp["num_layers"], dp["num_gaussians"]),
+                dp["num_layers"], dp["num_gaussians"], dp["dropout"],
+                dp.get("detach", False)),
             pitch_predictor=Predictor(pp["channels"], pp["out_channels"],
-                                      pp["kernel_size"], pp["num_layers"]),
+                                      pp["kernel_size"], pp["num_layers"],
+                                      pp["dropout"], pp.get("detach", False)),
             pitch_emb=Conv1d(va["pitch_emb"]["in_channels"],
                              va["pitch_emb"]["out_channels"],
                              va["pitch_emb"]["kernel_size"]),
             frame_prior_network=FramePriorNetwork(
-                fp["hidden_channels"], fp["n_layers"], fp["kernel_size"])),
+                fp["hidden_channels"], fp["n_layers"], fp["kernel_size"],
+                fp["p_dropout"], fp.get("pos_enc_p_dropout", 0.1))),
         reference_encoder=StyleEncoder(
             ref["idim"], ref["gst_tokens"], ref.get("gst_token_dim", 256),
             ref["gst_heads"], ref["conv_layers"], ref["conv_chans_list"],
@@ -251,8 +259,9 @@ def build_model(cfg: Mapping = MODEL, device="cuda", seed: int = 0,
                 bert_config: Optional[BertConfig] = None):
     """PromptTTS++ (prompt and reference branches) from a config of
     ``MODEL``'s shape, with random weights drawn from ``seed``, in eval mode
-    on ``device``. ``bert_config`` defaults to the BERT that JAX builds from
-    ``cfg["prompt_encoder"]`` (``bert_config_of``)."""
+    and without gradients on ``device`` (a trainer switches both).
+    ``bert_config`` defaults to the BERT that JAX builds from
+    ``cfg["prompt_encoder"]`` (``bert_config_of``, JAX's dropout rates)."""
     dev = resolve_device(device)
     if bert_config is None:
         bert_config = bert_config_of(cfg["prompt_encoder"])

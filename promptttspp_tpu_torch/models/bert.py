@@ -1,7 +1,9 @@
 """BERT encoder written by hand, plus a copy of the WordPiece tokenizer.
 
 Counterpart of ``promptttspp_tpu/models/bert.py``: last_hidden_state of a
-post-LayerNorm BERT (exact GELU, LayerNorm eps 1e-12), eval mode. Module
+post-LayerNorm BERT (exact GELU, LayerNorm eps 1e-12), with JAX's dropout
+in train mode (``hidden_dropout`` on the embeddings and on each sublayer's
+output, ``attention_dropout`` on the attention weights). Module
 names follow the Hugging Face torch ``state_dict``
 (``embeddings.word_embeddings``, ``encoder.layer.N.attention.self.query``,
 ...), so a ``bert-base-uncased`` checkpoint maps by name. The tokenizer is
@@ -21,6 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from promptttspp_tpu_torch.nn.layers import Dropout
+
 
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
@@ -32,6 +36,8 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
 
 
 class BertEmbeddings(nn.Module):
@@ -43,13 +49,14 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size,
                                                   cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.dropout = Dropout(cfg.hidden_dropout)
 
     def forward(self, input_ids):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
         emb = (self.word_embeddings(input_ids)
                + self.position_embeddings(pos)[None]
                + self.token_type_embeddings.weight[0])  # token type 0
-        return self.LayerNorm(emb)
+        return self.dropout(self.LayerNorm(emb))
 
 
 class BertSelfAttention(nn.Module):
@@ -60,6 +67,7 @@ class BertSelfAttention(nn.Module):
         self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size)
         self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size)
         self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.dropout = Dropout(cfg.attention_dropout)
 
     def forward(self, hidden, bias):
         B, T, C = hidden.shape
@@ -70,7 +78,7 @@ class BertSelfAttention(nn.Module):
         scores = q @ k.transpose(-1, -2) / math.sqrt(self.d)
         if bias is not None:
             scores = scores + bias
-        ctx = torch.softmax(scores, dim=-1) @ v
+        ctx = self.dropout(torch.softmax(scores, dim=-1)) @ v
         return ctx.transpose(1, 2).reshape(B, T, C)
 
 
@@ -79,9 +87,10 @@ class BertSelfOutput(nn.Module):
         super().__init__()
         self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.dropout = Dropout(cfg.hidden_dropout)
 
     def forward(self, x, residual):
-        return self.LayerNorm(self.dense(x) + residual)
+        return self.LayerNorm(self.dropout(self.dense(x)) + residual)
 
 
 class BertAttention(nn.Module):
@@ -108,9 +117,10 @@ class BertOutput(nn.Module):
         super().__init__()
         self.dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.dropout = Dropout(cfg.hidden_dropout)
 
     def forward(self, x, residual):
-        return self.LayerNorm(self.dense(x) + residual)
+        return self.LayerNorm(self.dropout(self.dense(x)) + residual)
 
 
 class BertLayer(nn.Module):

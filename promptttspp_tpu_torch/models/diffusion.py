@@ -1,7 +1,9 @@
-"""DDPM mel decoder: DiffNet denoiser, ancestral and PLMS sampling.
+"""DDPM mel decoder: DiffNet denoiser, the training loss's inputs,
+ancestral and PLMS sampling.
 
 Counterpart of ``promptttspp_tpu/models/diffusion.py`` (``DiffNet``,
-``SinusoidalPosEmb`` and ``GaussianDiffusion.inference``): K betas on the
+``SinusoidalPosEmb``, ``GaussianDiffusion.__call__``, ``q_sample`` and
+``inference``): K betas on the
 linear (1e-4 -> 0.06) or cosine schedule, epsilon prediction, the mel
 scaled by ``norm_scale`` or, when it is None, mapped from [a_min, a_max]
 to [-1, 1].
@@ -14,12 +16,14 @@ captures as a CUDA graph. The K steps are a Python loop over Python ints
 (the PLMS order switch depends only on the step count), and the per-block
 conditioner projections depend only on the conditioning, so they are
 computed once per decode (``precompute_cond``). Schedule tables are float32
-numpy constants, as in the JAX package, used as Python scalars per step.
+numpy constants, as in the JAX package, used as Python scalars per step;
+training indexes them by a step per row, from one device copy of each.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Optional
 
@@ -55,12 +59,15 @@ class ResidualBlock(nn.Module):
         self.output_projection = Conv1d(residual_channels,
                                         2 * residual_channels, 1)
 
-    def forward(self, x, cond_proj, diffusion_step):
+    def forward(self, x, cond_proj, diffusion_step, mask=None):
         """x [B,T,R]; cond_proj [B,T,2R] (float32, or bf16 storage that
-        the add promotes); diffusion_step [B,R]."""
+        the add promotes); diffusion_step [B,R]; mask [B,T,1] or None
+        (training multiplies the output projection by the frame mask)."""
         y = x + self.diffusion_projection(diffusion_step)[:, None, :]
         gate, filt = (self.dilated_conv(y) + cond_proj).chunk(2, dim=-1)
         y = self.output_projection(torch.sigmoid(gate) * torch.tanh(filt))
+        if mask is not None:
+            y = y * mask
         residual, skip = y.chunk(2, dim=-1)
         return (x + residual) / math.sqrt(2.0), skip
 
@@ -107,14 +114,15 @@ class DiffNet(nn.Module):
         return [conv1d_btc(cond, proj.weight).to(io_dtype)
                 + proj.bias.to(io_dtype) for proj in layers]
 
-    def forward(self, x, diffusion_step, cond_projs):
-        """cond_projs: ``precompute_cond(cond)``."""
+    def forward(self, x, diffusion_step, cond_projs, mask=None):
+        """cond_projs: ``precompute_cond(cond)``; mask [B,T,1] or None (see
+        ``ResidualBlock``)."""
         x = torch.relu(self.input_projection(x))
         t_emb = self.mlp(sinusoidal_pos_emb(
             diffusion_step, self.residual_channels, self.scale))
         skip_sum = 0.0
         for block, cp in zip(self.residual_layers, cond_projs):
-            x, skip = block(x, cp, t_emb)
+            x, skip = block(x, cp, t_emb, mask)
             skip_sum = skip_sum + skip
         x = skip_sum / math.sqrt(len(self.residual_layers))
         return self.output_projection(torch.relu(self.skip_projection(x)))
@@ -150,6 +158,17 @@ def float32_math():
 
 
 _SCHEDULES = {"linear": linear_beta_schedule, "cosine": cosine_beta_schedule}
+
+
+@functools.lru_cache(maxsize=32)
+def _device_table(name: str, K_step: int, schedule_type: str,
+                  device: torch.device):
+    """One float32 copy of a schedule table per device; a plain (not
+    inference-mode) tensor, so autograd may read it."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(
+            schedule_tables(K_step, schedule_type)[name].astype(np.float32),
+            device=device)
 
 
 def schedule_tables(K_step: int, schedule_type: str = "linear"):
@@ -226,6 +245,33 @@ class GaussianDiffusion(nn.Module):
         if self.norm_scale is not None:
             return x * self.norm_scale
         return (x + 1) / 2 * (self.a_max - self.a_min) + self.a_min
+
+    def q_sample(self, x_start, t, noise):
+        """x_start, noise [B,T,C]; t int [B] -> the noisy x_t."""
+        tables = [_device_table(name, self.K_step,
+                                self.options["schedule_type"], x_start.device)
+                  for name in ("sqrt_alphas_cumprod",
+                               "sqrt_one_minus_alphas_cumprod")]
+        c1, c2 = (tab[t][:, None, None] for tab in tables)
+        return c1 * x_start + c2 * noise
+
+    def forward(self, cond, y, mask=None, t=None, noise=None,
+                generator=None):
+        """Training: cond [B,T,H]; y mel [B,T,out_dim]; mask [B,T,1] ->
+        (noise, eps_pred), both [B,T,out_dim] and unmasked. ``t`` [B] and
+        ``noise`` are drawn from ``generator`` when not given, t first."""
+        B = cond.shape[0]
+        if t is None:
+            t = torch.randint(0, self.K_step, (B,), generator=generator,
+                              device=cond.device)
+        x = self._norm(y)
+        if noise is None:
+            noise = torch.randn(x.shape, generator=generator,
+                                dtype=x.dtype, device=x.device)
+        x_noisy = self.q_sample(x, t, noise)
+        eps = self.denoise_fn(x_noisy, t, self.denoise_fn.precompute_cond(
+            cond), mask)
+        return noise, eps
 
     def _eps(self, x, t: int, cond_projs):
         steps = torch.full((x.shape[0],), t, dtype=torch.int32,

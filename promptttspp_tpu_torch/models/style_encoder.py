@@ -1,8 +1,9 @@
-"""Global style token (GST) encoder, eval mode.
+"""Global style token (GST) encoder.
 
 Counterpart of ``promptttspp_tpu/models/style_encoder.py``: mel
-[B, Tf, idim] -> 6 x (Conv2d k3 s2 + BatchNorm with running statistics +
-ReLU) over (time, mel) -> [B, Tf', C * idim'] (channel-major flatten, as the
+[B, Tf, idim] -> 6 x (Conv2d k3 s2 + ``WeightedBatchNorm`` (running
+statistics in eval; in train the batch's, rows of ``row_weight`` 0 left
+out) + ReLU) over (time, mel) -> [B, Tf', C * idim'] (channel-major flatten, as the
 reference's transpose of NCHW) -> GRU, final hidden state at each row's
 last valid step, lengths ceil(len / stride^layers) and at least 1 -> 10
 learned tokens under multi-head cross-attention -> style [B, 1, C].
@@ -21,6 +22,7 @@ import torch.nn as nn
 
 from promptttspp_tpu_torch.nn.attention import GSTCrossAttention
 from promptttspp_tpu_torch.nn.gru import GRU
+from promptttspp_tpu_torch.nn.layers import WeightedBatchNorm
 
 
 class ReferenceEncoder(nn.Module):
@@ -37,7 +39,7 @@ class ReferenceEncoder(nn.Module):
         for cout in conv_chans_list:
             layers += [nn.Conv2d(cin, cout, conv_kernel_size, conv_stride,
                                  pad, bias=False),
-                       nn.BatchNorm2d(cout, eps=1e-5), nn.ReLU()]
+                       WeightedBatchNorm(cout, eps=1e-5), nn.ReLU()]
             cin = cout
         self.convs = nn.Sequential(*layers)
         self.stride_total = conv_stride ** conv_layers
@@ -46,9 +48,12 @@ class ReferenceEncoder(nn.Module):
             gru_in = (gru_in - conv_kernel_size + 2 * pad) // conv_stride + 1
         self.gru = GRU(gru_in * conv_chans_list[-1], gru_units, gru_layers)
 
-    def forward(self, speech, in_lens=None):
+    def forward(self, speech, in_lens=None, row_weight=None):
         """speech [B, Tf, idim] -> [B, gru_units]."""
-        h = self.convs(speech[:, None])       # [B, C, Tf', idim']
+        h = speech[:, None]
+        for i in range(0, len(self.convs), 3):
+            conv, norm, relu = self.convs[i:i + 3]
+            h = relu(norm(conv(h), row_weight))  # -> [B, C, Tf', idim']
         B, _, Tr, _ = h.shape
         h = h.transpose(1, 2).reshape(B, Tr, -1)  # [B, Tf', C * idim']
         hs_lens = None
@@ -93,5 +98,6 @@ class StyleEncoder(nn.Module):
         self.stl = StyleTokenLayer(gru_units, gst_tokens, gst_token_dim,
                                    gst_heads)
 
-    def forward(self, speech, in_lens=None):
-        return self.stl(self.ref_enc(speech, in_lens))[:, None, :]
+    def forward(self, speech, in_lens=None, row_weight=None):
+        return self.stl(self.ref_enc(speech, in_lens,
+                                     row_weight))[:, None, :]

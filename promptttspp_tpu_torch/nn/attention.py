@@ -1,5 +1,6 @@
 """Relative-position multi-head attention ('new' 2T-1 variant and the
-legacy T variant) and the GST token cross-attention, eval mode.
+legacy T variant) and the GST token cross-attention, with dropout on the
+attention weights in train mode.
 
 Counterpart of ``promptttspp_tpu/nn/attention.py``
 (``RelPositionMultiHeadedAttention``,
@@ -16,6 +17,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from promptttspp_tpu_torch.nn.layers import Dropout
 
 
 def masked_softmax(scores, mask):
@@ -47,7 +50,7 @@ class RelPositionMultiHeadedAttention(nn.Module):
 
     shift = staticmethod(rel_shift)
 
-    def __init__(self, n_head: int, n_feat: int):
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
         super().__init__()
         assert n_feat % n_head == 0
         self.h, self.d_k = n_head, n_feat // n_head
@@ -60,6 +63,7 @@ class RelPositionMultiHeadedAttention(nn.Module):
         self.pos_bias_v = nn.Parameter(torch.empty(n_head, self.d_k))
         nn.init.xavier_uniform_(self.pos_bias_u)
         nn.init.xavier_uniform_(self.pos_bias_v)
+        self.attn_dropout = Dropout(dropout_rate)
 
     def _split(self, x):
         return x.reshape(x.shape[0], -1, self.h, self.d_k).transpose(1, 2)
@@ -74,7 +78,7 @@ class RelPositionMultiHeadedAttention(nn.Module):
         matrix_ac = q_u @ k.transpose(-1, -2)
         matrix_bd = self.shift(q_v @ p.transpose(-1, -2))
         scores = (matrix_ac + matrix_bd) / math.sqrt(self.d_k)
-        x = masked_softmax(scores, mask) @ v
+        x = self.attn_dropout(masked_softmax(scores, mask)) @ v
         x = x.transpose(1, 2).reshape(x.shape[0], -1, self.h * self.d_k)
         return self.linear_out(x)
 
@@ -92,13 +96,15 @@ class GSTCrossAttention(nn.Module):
     and key/value input widths, and the reference's scale 1/sqrt(d_k * h)
     (not 1/sqrt(d_k))."""
 
-    def __init__(self, n_head: int, q_dim: int, kv_dim: int, n_feat: int):
+    def __init__(self, n_head: int, q_dim: int, kv_dim: int, n_feat: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.h, self.d_k = n_head, n_feat // n_head
         self.linear_q = nn.Linear(q_dim, n_feat)
         self.linear_k = nn.Linear(kv_dim, n_feat)
         self.linear_v = nn.Linear(kv_dim, n_feat)
         self.linear_out = nn.Linear(n_feat, n_feat)
+        self.dropout = Dropout(dropout_rate)
 
     def _split(self, x):
         return x.reshape(x.shape[0], -1, self.h, self.d_k).transpose(1, 2)
@@ -109,7 +115,8 @@ class GSTCrossAttention(nn.Module):
         q = self._split(self.linear_q(ref_emb))
         k = self._split(self.linear_k(gst_emb))
         v = self._split(self.linear_v(gst_emb))
-        score = torch.softmax(q @ k.transpose(-1, -2)
-                              / math.sqrt(self.d_k * self.h), dim=-1)
+        score = self.dropout(torch.softmax(q @ k.transpose(-1, -2)
+                                           / math.sqrt(self.d_k * self.h),
+                                           dim=-1))
         o = (score @ v).transpose(1, 2).reshape(ref_emb.shape[0], 1, -1)
         return self.linear_out(o)

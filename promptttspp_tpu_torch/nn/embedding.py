@@ -1,4 +1,4 @@
-"""Sinusoidal positional encodings (eval mode: no dropout).
+"""Sinusoidal positional encodings, with dropout in train mode.
 
 Counterpart of ``promptttspp_tpu/nn/embedding.py``: the absolute encoding
 the frame prior uses and the 'new' and legacy relative encodings of the
@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 import torch.nn as nn
+
+from promptttspp_tpu_torch.nn.layers import Dropout
 
 
 def _div_term(d_model: int) -> np.ndarray:
@@ -68,29 +70,33 @@ def _device_table(table, length: int, d_model: int, device: torch.device):
 
 
 class PositionalEncoding(nn.Module):
-    """x * sqrt(d) + PE."""
+    """dropout(x * sqrt(d) + PE)."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x):
         pe = _device_table(sinusoid_table, x.shape[1], self.d_model,
                            x.device)
-        return x * math.sqrt(self.d_model) + pe[None]
+        return self.dropout(x * math.sqrt(self.d_model) + pe[None])
 
 
 class RelPositionalEncoding(nn.Module):
-    """'New' relative PE: (x * sqrt(d), pos_emb [1, 2T-1, d])."""
+    """'New' relative PE: (dropout(x * sqrt(d)), dropout(pos_emb
+    [1, 2T-1, d])), two draws."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x):
         pos_emb = _device_table(rel_sinusoid_table, x.shape[1],
                                 self.d_model, x.device)
-        return x * math.sqrt(self.d_model), pos_emb[None]
+        return (self.dropout(x * math.sqrt(self.d_model)),
+                self.dropout(pos_emb[None]))
 
 
 class LegacyRelPositionalEncoding(nn.Module):
@@ -98,14 +104,18 @@ class LegacyRelPositionalEncoding(nn.Module):
     the first T rows of the reversed ``max_len`` table, positions
     max_len-1 .. max_len-T (not T-1 .. 0): the reference grows its table
     only when T exceeds ``max_len``, and the JAX package keeps that quirk.
-    One table of ``max(max_len, T)`` rows per device, sliced per call."""
+    One table of ``max(max_len, T)`` rows per device, sliced per call.
+    Dropout as in the 'new' variant."""
 
-    def __init__(self, d_model: int, max_len: int = 5000):
+    def __init__(self, d_model: int, dropout_rate: float = 0.0,
+                 max_len: int = 5000):
         super().__init__()
         self.d_model, self.max_len = d_model, max_len
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x):
         T = x.shape[1]
         table = _device_table(legacy_rel_table, max(self.max_len, T),
                               self.d_model, x.device)
-        return x * math.sqrt(self.d_model), table[None, :T]
+        return (self.dropout(x * math.sqrt(self.d_model)),
+                self.dropout(table[None, :T]))

@@ -1,11 +1,14 @@
-"""Mixture density network head, most-probable selection and sampling.
+"""Mixture density network head, its negative log-likelihood, and the
+most-probable selection and sampling.
 
-Counterpart of ``promptttspp_tpu/nn/mdn.py`` (inference parts) for the
-dim-wise 1-D GMMs both flagship heads use: log_pi, log_sigma and mu are
-[B, T, G, D].
+Counterpart of ``promptttspp_tpu/nn/mdn.py``. The flagship's two heads are
+dim-wise 1-D GMMs: log_pi, log_sigma and mu are [B, T, G, D].
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -26,6 +29,36 @@ class MDNLayer(nn.Module):
         log_sigma = self.log_sigma(x).reshape(B, T, self.G, self.D)
         mu = self.mu(x).reshape(B, T, self.G, self.D)
         return log_pi, log_sigma, mu
+
+
+_LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def mdn_loss(log_pi, log_sigma, mu, target, log_pi_min: float = -7.0,
+             log_sigma_min: float = -7.0, reduce: bool = True,
+             mask: Optional[torch.Tensor] = None):
+    """Negative log-likelihood of ``target`` [B, T, D] with the reference's
+    stability tricks: log_pi and log_sigma clamped at -7, the target
+    clamped to mu +/- 5 sigma, invalid entries filled with -inf before the
+    logsumexp over the G components. log_pi is [B, T, G, D] (dim-wise) or
+    [B, T, G]; mask bool [B, T, 1], True = valid. Returns [B] (the mean
+    over T) if ``reduce``, else [B, T] ([B, T, D] dim-wise); dim-wise
+    ``reduce`` gives [B, D]. Callers pass float32 (the reference's
+    ``mdn_disable_amp`` island)."""
+    dim_wise = log_pi.ndim == 4
+    log_sigma = torch.clamp(log_sigma, min=log_sigma_min)
+    log_pi = torch.clamp(log_pi, min=log_pi_min)
+    scale = torch.exp(log_sigma)
+    edge = 5.0 * scale
+    centered = torch.clamp(target[:, :, None, :] - mu, -edge, edge)
+    log_prob = (-0.5 * torch.square(centered / scale) - log_sigma
+                - _LOG_SQRT_2PI)
+    ll = log_prob + log_pi if dim_wise else log_prob.sum(dim=3) + log_pi
+    if mask is not None:
+        m = mask[:, :, None, :] if dim_wise else mask
+        ll = torch.where(m, ll, -torch.inf)
+    loss = -torch.logsumexp(ll, dim=2)
+    return loss.mean(dim=1) if reduce else loss
 
 
 def _take(x, idx):

@@ -11,6 +11,7 @@ package, so it runs on a machine without them; from the repository root:
 """
 
 import copy
+import dataclasses
 import math
 from unittest import mock
 
@@ -68,6 +69,60 @@ def tiny_model_config():
         in_dim=MEL, encoder_hidden_dim=C, residual_layers=2,
         residual_channels=16, dilation_cycle_length=2)
     return cfg
+
+
+def zero_dropout_config():
+    """``tiny_model_config`` with every dropout rate 0."""
+    cfg = tiny_model_config()
+    cfg["encoder"].update(dropout_rate=0.0, positional_dropout_rate=0.0)
+    va = cfg["variance_adaptor"]
+    va["duration_predictor"]["dropout"] = 0.0
+    va["pitch_predictor"]["dropout"] = 0.0
+    va["frame_prior_network"].update(p_dropout=0.0, pos_enc_p_dropout=0.0)
+    return cfg
+
+
+ZERO_BERT = dataclasses.replace(TINY_BERT, hidden_dropout=0.0,
+                                attention_dropout=0.0)
+# the optimizer settings of the train-step tests: 1e-4 at the first update
+OPT = dict(lr=1e-3, warmup_steps=10, betas=(0.9, 0.98), weight_decay=0.01)
+
+
+def train_batch(seed=0, B=3, Tp=12, Tf=64, L=16, weights=(1.0, 0.0, 1.0)):
+    """A numpy training batch of B rows for the tiny model: ragged phones,
+    1-4 frames per phone, the diffusion steps and noise given, and
+    ``batch_weight``."""
+    rng = np.random.RandomState(seed)
+    plens = np.array([Tp, Tp - 3, Tp - 5][:B], np.int32)
+    duration = np.zeros((B, Tp), np.int32)
+    for b in range(B):
+        duration[b, :plens[b]] = rng.randint(1, 5, plens[b])
+    flens = duration.sum(1).astype(np.int32)
+    assert flens.max() <= Tf
+    phoneme = rng.randint(1, 90, (B, Tp)).astype(np.int32)
+    phoneme[np.arange(Tp)[None] >= plens[:, None]] = 0
+    frame = (np.arange(Tf)[None] < flens[:, None])[:, :, None]
+    mask = np.ones((B, L), np.int32)
+    mask[1, L - 5:] = 0
+    return dict(
+        phoneme=phoneme, duration=duration, phone_lengths=plens,
+        mel=(rng.randn(B, Tf, MEL) * frame).astype(np.float32),
+        log_cf0=(rng.randn(B, Tf, 1) * frame).astype(np.float32),
+        vuv=((rng.rand(B, Tf, 1) > 0.3) * frame).astype(np.float32),
+        frame_lengths=flens,
+        prompt_ids=(rng.randint(1, 60, (B, L)) * mask).astype(np.int32),
+        prompt_mask=mask,
+        batch_weight=np.asarray(weights, np.float32),
+        diffusion_t=rng.randint(0, 10, B).astype(np.int32),
+        diffusion_noise=rng.randn(B, Tf, MEL).astype(np.float32))
+
+
+def torch_batch(batch, device="cpu"):
+    """numpy batch -> tensors on ``device`` (integers as int64)."""
+    return {k: torch.from_numpy(np.asarray(v).astype(np.int64)
+                                if np.asarray(v).dtype.kind in "iu"
+                                else np.asarray(v)).to(device)
+            for k, v in batch.items()}
 
 
 @pytest.fixture
@@ -789,3 +844,45 @@ def test_synthesize_cli_on_the_card(dev, tmp_path):
         sr, data = wavfile.read(p)
         assert sr == 24000 and data.dtype == np.int16
         assert len(data) > 0 and len(data) % 240 == 0
+
+
+def test_train_step_on_the_card_equals_the_cpu_step(dev):
+    """One ``TrainState.train_step`` of the tiny model (dropout 0, the
+    diffusion steps and noise given, a row of weight 0) on the card and on
+    the CPU from the same weights: the losses and grad_norm within 1e-4 /
+    1e-3, every parameter and BatchNorm statistic after the update within
+    1e-5 (cuDNN's backward sums in another order)."""
+    from promptttspp_tpu_torch.train.state import TrainState
+
+    cpu = flagship.build_model(zero_dropout_config(), "cpu", 0, ZERO_BERT)
+    gpu = flagship.build_model(zero_dropout_config(), dev, 0, ZERO_BERT)
+    gpu.load_state_dict(cpu.state_dict())
+    outs = []
+    for model, d in ((cpu, "cpu"), (gpu, dev)):
+        state = TrainState(model, seed=0, **OPT)
+        outs.append(state.train_step(torch_batch(train_batch(), d)))
+    for k, v in outs[0].items():
+        np.testing.assert_allclose(outs[1][k].item(), v.item(), atol=1e-4,
+                                   rtol=1e-3, err_msg=k)
+    ref = cpu.state_dict()
+    for k, v in gpu.state_dict().items():
+        torch.testing.assert_close(v.cpu(), ref[k], atol=1e-5, rtol=0,
+                                   msg=k)
+
+
+def test_weighted_batchnorm_train_mode_on_both_devices(dev):
+    """``WeightedBatchNorm`` in train mode with row weights (1, 0, 1) on the
+    card and on the CPU: output and the updated running statistics."""
+    from promptttspp_tpu_torch.nn.layers import WeightedBatchNorm
+
+    g = torch.Generator().manual_seed(3)
+    for shape in ((3, 6, 17), (3, 4, 9, 5)):
+        x = torch.randn(shape, generator=g) * 2 + 0.5
+        w = torch.tensor([1.0, 0.0, 1.0])
+        out = []
+        for d in ("cpu", dev):
+            bn = WeightedBatchNorm(shape[1]).to(d).train()
+            out.append((bn(x.to(d), w.to(d)), bn.running_mean,
+                        bn.running_var))
+        for a, b in zip(*out):
+            torch.testing.assert_close(b.cpu(), a, atol=1e-5, rtol=1e-5)
