@@ -1,7 +1,8 @@
 """Where a training update of the flagship spends its time on one GPU:
 
     python3 -m promptttspp_tpu_torch.tools.train_profile [--updates 12]
-        [--max-tokens 10000] [--utts 480] [--sync] [--root DIR]
+        [--max-tokens 10000] [--utts 480] [--sync] [--cudnn-benchmark]
+        [--root DIR]
 
 Writes a synthetic training corpus (``tools/synthetic_corpus.py``, the
 repository's prompt candidates) under ``--root`` (default
@@ -12,7 +13,9 @@ Per update it times on the host the batch assembly (dataset items and
 collate), the copy to the card and the call of ``train_step``, and on the
 card the interval between the updates' starts (CUDA events, no
 synchronization added); ``--sync`` synchronizes after each update, so the
-host's and the device's times add up instead of overlapping. Then it
+host's and the device's times add up instead of overlapping;
+``--cudnn-benchmark`` lets cuDNN time its algorithms for each new shape
+(``torch.backends.cudnn.benchmark``; the port leaves it off). Then it
 profiles 3 more updates (``torch.profiler``): the device-busy share, the
 top kernels, and the host's CUDA runtime calls (allocations, frees,
 copies, synchronizations) by count and time; and prints the caching
@@ -50,6 +53,7 @@ def main(argv=None) -> int:
     ap.add_argument("--max-tokens", type=int, default=10000)
     ap.add_argument("--utts", type=int, default=480)
     ap.add_argument("--sync", action="store_true")
+    ap.add_argument("--cudnn-benchmark", action="store_true")
     ap.add_argument("--root", default=str(REPO / "build" / "train_profile"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -68,6 +72,7 @@ def main(argv=None) -> int:
         training_rows, write_training_corpus)
     from promptttspp_tpu_torch.train.trainer import TTSTrainer, to_device
 
+    torch.backends.cudnn.benchmark = args.cudnn_benchmark
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -114,7 +119,7 @@ def main(argv=None) -> int:
     evs = [r[0] for r in rows] + [end]
     print(f"[{gpu}] train_profile: flagship, max_tokens {args.max_tokens}, "
           f"{len(batches)} batches per epoch, sync after each update: "
-          f"{args.sync}")
+          f"{args.sync}, cudnn.benchmark: {args.cudnn_benchmark}")
     for i, (ev, out, host, frames, shape) in enumerate(rows):
         print(f"  update {i}: {_ms(ev, evs[i + 1]):8.1f} ms between starts;"
               f" host: assembly {host[0] * 1e3:6.1f} ms, copy "
