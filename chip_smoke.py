@@ -111,7 +111,27 @@ Phases (any failure exits non-zero and prints no result line):
     CLI's ``main`` for one utterance (a prompt and a reference request),
     K1 once and K2-bf16 72 times per request. The files are deleted at the
     end.
-11. Print the ``kernels`` JSON line, the GPU line and the result line.
+11. The recipe (``promptttspp_tpu_torch/preprocess/``, ``ops/f0.py``,
+    ``eval/``), about 15 s: (a) batched YIN and the mel on the card
+    against the port's CPU path at the flagship preprocessing shape (16
+    utterances of 3-15 s padded to one 2-s bucket: speech-like pulse
+    trains with vibrato, hiss and silence, one of noise, one silent; each
+    row's F0 bounds from ``metadata/libritts_r_f0_stats.yaml``): voicing
+    agreement, the largest relative F0 error on frames both voice, the
+    mel's largest absolute error; and one ``compute_utt_stats`` call (YIN
+    at a 5-ms hop) on the card against the CPU; (b) one bucket of 16 in
+    alternated turns: the device time of YIN + mel (CUDA events), the host
+    time of the contour fix and of the file reads and writes, utterances
+    and seconds of audio per second, peak memory; (c) the CLIs in-process
+    on a raw synthetic corpus written under ``build/chip_smoke/recipe/``:
+    ``bin/preprocess.py`` -> ``split_df`` -> ``compute_mel`` -> ``split_df``
+    -> ``filter_eval``, ``bin/train.py`` for one epoch of the flagship on
+    the tree they wrote, ``bin/synthesize.py`` on its ``ckpt/last`` for
+    the ``eval_filtered`` utterances (K1 once and K2-bf16 72 times per
+    request, counts set to 0 just before and read just after) and
+    ``bin/eval.py`` on that output, every ``mcd`` and ``mel_l1`` finite.
+    The files are deleted at the end.
+12. Print the ``kernels`` JSON line, the GPU line and the result line.
 
 TF32 is switched off for cuDNN convolutions and cuBLAS matrix products, so
 the plain versions are full float32 references; the bf16 plain version
@@ -187,6 +207,16 @@ TRAIN_WARMUP, PROFILE_STEP, MIN_STEPS = 3, 8, 20
 # the parameters after the update (cuDNN sums in another order)
 TRAIN_LOSS_TOL = dict(atol=1e-4, rtol=1e-3)
 TRAIN_PARAM_ATOL = 1e-5
+# phase 11: the preprocessing shape of conf/preprocess.yaml (batch 16 of
+# 3-15 s utterances at 24 kHz, 2-s sample buckets), the raw corpus of the
+# recipe (utterances per training speaker; the eval speaker 121 of
+# conf/preprocess.yaml with 3-9 s utterances) and alternated timing turns
+RECIPE_BATCH, RECIPE_SECONDS, RECIPE_TURNS = 16, (3.0, 15.0), 3
+RECIPE_TRAIN_SPEAKERS = {19: 8, 100: 8, 1001: 8, 26: 8, 103: 8}
+RECIPE_EVAL_SPEAKERS, RECIPE_EVAL_SECONDS = {121: 2}, (3.0, 9.0)
+# the card's YIN and mel against the port's CPU path: the bars of
+# tests/test_torch_f0.py and tests/test_torch_preprocess.py
+RECIPE_VUV_AGREEMENT, RECIPE_F0_RTOL, RECIPE_MEL_ATOL = 0.995, 1e-3, 1e-4
 
 
 def gpu_line() -> str:
@@ -582,6 +612,11 @@ def main() -> int:
     del synth
     torch.cuda.empty_cache()
     phase_train(k1, k2, vocoder, dev, gpu, failures)
+
+    # -- phase 11: the recipe ------------------------------------------------
+    print(f"phase 11 starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    phase_recipe(k1, k2, vocoder, dev, gpu, failures)
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
@@ -1698,6 +1733,304 @@ def phase_train(k1, k2, vocoder, dev, gpu, failures, model_cfg=None,
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s in all",
+          flush=True)
+
+
+def recipe_batch(stats, seed=11):
+    """Phase 11's batch: ``RECIPE_BATCH`` rows of 3-15 s (the first 15 s)
+    zero-padded to one 2-s bucket, speech-like rows of the first speakers
+    of the F0 stats at their ``f0_center`` (±10%), a row of noise and a
+    silent row -> (wav [B, Ts] float32, seconds [B], floors, ceilings)."""
+    import numpy as np
+
+    from promptttspp_tpu_torch.data.batching import bucket_shape
+    from promptttspp_tpu_torch.tools.synthetic_corpus import speech_like
+
+    rng = np.random.RandomState(seed)
+    spks = sorted(stats, key=int)[:RECIPE_BATCH]
+    secs = rng.uniform(*RECIPE_SECONDS, RECIPE_BATCH)
+    secs[0] = RECIPE_SECONDS[1]
+    n = (secs * 24000).astype(int)
+    wav = np.zeros((RECIPE_BATCH, bucket_shape(int(n.max()), 48000)),
+                   np.float32)
+    for i, spk in enumerate(spks[:-2]):
+        wav[i, :n[i]] = speech_like(secs[i], stats[spk]["f0_center"]
+                                    * rng.uniform(0.9, 1.1), seed=seed + i)
+    wav[-2, :n[-2]] = 0.1 * rng.randn(n[-2])
+    lo = np.asarray([stats[s]["f0_floor"] for s in spks], np.float32)
+    hi = np.asarray([stats[s]["f0_ceil"] for s in spks], np.float32)
+    return wav, secs, lo, hi
+
+
+def _f0_agreement(f0_a, vuv_a, f0_b, vuv_b):
+    """(voicing agreement, largest relative F0 error on frames both
+    voice)."""
+    import numpy as np
+
+    both = (vuv_a > 0) & (vuv_b > 0)
+    rel = np.abs(f0_a[both] - f0_b[both]) / f0_b[both]
+    return float((vuv_a == vuv_b).mean()), float(rel.max(initial=0.0))
+
+
+def phase_recipe(k1, k2, vocoder, dev, gpu, failures, cli_overrides=(),
+                 model_overrides=(), synth_overrides=()):
+    """The recipe on the card (see phase 11 of the module docstring).
+    The overrides appended to the CLIs' command lines (``cli_overrides`` to
+    every CLI, ``model_overrides`` to the train, synthesize and eval CLIs,
+    ``synth_overrides`` to the last two) exist to rehearse the phase at a
+    smaller size."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from promptttspp_tpu_torch.bin import compute_mel, filter_eval
+    from promptttspp_tpu_torch.bin import eval as eval_cli
+    from promptttspp_tpu_torch.bin import preprocess, split_df
+    from promptttspp_tpu_torch.bin import synthesize as synth_cli
+    from promptttspp_tpu_torch.bin import train as train_cli
+    from promptttspp_tpu_torch.compat.torch_ckpt import (
+        BIGVGAN_WEIGHT_NORMED, to_reference_state_dict)
+    from promptttspp_tpu_torch.data import yaml_lite
+    from promptttspp_tpu_torch.data.dataset import (
+        read_prompt_candidate, read_spk_prompt_candidate)
+    from promptttspp_tpu_torch.data_prep.stats import compute_utt_stats
+    from promptttspp_tpu_torch.ops.f0 import extract_f0
+    from promptttspp_tpu_torch.ops.mel import MelSpectrogramTransform
+    from promptttspp_tpu_torch.preprocess.pipeline import (
+        BatchedFeatureExtractor, read_wav)
+    from promptttspp_tpu_torch.preprocess.world_f0 import fix_f0_contour
+    from promptttspp_tpu_torch.tools.synthetic_corpus import (
+        raw_rows, raw_textgrid, write_raw_corpus)
+
+    t_phase = time.perf_counter()
+    root = OUT_DIR / "recipe"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    f0_stats_file = ROOT / "metadata/libritts_r_f0_stats.yaml"
+    stats = yaml_lite.load(f0_stats_file)
+    to_mel = MelSpectrogramTransform()
+
+    # (a) YIN and the mel on the card against the CPU
+    wav, secs, lo, hi = recipe_batch(stats)
+    B, Ts = wav.shape
+
+    def features(device):
+        w = torch.from_numpy(wav).to(device)
+        with torch.inference_mode():
+            f0, vuv = extract_f0(w, f0_floor=torch.from_numpy(lo).to(device),
+                                 f0_ceil=torch.from_numpy(hi).to(device))
+            mel = to_mel(w)
+        return f0.cpu().numpy(), vuv.cpu().numpy(), mel.cpu().numpy()
+
+    t0 = time.perf_counter()
+    f0_c, vuv_c, mel_c = features("cpu")
+    cpu_s = time.perf_counter() - t0
+    f0_g, vuv_g, mel_g = features(dev)
+    agree, f0_err = _f0_agreement(f0_g, vuv_g, f0_c, vuv_c)
+    mel_err = float(np.abs(mel_g - mel_c).max())
+    print(f"[{gpu}] phase 11 (a): YIN + mel of {B} utterances of "
+          f"{secs.min():.1f}-{secs.max():.1f} s in a {Ts / 24000:.0f}-s "
+          f"bucket [{B}, {Ts}] (f0 {list(f0_g.shape)}, mel "
+          f"{list(mel_g.shape)}), card vs the port's CPU path: voicing "
+          f"agreement {agree:.6f} (bar {RECIPE_VUV_AGREEMENT}; voiced "
+          f"{vuv_g.mean():.3f} card, {vuv_c.mean():.3f} CPU), largest "
+          f"relative F0 error on frames both voice {f0_err:.3g} (bar "
+          f"{RECIPE_F0_RTOL}), mel max abs err {mel_err:.3g} (bar "
+          f"{RECIPE_MEL_ATOL}); silent row voiced {int(vuv_g[-1].sum())} "
+          f"frames, noise row {int(vuv_g[-2].sum())}; CPU path "
+          f"{cpu_s:.2f} s", flush=True)
+    if not (agree >= RECIPE_VUV_AGREEMENT and f0_err <= RECIPE_F0_RTOL
+            and mel_err <= RECIPE_MEL_ATOL and not vuv_g[-1].any()):
+        failures.append(f"recipe YIN/mel card vs CPU: voicing {agree}, F0 "
+                        f"{f0_err}, mel {mel_err}, silent row "
+                        f"{vuv_g[-1].sum()}")
+    tg = root / "utt.TextGrid"
+    tg.write_text(raw_textgrid(secs[0], np.random.RandomState(0)))
+    utt = {d: compute_utt_stats(wav[0, :int(secs[0] * 24000)], 24000, tg,
+                                device=d) for d in ("cpu", dev)}
+    diff = max(abs(utt[dev][k] - v) for k, v in utt["cpu"].items())
+    print(f"[{gpu}] phase 11 (a): compute_utt_stats of a {secs[0]:.0f}-s "
+          f"utterance (YIN at a 5-ms hop): card {utt[dev]}; largest "
+          f"difference from the CPU {diff:.3g} (2-decimal rounding: bar "
+          f"0.0101)", flush=True)
+    if not diff <= 0.0101:
+        failures.append(f"compute_utt_stats card vs CPU: {utt}")
+
+    # (b) one bucket in alternated turns: the device pass alone, then the
+    # whole bucket from files to files
+    extractor = BatchedFeatureExtractor(device=dev)
+    bench = root / "bench"
+    bench.mkdir()
+    lens = (secs * 24000).astype(int)
+    for i in range(B):
+        wavfile.write(bench / f"{i}.wav", 24000,
+                      np.round(wav[i, :lens[i]] * 32767).astype(np.int16))
+    w_dev = torch.from_numpy(wav).to(dev)
+    lo_dev, hi_dev = torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(
+        dev)
+    dev_ms, walls, reads, fixes, writes, peaks = [], [], [], [], [], []
+    for _ in range(RECIPE_TURNS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.inference_mode():
+            start.record()
+            f0_d, _ = extract_f0(w_dev, f0_floor=lo_dev, f0_ceil=hi_dev)
+            to_mel(w_dev)
+            end.record()
+        end.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        rows = f0_d.cpu().numpy()
+        t0 = time.perf_counter()
+        for i, row in enumerate(rows):
+            fix_f0_contour(row, float(lo[i]), float(hi[i]))
+        fixes.append(time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        wavs = [read_wav(bench / f"{i}.wav")[0].astype(np.float32)
+                for i in range(B)]
+        t1 = time.perf_counter()
+        feats = extractor(wavs, lo, hi)
+        t2 = time.perf_counter()
+        for i, ft in enumerate(feats):
+            for k in ("cf0", "vuv"):
+                np.save(bench / f"{i}_{k}.npy", ft[k][None, :])
+            np.save(bench / f"{i}_mel.npy", np.ascontiguousarray(ft["mel"].T))
+        t3 = time.perf_counter()
+        reads.append(t1 - t0)
+        writes.append(t3 - t2)
+        walls.append(t3 - t0)
+    med = lambda v: float(np.median(v))  # noqa: E731
+    print(f"[{gpu}] phase 11 (b): one bucket of {B} utterances "
+          f"({secs.sum():.1f} s of audio), {RECIPE_TURNS} alternated turns: "
+          f"device time of YIN + mel {med(dev_ms):.3f} ms (turns "
+          f"{[round(v, 3) for v in dev_ms]}), peak memory above the inputs "
+          f"{max(peaks) / 2**30:.3f} GiB; host: fix_f0_contour "
+          f"{med(fixes) * 1e3:.1f} ms, {B} wav reads {med(reads) * 1e3:.1f} "
+          f"ms, {3 * B} npy writes {med(writes) * 1e3:.1f} ms; the whole "
+          f"bucket from files to files {med(walls) * 1e3:.1f} ms: "
+          f"{B / med(walls):.1f} utterances/s, "
+          f"{secs.sum() / med(walls):.1f} s of audio per second (the "
+          f"device pass alone {secs.sum() / (med(dev_ms) / 1e3):.0f})",
+          flush=True)
+    del w_dev, f0_d, extractor
+    torch.cuda.empty_cache()
+
+    # (c) the CLIs on a raw corpus
+    t0 = time.perf_counter()
+    meta = ROOT / "metadata"
+    prompts = read_prompt_candidate(meta / "style_prompt_candidates.csv")
+    spk_all = read_spk_prompt_candidate(meta / "speaker_prompt_candidates.csv")
+    speakers = {**RECIPE_TRAIN_SPEAKERS, **RECIPE_EVAL_SPEAKERS}
+    rows = raw_rows(RECIPE_TRAIN_SPEAKERS, prompts, RECIPE_SECONDS, stats,
+                    seed=1) + raw_rows(RECIPE_EVAL_SPEAKERS, prompts,
+                                       RECIPE_EVAL_SECONDS, stats, seed=2)
+    corpus = root / "corpus"
+    write_raw_corpus(corpus, rows, prompts,
+                     {s: spk_all.get(s, ["calm", "clear"]) for s in speakers},
+                     f0_stats_file=f0_stats_file, seed=3)
+    audio_s = sum(r["seconds"] for r in rows)
+    print(f"phase 11 (c): wrote {len(rows)} raw utterances ({audio_s:.1f} s "
+          f"of audio) of speakers {sorted(speakers)} under {corpus} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cwd = os.getcwd()
+    run_dir = f"hydra.run.dir={root / 'run'}"
+    eval_ids = "eval_ids=[" + ",".join(map(str, RECIPE_EVAL_SPEAKERS)) + "]"
+    args = [f"path.root={corpus}", eval_ids, run_dir, *cli_overrides]
+    stage_s = {}
+    try:
+        for name, stage in (("preprocess", preprocess),
+                            ("split_df", split_df),
+                            ("compute_mel", compute_mel),
+                            ("split_df again", split_df),
+                            ("filter_eval", filter_eval)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stage.main(args)
+            torch.cuda.synchronize()
+            stage_s[name] = round(time.perf_counter() - t0, 3)
+            os.chdir(cwd)
+        dump = corpus / "dump/libritts_r_per_spk_cleaned"
+        n_rows = {f: len((dump / f).read_text().splitlines()) - 1 for f in (
+            "df/data.csv", "df_filtered/trn.csv", "df_filtered/val.csv",
+            "df_filtered/eval_filtered.csv")}
+        print(f"[{gpu}] phase 11 (c): preprocess CLIs in {stage_s} s "
+              f"(preprocess: {audio_s / stage_s['preprocess']:.1f} s of "
+              f"audio per second); rows {n_rows}; stats.yaml "
+              f"{yaml_lite.load(dump / 'mel63/stats.yaml')}", flush=True)
+        if n_rows["df/data.csv"] != len(rows) or \
+                not n_rows["df_filtered/eval_filtered.csv"]:
+            failures.append(f"recipe preprocess: rows {n_rows}")
+
+        out_dir = root / "out"
+        t0 = time.perf_counter()
+        trainer = train_cli.main([
+            f"path.root={corpus}", f"output_dir={out_dir}", run_dir,
+            "train.num_epochs=1", f"dataset.max_tokens={MAX_TOKENS}",
+            *cli_overrides, *model_overrides])
+        os.chdir(cwd)
+        losses = (out_dir / "logs/loss.csv").read_text().splitlines()
+        print(f"[{gpu}] phase 11 (c): train CLI, one epoch on the "
+              f"preprocessed tree in {time.perf_counter() - t0:.1f} s: "
+              f"{trainer.state.step} updates; loss.csv {losses}", flush=True)
+        finite = all(np.isfinite(float(v)) for ln in losses[1:]
+                     for v in ln.split(","))
+        if trainer.state.step < 1 or not finite or \
+                not (out_dir / "ckpt/last").exists():
+            failures.append(f"recipe train: {trainer.state.step} updates, "
+                            f"losses {losses}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        torch.save({"generator": to_reference_state_dict(
+            vocoder, BIGVGAN_WEIGHT_NORMED.match)}, root / "vocoder.ckpt")
+        n_eval = n_rows["df_filtered/eval_filtered.csv"]
+        synth_args = [f"path.root={corpus}", f"output_dir={root / 'synth'}",
+                      run_dir, f"num_eval_utts={n_eval}", *cli_overrides,
+                      *model_overrides, *synth_overrides]
+        _zero_counts(k1, k2)
+        t0 = time.perf_counter()
+        synth_cli.main(synth_args + [
+            f"model_ckpt={out_dir / 'ckpt/last'}",
+            f"vocoder_ckpt={root / 'vocoder.ckpt'}", "noise_scale=0"])
+        os.chdir(cwd)
+        launches = _counts(k1, k2)
+        synth_s = time.perf_counter() - t0
+        expect = {"antialias_snake": 2 * n_eval,
+                  "amp_layer_bf16": 2 * 72 * n_eval, "amp_layer": 0,
+                  "amp_block": 0}
+        print(f"[{gpu}] phase 11 (c): synthesize CLI on ckpt/last for "
+              f"{n_eval} eval_filtered utterances (ref + prompt) in "
+              f"{synth_s:.1f} s; launches {launches} (expected {expect}: K1 "
+              f"1 and K2-bf16 72 per request)", flush=True)
+        if launches != expect:
+            failures.append(f"recipe synthesize: launch counts {launches} "
+                            f"!= {expect}")
+
+        t0 = time.perf_counter()
+        report = eval_cli.main(synth_args)
+        os.chdir(cwd)
+        means = {m: r["mean"] for m, r in report.items()}
+        print(f"[{gpu}] phase 11 (c): eval CLI in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              + json.dumps({m: {"n_utts": r["n_utts"], **r["mean"]}
+                            for m, r in report.items()}), flush=True)
+        per_utt = [u for r in report.values() for u in r["utts"]]
+        if sorted(report) != ["prompt", "ref"] or len(per_utt) != 2 * n_eval \
+                or not all(np.isfinite(u["mcd"]) and np.isfinite(u["mel_l1"])
+                           for u in per_utt):
+            failures.append(f"recipe eval: {means}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s in all",
           flush=True)
 
 

@@ -1,7 +1,8 @@
 """The configs of the port's entry points: ``conf/synthesize.yaml``
-(``bin/synthesize.py``), ``conf/demo.yaml`` (``app.py``) and
-``conf/train.yaml`` (``bin/train.py``) with their groups
-(``conf/path/default.yaml``, ``conf/transforms/mel.yaml``,
+(``bin/synthesize.py``, ``bin/eval.py``), ``conf/demo.yaml`` (``app.py``),
+``conf/train.yaml`` (``bin/train.py``) and ``conf/preprocess.yaml``
+(``bin/{preprocess,compute_mel,split_df,filter_eval}.py``) with their
+groups (``conf/path/default.yaml``, ``conf/transforms/mel.yaml``,
 ``conf/optimizer/adamw.yaml``, ``conf/train/noam.yaml``,
 ``conf/dataset/mel.yaml``, the model and vocoder of ``flagship.py``), as
 Python constants with the interpolations kept as written and the
@@ -111,6 +112,15 @@ DATASET = {"collator": {}, "train": _split("train_file"),
 TRAIN = {"output_dir": "./out", "ckpt_path": None, "pretrained": None}
 TRAIN_HYDRA_RUN_DIR = "./out/hydra/train"
 
+# conf/preprocess.yaml (its own keys)
+PREPROCESS = {
+    "sample_rate": 24000, "n_fft": 512, "hop_length": 240,
+    "eval_ids": [121, 237, 260, 908, 1089, 1188, 1284, 1580, 1995, 2300],
+    "min_sec": 3.0, "max_sec": 10.0, "n_jobs": 8, "debug": False,
+    "use_tpu_features": True, "batch_size": 16, "f0_method": "yin",
+}
+PREPROCESS_HYDRA_RUN_DIR = "./out/hydra/preprocess"
+
 # the group choices the port has (conf/model/*.yaml, conf/vocoder/*.yaml)
 MODELS = {"prompttts_mdn_v2_wo_erg_final": flagship.MODEL_YAML,
           "prompttts_mdn_v2_wo_erg_final_demo": flagship.MODEL_DEMO_YAML}
@@ -121,7 +131,13 @@ DEVICE = "cuda"
 
 
 def base_config(name: str) -> Dict[str, Any]:
-    """The unresolved config of ``synthesize``, ``demo`` or ``train``."""
+    """The unresolved config of ``synthesize``, ``demo``, ``train`` or
+    ``preprocess``."""
+    if name == "preprocess":
+        cfg = {**PREPROCESS, "path": PATH, "transforms": TRANSFORMS,
+               "hydra": {"run": {"dir": PREPROCESS_HYDRA_RUN_DIR}},
+               "device": DEVICE}
+        return copy.deepcopy(cfg)
     if name == "train":
         cfg = {"model": MODELS["prompttts_mdn_v2_wo_erg_final"],
                "optimizer": OPTIMIZER, "train": TRAIN_GROUP,
@@ -136,8 +152,8 @@ def base_config(name: str) -> Dict[str, Any]:
         own, model, run_dir = (DEMO, "prompttts_mdn_v2_wo_erg_final_demo",
                                DEMO_HYDRA_RUN_DIR)
     else:
-        raise ValueError(f"unknown config {name!r}: synthesize, demo or "
-                         "train")
+        raise ValueError(f"unknown config {name!r}: synthesize, demo, "
+                         "train or preprocess")
     cfg = {"model": MODELS[model], "transforms": TRANSFORMS, "path": PATH,
            "vocoder": VOCODERS["bigvgan_f0"], **own,
            "hydra": {"run": {"dir": run_dir}}, "device": DEVICE}
@@ -145,8 +161,8 @@ def base_config(name: str) -> Dict[str, Any]:
 
 
 def compose(name: str, overrides: Sequence[str] = ()) -> Dict[str, Any]:
-    """The ``synthesize``, ``demo`` or ``train`` config with ``overrides``
-    applied and every interpolation resolved."""
+    """The ``synthesize``, ``demo``, ``train`` or ``preprocess`` config with
+    ``overrides`` applied and every interpolation resolved."""
     cfg = base_config(name)
     values = []
     for ov in overrides:

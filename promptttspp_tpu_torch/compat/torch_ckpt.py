@@ -24,9 +24,12 @@ carry the reference's ``state_dict`` names, so a checkpoint loads by name:
 Files: the reference trainer's ``{epoch, model, optimizer, ...}`` (the
 port's trainer writes it too, as ``ckpt/last`` and ``ckpt/epoch-NNNN``),
 the vocoder's ``{generator: ...}``, a bare state dict (``.ckpt``, ``.pth``,
-``.pt`` or no suffix; unpickled, so load only files you trust) or an
-``.npz`` of name -> array. A directory is an orbax checkpoint of a JAX-trained model, which the
-port cannot read.
+``.pt`` or no suffix; unpickled, so load only files you trust), an
+``.npz`` of name -> array, or an ``.npz`` of a JAX-trained model written by
+``scripts/orbax_to_npz.py`` (keys ``params/...`` and ``batch_stats/...``,
+mapped by ``compat/from_jax.py::jax_params_to_state_dict``). A directory is
+an orbax checkpoint, which the port cannot read: convert it with that
+script first.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from promptttspp_tpu_torch.compat.from_jax import jax_params_to_state_dict
 from promptttspp_tpu_torch.models.bert import BertEmbeddings, BertModel
 from promptttspp_tpu_torch.models.diffusion import (
     GaussianDiffusion, schedule_tables)
@@ -76,17 +80,36 @@ def torch_state_dict(path, kind: str = "model") -> Dict[str, torch.Tensor]:
     if path.is_dir():
         raise ValueError(
             f"{path} is a directory (an orbax checkpoint of a JAX-trained "
-            "model): the port reads only the reference's torch checkpoints "
-            "and .npz state dicts")
+            "model): convert it with `python scripts/orbax_to_npz.py "
+            f"{path} <out.npz>` where orbax is installed, and pass the .npz")
     if path.suffix == ".npz":
         with np.load(path, allow_pickle=False) as data:
-            return {k: torch.from_numpy(data[k]) for k in data.files}
+            arrays = {k: data[k] for k in data.files}
+        if any(k.startswith("params/") for k in arrays):
+            return jax_params_to_state_dict(unflatten_jax_npz(arrays))
+        return {k: torch.from_numpy(v) for k, v in arrays.items()}
     if path.suffix not in (".ckpt", ".pth", ".pt", ""):
         raise ValueError(f"unsupported checkpoint {path}: .ckpt, .pth, .pt, "
                          ".npz or no suffix (the trainer's ckpt/last)")
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     key = "model" if kind == "model" else "generator"
     return dict(ckpt[key] if key in ckpt else ckpt)
+
+
+def unflatten_jax_npz(arrays: Mapping[str, np.ndarray]) -> Dict:
+    """The flat ``params/...`` and ``batch_stats/...`` arrays of
+    ``scripts/orbax_to_npz.py`` -> {"params": tree, "batch_stats": tree}
+    (nested dicts); any other key raises."""
+    out: Dict = {}
+    for key, value in arrays.items():
+        top, *path = key.split("/")
+        if top not in ("params", "batch_stats") or not path:
+            raise ValueError(f"{key}: not a params/ or batch_stats/ array")
+        node = out.setdefault(top, {})
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = value
+    return out
 
 
 def derived_buffers(module: torch.nn.Module) -> Dict[str, np.ndarray]:

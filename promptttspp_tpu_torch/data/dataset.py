@@ -4,19 +4,21 @@ pandas or PyYAML (the machine with the GPU has neither).
 Counterparts of ``promptttspp_tpu/data/dataset.py``
 (``AllWithSpkPromptNormDataset``, ``read_prompt_candidate`` and
 ``read_spk_prompt_candidate``, pipe-separated files) and a reader of the
-``stats.yaml`` that ``promptttspp_tpu/preprocess/pipeline.py`` writes with
-``yaml.safe_dump``: a flat mapping of ``key: float`` lines.
+``stats.yaml`` that ``preprocess/pipeline.py`` writes as ``yaml.safe_dump``
+does: a flat mapping of numbers.
 """
 
 from __future__ import annotations
 
 import csv
 import random as _random
+import re
 from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from promptttspp_tpu_torch.data import yaml_lite
 from promptttspp_tpu_torch.data.prompts import build_prompt
 
 
@@ -36,25 +38,14 @@ def read_spk_prompt_candidate(filepath) -> Dict[int, List[str]]:
     return {int(row[0]): row[1].split(",") for row in _pipe_rows(filepath)}
 
 
-# YAML's spellings of the special floats
-_YAML_FLOATS = {".inf": float("inf"), "+.inf": float("inf"),
-                "-.inf": float("-inf"), ".nan": float("nan")}
-
-
 def read_mel_stats(filepath) -> Dict[str, float]:
-    """``stats.yaml`` (``key: float`` per line) -> {key: float}."""
-    stats = {}
-    for line in Path(filepath).read_text().splitlines():
-        line = line.split("#", 1)[0].strip()
-        if not line:
-            continue
-        key, sep, value = line.partition(":")
-        if not sep:
-            raise ValueError(f"{filepath}: not a 'key: value' line: {line!r}")
-        value = value.strip().lower()
-        stats[key.strip()] = (_YAML_FLOATS[value] if value in _YAML_FLOATS
-                              else float(value))
-    return stats
+    """``stats.yaml`` (a flat mapping of numbers, ``data/yaml_lite.py``)
+    -> {key: float}."""
+    stats = yaml_lite.load(filepath)
+    nested = [k for k, v in stats.items() if isinstance(v, dict)]
+    if nested:
+        raise ValueError(f"{filepath}: not a flat mapping (at {nested})")
+    return {k: float(v) for k, v in stats.items()}
 
 
 def read_csv_rows(filepath) -> List[Dict[str, str]]:
@@ -69,12 +60,12 @@ USE_COLS = ["spk_id", "item_name", "gender", "pitch", "speaking_speed",
 
 
 def _cell(value: str):
-    """A CSV cell as pandas types it here: an integer where it reads as
-    one (``spk_id``), the string otherwise."""
-    try:
-        return int(value)
-    except ValueError:
-        return value
+    """A CSV cell as pandas types it here: an integer where it is one
+    (``spk_id``), the string otherwise. pandas reads no underscores in a
+    number, where Python's ``int`` does: LibriTTS-R's item names
+    (``100_121669_000001_000000``) stay strings."""
+    return int(value) if re.fullmatch(r"[-+]?[0-9]+", value.strip()) \
+        else value
 
 
 class AllWithSpkPromptNormDataset:

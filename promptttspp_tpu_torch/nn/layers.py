@@ -38,28 +38,46 @@ def conv1d_btc(x, weight, bias=None, stride: int = 1, padding: int = 0,
     return y.transpose(1, 2)
 
 
-def conv1d_same(x, weight, bias, dilation: int = 1):
-    """Stride-1 SAME conv (odd kernels): padding ``(k-1)//2 * dilation``."""
-    k = weight.shape[-1]
-    return conv1d_btc(x, weight, bias, padding=(k - 1) // 2 * dilation,
-                      dilation=dilation)
+def same_padding(kernel_size: int, dilation: int = 1):
+    """(left, right) padding of a stride-1 conv as XLA's ``"SAME"``: a
+    total of ``(k-1) * dilation``, the left half rounded down. For an odd k
+    both are the reference's ``(k-1)//2 * dilation``."""
+    total = (kernel_size - 1) * dilation
+    return total // 2, total - total // 2
+
+
+def conv1d_same(x, weight, bias, dilation: int = 1, groups: int = 1):
+    """Stride-1 conv with XLA's ``"SAME"`` padding (``same_padding``)."""
+    left, right = same_padding(weight.shape[-1], dilation)
+    if left != right:
+        x = F.pad(x.transpose(1, 2), (left, right)).transpose(1, 2)
+        left = 0
+    return conv1d_btc(x, weight, bias, padding=left, dilation=dilation,
+                      groups=groups)
 
 
 class Conv1d(nn.Conv1d):
     """torch ``Conv1d`` taking and returning ``[B, T, C]``. ``padding=None``
-    is the reference's universal ``(k-1)//2 * dilation`` (SAME for the odd
-    kernels used throughout)."""
+    is XLA's ``"SAME"`` at stride 1, as the JAX modules' convolutions
+    (``same_padding``; the reference's ``(k-1)//2 * dilation`` for an odd
+    k)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 1, dilation: int = 1, groups: int = 1,
                  bias: bool = True, stride: int = 1, padding=None):
         if padding is None:
-            padding = (kernel_size - 1) // 2 * dilation
+            if stride != 1:
+                raise ValueError("Conv1d(padding=None) is SAME at stride 1; "
+                                 f"give the padding at stride {stride}")
+            padding = "same"
         super().__init__(in_channels, out_channels, kernel_size,
                          stride=stride, padding=padding, dilation=dilation,
                          groups=groups, bias=bias)
 
     def forward(self, x):
+        if self.padding == "same":
+            return conv1d_same(x, self.weight, self.bias, self.dilation[0],
+                               self.groups)
         return conv1d_btc(x, self.weight, self.bias, self.stride[0],
                           self.padding[0], self.dilation[0], self.groups)
 

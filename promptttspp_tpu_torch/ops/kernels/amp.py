@@ -400,7 +400,11 @@ def amp_layer(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int,
     _build.check(x, "x", (B, T, C), x.device)
     k = w1.shape[-1]
     if k % 2 == 0:
-        raise ValueError(f"amp_layer kernel needs an odd k, got k={k}")
+        raise ValueError(
+            f"amp_layer kernel needs an odd k, got k={k} "
+            "(vocoder.resblock_kernel_sizes): at an even k JAX's TPU kernel "
+            "centres the taps at (k-1)//2 and its CPU path pads as XLA's "
+            "SAME; the port's plain version, on the CPU, follows the latter")
     _check_layer(C, k, alpha1, w1, b1, alpha2, w2, b2, x.device)
     h = _aa_conv(x, alpha1, w1, b1, None, dilation, bf16)
     return _aa_conv(h, alpha2, w2, b2, x, 1, bf16)

@@ -30,6 +30,21 @@ tests where the real corpus is absent.
 - ``metadata/style_prompt_candidates.csv``,
   ``metadata/speaker_prompt_candidates.csv`` (``spk|word,word``) and the
   stand-in vocabulary, which also holds the speaker prompts' words.
+
+``write_raw_corpus``, the raw layout that ``preprocess/pipeline.py::
+preprocess_corpus`` (``bin/preprocess.py``) reads, from ``raw_rows``:
+
+- ``data_prep/out/libritts_r_per_spk_cleaned/<spk>/wav24k/<utt>.wav``:
+  ``speech_like`` signals (16-bit, 24 kHz): a glottal pulse train with
+  vibrato through three formant filters, an unvoiced hiss, noise, and
+  silence at both ends;
+- ``data_prep/out/libritts_r_per_spk_cleaned/<spk>/textgrid/<utt>.TextGrid``
+  with a ``words`` and a ``phones`` tier (``sil`` first, ``sp`` last);
+- ``metadata/metadata_w_style_prompt_tags.csv`` (``spk_id``, ``item_name``,
+  ``gender``, ``pitch``, ``speaking_speed``, ``energy``,
+  ``style_prompt_key``), both prompt-candidate files, the stand-in
+  vocabulary and, where given, a copy of the per-speaker F0 bounds
+  (``metadata/libritts_r_f0_stats.yaml``).
 """
 
 from __future__ import annotations
@@ -40,6 +55,7 @@ from typing import Dict, Iterable, List, Mapping, Sequence
 
 import numpy as np
 
+from promptttspp_tpu_torch.data import yaml_lite
 from promptttspp_tpu_torch.data.dataset import USE_COLS
 from promptttspp_tpu_torch.data.prompts import SPEAKER_TEMPLATES
 
@@ -86,8 +102,8 @@ def write_corpus(root, rows: List[Dict], prompts: Mapping[str, Sequence[str]],
     (dump / "df_filtered/eval_filtered.csv").write_text(
         "\n".join(lines) + "\n")
     (dump / "mel63").mkdir(parents=True, exist_ok=True)
-    (dump / "mel63/stats.yaml").write_text(
-        f"mean: {mel_mean!r}\nstd: {mel_std!r}\n")
+    yaml_lite.dump_flat(dump / "mel63/stats.yaml",
+                        dict(mean=mel_mean, std=mel_std))
     meta = root / "metadata"
     meta.mkdir(parents=True, exist_ok=True)
     (meta / "style_prompt_candidates.csv").write_text("".join(
@@ -172,8 +188,8 @@ def write_training_corpus(root, rows: List[Dict],
     for split, lines in tables.items():
         (dump / f"df_filtered/{split}.csv").write_text("\n".join(lines)
                                                       + "\n")
-    (mel_dir / "stats.yaml").write_text(
-        f"mean: {mel_mean!r}\nstd: {mel_std!r}\n")
+    yaml_lite.dump_flat(mel_dir / "stats.yaml",
+                        dict(mean=mel_mean, std=mel_std))
     meta = root / "metadata"
     meta.mkdir(parents=True, exist_ok=True)
     (meta / "style_prompt_candidates.csv").write_text("".join(
@@ -185,4 +201,152 @@ def write_training_corpus(root, rows: List[Dict],
     texts += [t.format(words="") for t in SPEAKER_TEMPLATES]
     (meta / "bert-base-uncased-vocab.txt").write_text(
         "\n".join(_vocab(texts, vocab_size)) + "\n")
+    return root
+
+
+# ARPAbet phones of text/eng.py and the words of the words tier
+RAW_PHONES = ["HH", "AH0", "L", "OW1", "W", "ER1", "D", "B", "IY1", "M",
+              "AA1", "N", "S", "T", "EH1", "K"]
+RAW_WORDS = ["hello", "world", "speech", "voice", "quiet", "morning",
+             "river", "table", "garden", "window"]
+RAW_COLS = ["spk_id", "item_name", "gender", "pitch", "speaking_speed",
+            "energy", "style_prompt_key"]
+EDGE_SILENCE = 0.2  # seconds of silence at each end of a raw utterance
+
+
+def speech_like(seconds: float, f0: float, seed: int,
+                sr: int = 24000) -> np.ndarray:
+    """A seeded speech-like wav in [-1, 1]: ``EDGE_SILENCE`` s of silence at
+    each end; between them a glottal pulse train at ``f0`` Hz with 6%
+    vibrato and per-pulse amplitude jitter through formant resonators at
+    500, 1500 and 2500 Hz, an unvoiced hiss over a tenth of the speech from
+    40%, and low noise."""
+    from scipy import signal as sps
+
+    rng = np.random.RandomState(seed)
+    n = int(sr * seconds)
+    t = np.arange(n) / sr
+    edge = int(sr * EDGE_SILENCE)
+    track = f0 * (1 + 0.06 * np.sin(2 * np.pi * 0.7 * t + rng.rand() * 6))
+    speech = np.zeros(n, bool)
+    speech[edge:n - edge] = True
+    voiced = speech.copy()
+    h0 = edge + int(0.4 * (n - 2 * edge))
+    voiced[h0:h0 + (n - 2 * edge) // 10] = False
+    pulses = np.zeros(n)
+    at = np.where(np.diff(np.floor(np.cumsum(track / sr))) > 0)[0]
+    at = at[voiced[at]]
+    pulses[at] = 1.0 + 0.1 * rng.randn(len(at))
+    out = pulses
+    for fc, bw in ((500, 80), (1500, 120), (2500, 160)):
+        r = np.exp(-np.pi * bw / sr)
+        out = sps.lfilter([1.0], [1.0, -2 * r * np.cos(2 * np.pi * fc / sr),
+                                  r * r], out)
+    hiss = sps.lfilter([1, -0.95], [1], np.where(
+        speech & ~voiced, 0.15 * rng.randn(n), 0.0))
+    x = out / max(np.abs(out).max(), 1e-9) * 0.6 + hiss \
+        + np.where(speech, 0.01 * rng.randn(n), 0.0)
+    return np.clip(x, -1.0, 32766 / 32767)
+
+
+def raw_rows(utts_per_spk: Mapping[int, int], prompts: Mapping[str,
+             Sequence[str]], seconds=(3.0, 5.0), f0_stats: Mapping = None,
+             seed: int = 0) -> List[Dict]:
+    """Rows for ``write_raw_corpus``: ``utts_per_spk[spk]`` utterances of
+    each speaker, each of ``seconds`` [lo, hi) seconds with a style key of
+    ``prompts`` (its tags in the columns) and the speaker's F0: its
+    ``f0_center`` in ``f0_stats`` (``metadata/libritts_r_f0_stats.yaml``)
+    where it has one, else 120 Hz."""
+    rng = np.random.RandomState(seed)
+    keys = sorted(prompts)
+    rows = []
+    for spk, n in utts_per_spk.items():
+        f0 = float(((f0_stats or {}).get(str(spk)) or {}).get("f0_center",
+                                                              120.0))
+        for u in range(n):
+            key = keys[rng.randint(len(keys))]
+            gender, *tags = key.split("_")
+            tag = dict(t.split("-", 1) for t in tags)
+            rows.append(dict(
+                spk_id=spk, item_name=f"{spk}_{u:04d}", gender=gender,
+                pitch=tag.get("p", "normal"),
+                speaking_speed=tag.get("s", "normal"),
+                energy=tag.get("e", "normal"), style_prompt_key=key,
+                seconds=float(rng.uniform(*seconds)),
+                f0=f0 * float(rng.uniform(0.9, 1.1))))
+    return rows
+
+
+def raw_textgrid(seconds: float, rng) -> str:
+    """A long-format TextGrid: a ``words`` and a ``phones`` tier over
+    ``seconds``; about 10 phones a second between the edge silences, three
+    phones a word."""
+    start, stop = EDGE_SILENCE, seconds - EDGE_SILENCE
+    n_ph = max(4, int((stop - start) * 10))
+    cuts = np.cumsum(rng.uniform(0.6, 1.4, n_ph))
+    bounds = start + (stop - start) * np.concatenate([[0.0], cuts / cuts[-1]])
+    phones = [(0.0, start, "sil")] + [
+        (bounds[i], bounds[i + 1], RAW_PHONES[rng.randint(len(RAW_PHONES))])
+        for i in range(n_ph)] + [(stop, seconds, "sp")]
+    words = [(0.0, start, "")] + [
+        (bounds[i], bounds[min(i + 3, n_ph)],
+         RAW_WORDS[rng.randint(len(RAW_WORDS))])
+        for i in range(0, n_ph, 3)] + [(stop, seconds, "")]
+    lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "",
+             "xmin = 0 ", f"xmax = {seconds!r} ", "tiers? <exists> ",
+             "size = 2 ", "item []: "]
+    for i, (name, ivs) in enumerate((("words", words), ("phones", phones))):
+        lines += [f"    item [{i + 1}]:", '        class = "IntervalTier" ',
+                  f'        name = "{name}" ', "        xmin = 0 ",
+                  f"        xmax = {seconds!r} ",
+                  f"        intervals: size = {len(ivs)} "]
+        for j, (a, b, text) in enumerate(ivs):
+            lines += [f"        intervals [{j + 1}]:",
+                      f"            xmin = {float(a)!r} ",
+                      f"            xmax = {float(b)!r} ",
+                      f'            text = "{text}" ']
+    return "\n".join(lines) + "\n"
+
+
+def write_raw_corpus(root, rows: List[Dict],
+                     prompts: Mapping[str, Sequence[str]],
+                     spk_words: Mapping[int, Sequence[str]],
+                     f0_stats_file=None, vocab_size: int = 30522,
+                     seed: int = 0) -> Path:
+    """Write the raw layout under ``root`` (module docstring). ``rows``:
+    from ``raw_rows``. ``f0_stats_file``: copied to
+    ``metadata/libritts_r_f0_stats.yaml`` where given. Returns ``root``."""
+    import shutil
+
+    from scipy.io import wavfile
+
+    root = Path(root)
+    rng = np.random.RandomState(seed)
+    data_root = root / "data_prep/out/libritts_r_per_spk_cleaned"
+    lines = [",".join(RAW_COLS)]
+    for i, row in enumerate(rows):
+        spk, utt = str(row["spk_id"]), row["item_name"]
+        for sub in ("wav24k", "textgrid"):
+            (data_root / spk / sub).mkdir(parents=True, exist_ok=True)
+        wav = speech_like(row["seconds"], row["f0"], seed * 100003 + i)
+        wavfile.write(data_root / spk / "wav24k" / f"{utt}.wav", 24000,
+                      np.round(wav * 32767).astype(np.int16))
+        (data_root / spk / "textgrid" / f"{utt}.TextGrid").write_text(
+            raw_textgrid(len(wav) / 24000, rng))
+        lines.append(",".join(str(row[c]) for c in RAW_COLS))
+    meta = root / "metadata"
+    meta.mkdir(parents=True, exist_ok=True)
+    (meta / "metadata_w_style_prompt_tags.csv").write_text(
+        "\n".join(lines) + "\n")
+    (meta / "style_prompt_candidates.csv").write_text("".join(
+        f"{key}|{';'.join(cands)}\n" for key, cands in prompts.items()))
+    (meta / "speaker_prompt_candidates.csv").write_text("".join(
+        f"{spk}|{','.join(words)}\n" for spk, words in spk_words.items()))
+    texts = [p for cands in prompts.values() for p in cands]
+    texts += [", ".join(words) for words in spk_words.values()]
+    texts += [t.format(words="") for t in SPEAKER_TEMPLATES]
+    (meta / "bert-base-uncased-vocab.txt").write_text(
+        "\n".join(_vocab(texts, vocab_size)) + "\n")
+    if f0_stats_file is not None:
+        shutil.copyfile(f0_stats_file, meta / "libritts_r_f0_stats.yaml")
     return root

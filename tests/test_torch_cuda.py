@@ -886,3 +886,106 @@ def test_weighted_batchnorm_train_mode_on_both_devices(dev):
                         bn.running_var))
         for a, b in zip(*out):
             torch.testing.assert_close(b.cpu(), a, atol=1e-5, rtol=1e-5)
+
+
+# -- the recipe: batched YIN, interp1d, the mel and the preprocess CLI ------
+# the bars of tests/test_torch_f0.py and tests/test_torch_preprocess.py
+VUV_AGREEMENT, F0_RTOL, MEL_ATOL = 0.995, 1e-3, 1e-4
+
+
+def _f0_batch():
+    """3 speech-like rows of 1.2-2 s and a silent one, in one buffer,
+    with per-row bounds."""
+    from promptttspp_tpu_torch.tools.synthetic_corpus import speech_like
+
+    wav = np.zeros((4, 48000), np.float32)
+    for i, (sec, f0) in enumerate(((2.0, 110.0), (1.6, 190.0),
+                                   (1.2, 260.0))):
+        wav[i, :int(24000 * sec)] = speech_like(sec, f0, seed=i)
+    lo = np.array([63.0, 97.9, 146.2, 63.0], np.float32)
+    hi = np.array([340.8, 510.3, 526.6, 400.0], np.float32)
+    return wav, lo, hi
+
+
+def test_yin_on_the_card_matches_the_cpu(dev):
+    from promptttspp_tpu_torch.ops.f0 import extract_pitch
+
+    wav, lo, hi = _f0_batch()
+    out = [[t.cpu().numpy() for t in extract_pitch(
+        torch.from_numpy(wav).to(d), 24000, 240,
+        torch.from_numpy(lo).to(d), torch.from_numpy(hi).to(d))]
+        for d in ("cpu", dev)]
+    (f0_c, cf0_c, vuv_c), (f0_g, cf0_g, vuv_g) = out
+    assert (vuv_g == vuv_c).mean() >= VUV_AGREEMENT
+    both = (vuv_g > 0) & (vuv_c > 0)
+    assert both.sum() > 100 and not vuv_g[3].any()
+    np.testing.assert_allclose(f0_g[both], f0_c[both], rtol=F0_RTOL)
+    same = (vuv_g == vuv_c).all(-1)
+    np.testing.assert_allclose(cf0_g[same], cf0_c[same], atol=F0_RTOL)
+
+
+def test_interp1d_on_the_card(dev):
+    from promptttspp_tpu_torch.ops.interp import interp1d
+
+    rng = np.random.RandomState(0)
+    f0 = np.where(rng.rand(4, 300) > 0.5, 80 + 200 * rng.rand(4, 300),
+                  0.0).astype(np.float32)
+    f0[2] = 0.0
+    f0[3, :40] = f0[3, -50:] = 0.0
+    ours = interp1d(torch.from_numpy(f0).to(dev)).cpu().numpy()
+    np.testing.assert_allclose(ours, interp1d(torch.from_numpy(f0)).numpy(),
+                               atol=1e-6, rtol=0)
+
+
+def test_feature_extractor_on_the_card(dev):
+    """``BatchedFeatureExtractor`` (YIN, the host's contour fix, interp1d
+    and the mel) on the card against the CPU, per utterance."""
+    from promptttspp_tpu_torch.preprocess.pipeline import (
+        BatchedFeatureExtractor)
+
+    wav, lo, hi = _f0_batch()
+    wavs = [wav[0, :48000], wav[1, :38400], wav[2, :28800]]
+    out = {d: BatchedFeatureExtractor(device=d)(wavs, lo[:3], hi[:3])
+           for d in ("cpu", dev)}
+    for a, b in zip(out["cpu"], out[dev]):
+        assert a["mel"].shape == b["mel"].shape
+        np.testing.assert_allclose(b["mel"], a["mel"], atol=MEL_ATOL, rtol=0)
+        assert (a["vuv"] == b["vuv"]).mean() >= VUV_AGREEMENT
+        both = (a["vuv"] > 0) & (b["vuv"] > 0)
+        np.testing.assert_allclose(b["f0"][both], a["f0"][both],
+                                   rtol=F0_RTOL)
+
+
+def test_preprocess_cli_on_the_card(dev, tmp_path):
+    """``bin/preprocess.py`` in-process on the card (its default device) on
+    a raw synthetic corpus: the CSVs, features and statistics it writes."""
+    import os
+    from pathlib import Path
+
+    from promptttspp_tpu_torch.bin import preprocess
+    from promptttspp_tpu_torch.data.dataset import read_prompt_candidate
+    from promptttspp_tpu_torch.tools.synthetic_corpus import (
+        raw_rows, write_raw_corpus)
+
+    meta = Path(__file__).resolve().parent.parent / "metadata"
+    prompts = read_prompt_candidate(meta / "style_prompt_candidates.csv")
+    prompts = {k: prompts[k][:1] for k in sorted(prompts)[:3]}
+    rows = raw_rows({121: 1, 19: 2}, prompts, seconds=(1.5, 2.5))
+    write_raw_corpus(tmp_path, rows, prompts, {121: ["calm"], 19: ["deep"]},
+                     f0_stats_file=meta / "libritts_r_f0_stats.yaml",
+                     vocab_size=300)
+    cwd = os.getcwd()
+    try:
+        preprocess.main([f"path.root={tmp_path}", "eval_ids=[121]",
+                         f"hydra.run.dir={tmp_path / 'run'}"])
+    finally:
+        os.chdir(cwd)
+    dump = tmp_path / "dump/libritts_r_per_spk_cleaned"
+    assert len((dump / "df/data.csv").read_text().splitlines()) == 4
+    assert len((dump / "df/eval.csv").read_text().splitlines()) == 2
+    for r in rows:
+        mel = np.load(dump / f"mel63/{r['spk_id']}/{r['item_name']}.npy")
+        cf0 = np.load(dump / f"feats/{r['spk_id']}/cf0/{r['item_name']}.npy")
+        assert mel.shape[0] == 80 and cf0.shape == (1, mel.shape[1])
+        assert np.isfinite(mel).all() and np.isfinite(cf0).all()
+    assert (dump / "mel63/stats.yaml").exists()

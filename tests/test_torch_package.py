@@ -52,6 +52,33 @@ def test_port_modules_import_without_jax():
     assert out.stdout.startswith("ok")
 
 
+RECIPE_MODULES = [f"promptttspp_tpu_torch.{m}" for m in (
+    "ops.f0", "ops.interp", "preprocess.pipeline", "preprocess.world_f0",
+    "preprocess.textgrid", "preprocess.duration", "data.yaml_lite",
+    "data_prep.audio_metrics", "data_prep.stats", "eval.metrics",
+    "bin.preprocess", "bin.compute_mel", "bin.split_df", "bin.filter_eval",
+    "bin.eval", "tools.synthetic_corpus")]
+
+
+def test_recipe_modules_import_without_pandas_or_yaml():
+    """The recipe's modules (preprocessing, F0, evaluation and their CLIs)
+    import in a fresh interpreter without pandas or PyYAML, which the
+    machine with the GPU lacks, and without JAX."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {RECIPE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{('pandas', 'yaml') + FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
 def test_no_forbidden_import_statement(path):
     tree = ast.parse(path.read_text())

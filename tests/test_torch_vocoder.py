@@ -164,3 +164,26 @@ def test_masks_match_jax():
     np.testing.assert_allclose(tm.to_log_scale(torch.from_numpy(v)).numpy(),
                                np.asarray(jm.to_log_scale(jnp.asarray(v))),
                                atol=1e-7)
+
+
+@pytest.mark.parametrize("k", [4, 6, 3])
+def test_amp_layer_at_any_kernel_size_matches_jax(k):
+    """The port's AMPLayer on the CPU against JAX's at even kernel sizes,
+    where both convolutions pad as XLA's ``"SAME"`` (a total of
+    (k-1)·d, the left half rounded down), and at an odd one; within 1e-5.
+    """
+    from promptttspp_tpu.vocoders.bigvgan import AMPLayer as JaxAMPLayer
+    from promptttspp_tpu_torch.vocoders.bigvgan import AMPLayer
+    from tests.test_torch_acoustic import perturbed
+
+    x = np.random.RandomState(k).randn(1, 70, 8).astype(np.float32)
+    jlayer = JaxAMPLayer(8, k, 3)
+    variables = perturbed(jax.jit(jlayer.init)(jax.random.PRNGKey(k),
+                                               jnp.asarray(x)))
+    ref = np.asarray(jax.jit(jlayer.apply)(variables, jnp.asarray(x)))
+    layer = AMPLayer(8, k, 3)
+    load_jax_variables(layer, variables)
+    with torch.no_grad():
+        out = layer(torch.from_numpy(x)).numpy()
+    assert out.shape == ref.shape == x.shape
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
