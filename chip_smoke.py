@@ -8,8 +8,9 @@ Run from the repository root, with no arguments:
 Phases (any failure exits non-zero and prints no result line):
 
 1. Build the hand-written kernels from ``promptttspp_tpu_torch/csrc/`` with
-   nvcc (one process per source, all at once, beside the ``mix_only``
-   build of K2-bf16 that phase 3 times) and print each kernel's registers
+   nvcc and the C++ feature loader with the host compiler (one process per
+   source, all at once, beside the ``mix_only`` build of K2-bf16 that
+   phase 3 times) and print each kernel's registers
    and shared memory (``-Xptxas -v``), the counts of bf16 and of TF32
    tensor-core MMA instructions (HMMA) in the ``mma.sync`` K2's SASS and
    of HGMMA (``wgmma``) in K2-bf16's (``cuobjdump -sass``; none of any
@@ -110,7 +111,21 @@ Phases (any failure exits non-zero and prints no result line):
     every loss finite; (c) its ``ckpt/last`` served by the synthesize
     CLI's ``main`` for one utterance (a prompt and a reference request),
     K1 once and K2-bf16 72 times per request. The files are deleted at the
-    end.
+    end. (d) Training's options, about a minute: one flagship step in
+    float32 and one in bf16 (``TrainState(bf16=True)``) on the card beside
+    a bf16 step on the CPU from the same weights and batch, each step's
+    peak memory, the card's bf16 losses within 1.5e-3 (grad_norm 2e-3
+    relative) of the CPU's; then one epoch of ``bin/train.py`` (the
+    flagship, ``dataset.max_tokens=10000``, a corpus of about 12 updates)
+    in each of four settings, ``train.input_pipeline=sync``, ``prefetch``,
+    ``sync_native`` and ``prefetch`` with ``train.bf16=true``, in two turns
+    (in that order, then reversed): per setting the median update time
+    (the 3 warm-up updates, the last and, in the second turn, the profiled
+    updates 3-5 left out), frames/s, peak memory and the device-busy share
+    of the profiled updates; every setting's per-update checksums of the
+    device batch equal, the float32 settings' first-update losses equal bit
+    for bit, every loss finite; and the bf16 ``ckpt/last`` served by the synthesize
+    CLI (K1 once and K2-bf16 72 times per request).
 11. The recipe (``promptttspp_tpu_torch/preprocess/``, ``ops/f0.py``,
     ``eval/``), about 15 s: (a) batched YIN and the mel on the card
     against the port's CPU path at the flagship preprocessing shape (16
@@ -207,6 +222,12 @@ TRAIN_WARMUP, PROFILE_STEP, MIN_STEPS = 3, 8, 20
 # the parameters after the update (cuDNN sums in another order)
 TRAIN_LOSS_TOL = dict(atol=1e-4, rtol=1e-3)
 TRAIN_PARAM_ATOL = 1e-5
+# phase 10 (d): the bf16 step on the card against the CPU's, at the bars of
+# tests/test_torch_train_bf16.py (losses absolute, grad_norm relative); the
+# corpus of the four settings' epochs (about 12 updates each), two turns
+# (the settings in order, then reversed), the first profiled update
+TRAIN_BF16_LOSS_ATOL, TRAIN_BF16_GRAD_NORM_RTOL = 1.5e-3, 2e-3
+TRAIN_D_UTTS, TRAIN_D_PROFILE_STEP = 340, 3
 # phase 11: the preprocessing shape of conf/preprocess.yaml (batch 16 of
 # 3-15 s utterances at 24 kHz, 2-s sample buckets), the raw corpus of the
 # recipe (utterances per training speaker; the eval speaker 121 of
@@ -378,7 +399,7 @@ def main() -> int:
     with ThreadPoolExecutor(1) as pool:
         mix_only = pool.submit(k2_variants.build, ["mix_only"],
                                "amp_aa_conv_wgmma", "wgmma")
-        reports = _build.build()
+        reports = _build.build((*_build.KERNELS, *_build.HOST_LIBRARIES))
         mix_only = mix_only.result()["mix_only"]
     for name in _build.KERNELS:
         _build.load(name)
@@ -612,6 +633,7 @@ def main() -> int:
     del synth
     torch.cuda.empty_cache()
     phase_train(k1, k2, vocoder, dev, gpu, failures)
+    phase_train_options(k1, k2, vocoder, dev, gpu, failures)
 
     # -- phase 11: the recipe ------------------------------------------------
     print(f"phase 11 starts at {time.perf_counter() - t_start:.1f} s",
@@ -1544,6 +1566,21 @@ def train_batch(rng, lens, mel_dim=80, L=16):
         diffusion_noise=rng.randn(B, Tf, mel_dim).astype(np.float32))
 
 
+def _no_dropout(model_cfg, bert_config):
+    """-> (model config, BERT config) with every dropout rate 0."""
+    import copy
+    import dataclasses
+
+    cfg0 = copy.deepcopy(model_cfg)
+    cfg0["encoder"].update(dropout_rate=0.0, positional_dropout_rate=0.0)
+    va = cfg0["variance_adaptor"]
+    va["duration_predictor"]["dropout"] = 0.0
+    va["pitch_predictor"]["dropout"] = 0.0
+    va["frame_prior_network"].update(p_dropout=0.0, pos_enc_p_dropout=0.0)
+    return cfg0, dataclasses.replace(bert_config, hidden_dropout=0.0,
+                                     attention_dropout=0.0)
+
+
 def phase_train(k1, k2, vocoder, dev, gpu, failures, model_cfg=None,
                 bert_config=None, train_overrides=(), synth_overrides=()):
     """Training on the card (see phase 10 of the module docstring).
@@ -1551,7 +1588,6 @@ def phase_train(k1, k2, vocoder, dev, gpu, failures, model_cfg=None,
     bert-base) and the overrides appended to the train and synthesize
     CLIs' command lines exist to rehearse the phase at a smaller size."""
     import copy
-    import dataclasses
     import os
     import shutil
 
@@ -1576,14 +1612,7 @@ def phase_train(k1, k2, vocoder, dev, gpu, failures, model_cfg=None,
     mel_dim = model_cfg["decoder"]["out_dim"]
 
     # (a) one train step on the card against the CPU, dropout rates 0
-    cfg0 = copy.deepcopy(model_cfg)
-    cfg0["encoder"].update(dropout_rate=0.0, positional_dropout_rate=0.0)
-    va = cfg0["variance_adaptor"]
-    va["duration_predictor"]["dropout"] = 0.0
-    va["pitch_predictor"]["dropout"] = 0.0
-    va["frame_prior_network"].update(p_dropout=0.0, pos_enc_p_dropout=0.0)
-    bert0 = dataclasses.replace(bert_config, hidden_dropout=0.0,
-                                attention_dropout=0.0)
+    cfg0, bert0 = _no_dropout(model_cfg, bert_config)
     cpu = flagship.build_model(cfg0, "cpu", seed=3, bert_config=bert0)
     card = copy.deepcopy(cpu).to(dev)
     init = {k: v.clone() for k, v in cpu.state_dict().items()}
@@ -1733,6 +1762,235 @@ def phase_train(k1, k2, vocoder, dev, gpu, failures, model_cfg=None,
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s in all",
+          flush=True)
+
+
+def phase_train_options(k1, k2, vocoder, dev, gpu, failures, model_cfg=None,
+                        bert_config=None, train_overrides=(),
+                        synth_overrides=()):
+    """Training's options on the card (see phase 10 (d) of the module
+    docstring); the arguments as ``phase_train``'s."""
+    import copy
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from promptttspp_tpu_torch import flagship
+    from promptttspp_tpu_torch.bin import synthesize as synth_cli
+    from promptttspp_tpu_torch.bin import train as train_cli
+    from promptttspp_tpu_torch.compat.torch_ckpt import (
+        BIGVGAN_WEIGHT_NORMED, to_reference_state_dict)
+    from promptttspp_tpu_torch.data.dataset import (
+        read_prompt_candidate, read_spk_prompt_candidate)
+    from promptttspp_tpu_torch.tools.synthetic_corpus import (
+        training_rows, write_corpus, write_training_corpus)
+    from promptttspp_tpu_torch.train.state import TrainState
+
+    t_phase = time.perf_counter()
+    model_cfg = copy.deepcopy(model_cfg or flagship.MODEL)
+    bert_config = bert_config or flagship.bert_config_of(
+        model_cfg["prompt_encoder"])
+    mel_dim = model_cfg["decoder"]["out_dim"]
+
+    # (d) one float32 and one bf16 step on the card, a bf16 step on the CPU
+    cfg0, bert0 = _no_dropout(model_cfg, bert_config)
+    cpu = flagship.build_model(cfg0, "cpu", seed=3, bert_config=bert0)
+    batch = train_batch(np.random.RandomState(4), [24, 17], mel_dim)
+    outs, peaks, walls = {}, {}, {}
+    for name, d, bf16 in (("card float32", dev, False),
+                          ("card bf16", dev, True), ("CPU bf16", "cpu", True)):
+        model = copy.deepcopy(cpu).to(d) if d == dev else cpu
+        if d == dev:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        state = TrainState(model, seed=0, bf16=bf16)
+        tb = {k: torch.from_numpy(np.asarray(v)).to(d)
+              for k, v in batch.items()}
+        t0 = time.perf_counter()
+        outs[name] = {k: v.item() for k, v in state.train_step(tb).items()}
+        walls[name] = time.perf_counter() - t0
+        if d == dev:
+            peaks[name] = torch.cuda.max_memory_allocated()
+            dtypes = ({p.dtype for p in model.parameters()},
+                      {p.dtype for p in state.shadow.parameters()}
+                      if bf16 else None)
+            if dtypes[0] != {torch.float32} or \
+                    dtypes[1] not in (None, {torch.bfloat16}):
+                failures.append(f"{name} step: parameter dtypes {dtypes}")
+        del model, state
+        torch.cuda.empty_cache()
+    got, ref = outs["card bf16"], outs["CPU bf16"]
+    finite = all(np.isfinite(v) for o in outs.values() for v in o.values())
+    loss_diff = max(abs(got[k] - ref[k]) for k in got if k != "grad_norm")
+    norm_diff = abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    for name, o in outs.items():
+        print(f"[{gpu}] phase 10 (d): one flagship train step, {name}, "
+              f"batch {list(batch['mel'].shape)}: "
+              + ", ".join(f"{k} {v:.6g}" for k, v in o.items())
+              + (f"; peak memory allocated {peaks[name] / 2**30:.2f} GiB"
+                 if name in peaks else "")
+              + f"; step wall {walls[name]:.2f} s (the first)", flush=True)
+    print(f"phase 10 (d): the card's bf16 step against the CPU's: largest "
+          f"loss difference {loss_diff:.3g} (bar {TRAIN_BF16_LOSS_ATOL}), "
+          f"grad_norm {norm_diff:.3g} relative (bar "
+          f"{TRAIN_BF16_GRAD_NORM_RTOL})", flush=True)
+    if not finite or not loss_diff <= TRAIN_BF16_LOSS_ATOL \
+            or not norm_diff <= TRAIN_BF16_GRAD_NORM_RTOL:
+        failures.append(f"bf16 train step card vs CPU: finite {finite}, "
+                        f"losses {loss_diff:.3g}, grad_norm {norm_diff:.3g}")
+    del cpu
+    print(f"phase 10 (d): the steps took {time.perf_counter() - t_phase:.1f}"
+          " s", flush=True)
+
+    # the four settings of the train CLI, in two turns
+    root = OUT_DIR / "train_options"
+    shutil.rmtree(root, ignore_errors=True)
+    meta = ROOT / "metadata"
+    cands = read_prompt_candidate(meta / "style_prompt_candidates.csv")
+    spk = read_spk_prompt_candidate(meta / "speaker_prompt_candidates.csv")
+    rows = training_rows(TRAIN_D_UTTS, cands, spk, TRAIN_PHONES, TRAIN_FPP,
+                         valid_every=40, seed=7)
+    eval_rows = [dict(spk_id=r["spk_id"], item_name=f"eval_{i}",
+                      seq=r["seq"][:24], style_prompt_key=r[
+                          "style_prompt_key"])
+                 for i, r in enumerate(rows[:1])]
+    write_corpus(root, eval_rows, cands, wav_seconds=3.0, mel_mean=-5.0,
+                 mel_std=2.0)
+    write_training_corpus(root, rows, cands, spk, n_mels=mel_dim,
+                          mel_mean=-5.0, mel_std=2.0, seed=8)
+    settings = {"sync": ["+train.input_pipeline=sync"],
+                "prefetch": ["+train.input_pipeline=prefetch"],
+                "sync_native": ["+train.input_pipeline=sync_native"],
+                "prefetch bf16": ["+train.input_pipeline=prefetch",
+                                  "train.bf16=true"]}
+    turns = list(settings) + list(settings)[::-1]
+    served = max(i for i, n in enumerate(turns) if n == "prefetch bf16")
+    step_fn = TrainState.train_step
+    runs = {name: [] for name in settings}
+    cwd = os.getcwd()
+    first = TRAIN_D_PROFILE_STEP
+    for turn, name in enumerate(turns):
+        starts, losses, frames, sums = [], [], [], []
+
+        def timed_step(self, b):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            frames.append(b["frame_lengths"])
+            sums.append(torch.stack([b[k].double().sum() for k in sorted(b)]))
+            out = step_fn(self, b)
+            losses.append(torch.stack(list(out.values())))
+            return out
+
+        out_dir = root / f"out_{turn}"
+        # seeded prompt draws, so every run sees the same batches; the
+        # second turn profiles (reading a profile takes seconds)
+        profiled = turn >= len(settings)
+        argv = [f"path.root={root}", f"output_dir={out_dir}",
+                f"hydra.run.dir={root / 'run'}", "train.num_epochs=1",
+                f"dataset.max_tokens={MAX_TOKENS}", "+dataset.train.seed=1",
+                "+dataset.valid.seed=2", *settings[name], *train_overrides]
+        if profiled:
+            argv.append(f"+train.profile_steps={first}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with mock.patch.object(TrainState, "train_step", timed_step):
+                trainer = train_cli.main(argv)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+        wall = time.perf_counter() - t0
+        step_ms = [a.elapsed_time(b) for a, b in zip(starts, starts[1:]
+                                                     + [end])]
+        # the warm-up and the profiled updates out, and the last, whose
+        # interval holds the end of the epoch (validation, checkpoint)
+        keep = range(first + 3 if profiled else TRAIN_WARMUP,
+                     len(step_ms) - 1)
+        runs[name].append(dict(
+            ms=[step_ms[i] for i in keep],
+            frames=sum(int(frames[i].sum()) for i in keep),
+            peak=torch.cuda.max_memory_allocated(), wall=wall,
+            busy=profile_busy(trainer.profile, trainer.profile_wall_s)
+            if profiled else None,
+            losses=torch.stack(losses).cpu(),
+            sums=torch.stack(sums).cpu(), ckpt=out_dir / "ckpt/last"))
+        print(f"phase 10 (d): turn {turn}, {name}: {len(step_ms)} updates, "
+              f"{wall:.1f} s in all" + (f"; {runs[name][-1]['busy']}"
+                                       if profiled else ""), flush=True)
+        del trainer
+        if turn != served:  # 1.3 GB of checkpoint each
+            shutil.rmtree(out_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    ref = runs["sync"][0]
+    for name, rs in runs.items():
+        ms = [m for r in rs for m in r["ms"]]
+        fps = sum(r["frames"] for r in rs) / (sum(ms) / 1e3)
+        vals = torch.cat([r["losses"] for r in rs])
+        print(f"[{gpu}] phase 10 (d): {name}: update time median "
+              f"{np.median(ms):.1f} ms over {len(ms)} updates of 2 turns "
+              f"(min {min(ms):.1f}, max {max(ms):.1f}), {fps:.0f} frames/s "
+              f"({sum(r['frames'] for r in rs)} frames in {sum(ms):.1f} "
+              "ms); peak memory allocated "
+              + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in rs)
+              + " GiB; " + rs[-1]["busy"]
+              + f"; loss first {vals[0][0]:.4f}, last {vals[-1][0]:.4f}",
+              flush=True)
+        for r in rs:
+            if not torch.equal(r["sums"], ref["sums"]):
+                failures.append(f"train CLI {name}: its device batches' "
+                                "checksums differ from sync's")
+            if not bool(torch.isfinite(r["losses"]).all()):
+                failures.append(f"train CLI {name}: a loss is not finite")
+            if "bf16" not in name and not torch.equal(r["losses"][0],
+                                                      ref["losses"][0]):
+                failures.append(f"train CLI {name}: first-update losses "
+                                f"{r['losses'][0].tolist()} != sync's "
+                                f"{ref['losses'][0].tolist()}")
+    print(f"phase 10 (d): {len(ref['sums'])} updates per epoch; batch "
+          "checksums and first-update losses held against sync's (failures "
+          "below if any)", flush=True)
+
+    print(f"phase 10 (d): the train CLI's runs done at "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # the bf16 ckpt/last served by the synthesize CLI
+    torch.save({"generator": to_reference_state_dict(
+        vocoder, BIGVGAN_WEIGHT_NORMED.match)}, root / "vocoder.ckpt")
+    wavs = root / "wavs"
+    _zero_counts(k1, k2)
+    try:
+        synth_cli.main([
+            f"path.root={root}",
+            f"model_ckpt={runs['prefetch bf16'][-1]['ckpt']}",
+            f"vocoder_ckpt={root / 'vocoder.ckpt'}", f"output_dir={wavs}",
+            f"hydra.run.dir={root / 'run'}", "num_eval_utts=1",
+            "noise_scale=0", *synth_overrides])
+    finally:
+        os.chdir(cwd)
+    launches = _counts(k1, k2)
+    expect = {"antialias_snake": 2, "amp_layer_bf16": 2 * 72,
+              "amp_layer": 0, "amp_block": 0}
+    from scipy.io import wavfile
+    files = sorted(wavs.rglob("*.wav"))
+    lengths = [len(wavfile.read(p)[1]) for p in files]
+    print(f"[{gpu}] phase 10 (d): the bf16-trained ckpt/last served by the "
+          f"synthesize CLI: wav lengths {lengths}; 2 requests, launches "
+          f"{launches} (expected {expect})", flush=True)
+    if launches != expect:
+        failures.append(f"bf16-trained checkpoint: launch counts {launches}"
+                        f" != {expect}")
+    if len(files) != 2 or not all(lengths):
+        failures.append(f"bf16-trained checkpoint: wavs {files} {lengths}")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 10 (d): {time.perf_counter() - t_phase:.1f} s in all",
           flush=True)
 
 

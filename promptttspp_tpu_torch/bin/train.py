@@ -8,7 +8,9 @@ Counterpart of ``egs/proposed/bin/train.py``, with its command line (the
         [train.num_epochs=1000] [train.save_interval=20] [train.seed=42] \\
         [train.lr_scheduler.warmup_steps=4000] [optimizer.lr=0.001] \\
         [ckpt_path=<ckpt/last>] [pretrained=<model.ckpt>] \\
-        [+train.profile_steps=N] [device=cpu]
+        [train.bf16=true] [+train.input_pipeline=sync|sync_native|prefetch] \\
+        [train.num_workers=8] [+train.prefetch_depth=3] \\
+        [+train.host_sync_every=64] [+train.profile_steps=N] [device=cpu]
 
 It runs on ``cuda``; ``device=cpu`` runs it on the CPU. It reads the
 train/valid CSVs, features and prompt candidates under ``path.root``
@@ -16,7 +18,10 @@ train/valid CSVs, features and prompt candidates under ``path.root``
 and ``path.bert_vocab_file``. As in JAX, the working directory becomes
 ``hydra.run.dir`` first (``./out/hydra/train``), so a relative
 ``output_dir`` lands inside it. Checkpoints (``<output_dir>/ckpt/last``)
-are served by ``bin/synthesize.py model_ckpt=...``.
+are served by ``bin/synthesize.py model_ckpt=...``. ``train.bf16=true``
+(or its alias ``train.fp16=true``) trains in bfloat16 with float32 master
+weights, as JAX does; without ``train.input_pipeline`` the pipeline is
+chosen for the host as JAX chooses it (``train/trainer.py``).
 """
 
 from __future__ import annotations

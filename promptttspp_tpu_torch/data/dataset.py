@@ -80,7 +80,13 @@ class AllWithSpkPromptNormDataset:
 
     ``set_epoch(epoch)`` re-seeds the prompt draws from (seed, epoch) when
     a seed was given, so a resumed run draws the prompts of an
-    uninterrupted one; without a seed the draws are unseeded, as in JAX."""
+    uninterrupted one; without a seed the draws are unseeded, as in JAX.
+
+    An item is ``load_item_features(item_meta(idx))``, the split the
+    prefetching pipeline (``data/prefetch.py``) needs: ``item_meta`` draws
+    the prompt from the dataset's generator, so it is called in sampler
+    order on one thread; ``load_item_features`` reads and computes the
+    features and may run on any thread."""
 
     def __init__(self, file_path, data_root, feats_dir, mel_dir,
                  prompt_candidate_file, spk_prompt_candidate_file,
@@ -146,15 +152,32 @@ class AllWithSpkPromptNormDataset:
             energy[:, None].astype(np.float32),
         )
 
-    def __getitem__(self, idx: int) -> Dict:
+    def item_meta(self, idx: int) -> Dict:
+        """Item ``idx`` without its features: the ids, ``seq`` and
+        ``durations`` (the CSV's strings), the prompt (drawn now),
+        ``n_frames`` and the paths of its three feature files."""
         (spk_id, utt_id, gender, pitch, speaking_speed, energy_tag,
          style_prompt_key, seq, durations) = self.data[idx]
         prompt = build_prompt(
             style_prompt_key, spk_id, pitch, speaking_speed, energy_tag,
             self.prompt_candidate, self.spk_prompt_candidate, self.rng,
             use_spk_prompt=self.use_spk_prompt, p_augment=self.p_augment)
+        return dict(
+            spk_id=spk_id, utt_id=utt_id, seq=str(seq),
+            durations=str(durations), prompt=prompt,
+            n_frames=self.lengths[idx],
+            mel_path=str(self.mel_dir / f"{spk_id}/{utt_id}.npy"),
+            cf0_path=str(self.feats_dir / f"{spk_id}/cf0/{utt_id}.npy"),
+            vuv_path=str(self.feats_dir / f"{spk_id}/vuv/{utt_id}.npy"))
+
+    def load_item_features(self, meta: Dict) -> Dict:
+        """The item of ``meta`` (``item_meta``) with its features."""
         phonemes, dur, mel, log_cf0, vuv, energy = self._load_features(
-            spk_id, utt_id, seq, durations)
-        return dict(spk_id=spk_id, utt_id=utt_id, phonemes=phonemes,
-                    duration=dur, mel=mel, log_cf0=log_cf0, vuv=vuv,
-                    energy=energy, prompt=prompt)
+            meta["spk_id"], meta["utt_id"], meta["seq"], meta["durations"])
+        return dict(spk_id=meta["spk_id"], utt_id=meta["utt_id"],
+                    phonemes=phonemes, duration=dur, mel=mel,
+                    log_cf0=log_cf0, vuv=vuv, energy=energy,
+                    prompt=meta["prompt"])
+
+    def __getitem__(self, idx: int) -> Dict:
+        return self.load_item_features(self.item_meta(idx))

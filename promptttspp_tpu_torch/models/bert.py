@@ -23,7 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from promptttspp_tpu_torch.nn.layers import Dropout
+from promptttspp_tpu_torch.nn.layers import (
+    Dropout, LayerNorm, Linear, promoted)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +49,7 @@ class BertEmbeddings(nn.Module):
                                                 cfg.hidden_size)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size,
                                                   cfg.hidden_size)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.dropout = Dropout(cfg.hidden_dropout)
 
     def forward(self, input_ids):
@@ -64,9 +65,9 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         self.h = cfg.num_attention_heads
         self.d = cfg.hidden_size // cfg.num_attention_heads
-        self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.query = Linear(cfg.hidden_size, cfg.hidden_size)
+        self.key = Linear(cfg.hidden_size, cfg.hidden_size)
+        self.value = Linear(cfg.hidden_size, cfg.hidden_size)
         self.dropout = Dropout(cfg.attention_dropout)
 
     def forward(self, hidden, bias):
@@ -75,18 +76,20 @@ class BertSelfAttention(nn.Module):
         q = split(self.query(hidden))
         k = split(self.key(hidden))
         v = split(self.value(hidden))
-        scores = q @ k.transpose(-1, -2) / math.sqrt(self.d)
+        # JAX divides by np.sqrt(d), a float32 scalar that promotes bf16
+        # scores to float32; the probabilities and the context follow
+        scores = (q @ k.transpose(-1, -2)).float() / math.sqrt(self.d)
         if bias is not None:
             scores = scores + bias
-        ctx = self.dropout(torch.softmax(scores, dim=-1)) @ v
-        return ctx.transpose(1, 2).reshape(B, T, C)
+        probs, v = promoted(self.dropout(torch.softmax(scores, dim=-1)), v)
+        return (probs @ v).transpose(1, 2).reshape(B, T, C)
 
 
 class BertSelfOutput(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.dense = Linear(cfg.hidden_size, cfg.hidden_size)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.dropout = Dropout(cfg.hidden_dropout)
 
     def forward(self, x, residual):
@@ -106,7 +109,7 @@ class BertAttention(nn.Module):
 class BertIntermediate(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.dense = Linear(cfg.hidden_size, cfg.intermediate_size)
 
     def forward(self, x):
         return F.gelu(self.dense(x))
@@ -115,8 +118,8 @@ class BertIntermediate(nn.Module):
 class BertOutput(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.dense = Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.dropout = Dropout(cfg.hidden_dropout)
 
     def forward(self, x, residual):
@@ -160,8 +163,9 @@ class BertModel(nn.Module):
         hidden = self.embeddings(input_ids)
         bias = None
         if attention_mask is not None:
-            m = attention_mask.to(hidden.dtype)[:, None, None, :]
-            bias = (1.0 - m) * torch.finfo(hidden.dtype).min
+            # float32, as the scores it is added to
+            m = attention_mask.to(torch.float32)[:, None, None, :]
+            bias = (1.0 - m) * torch.finfo(torch.float32).min
         return self.encoder(hidden, bias)
 
 

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from promptttspp_tpu_torch.nn.layers import Conv1d, conv1d_btc
+from promptttspp_tpu_torch.nn.layers import Conv1d, Linear, conv1d_btc
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int, scale: float = 1.0):
@@ -50,8 +50,8 @@ class ResidualBlock(nn.Module):
     def __init__(self, encoder_hidden: int, residual_channels: int,
                  kernel_size: int, dilation: int):
         super().__init__()
-        self.diffusion_projection = nn.Linear(residual_channels,
-                                              residual_channels)
+        self.diffusion_projection = Linear(residual_channels,
+                                           residual_channels)
         self.conditioner_projection = Conv1d(encoder_hidden,
                                              2 * residual_channels, 1)
         self.dilated_conv = Conv1d(residual_channels, 2 * residual_channels,
@@ -89,8 +89,8 @@ class DiffNet(nn.Module):
         self.param_dtype: Optional[torch.dtype] = None
         self.input_projection = Conv1d(in_dim, residual_channels, 1)
         self.mlp = nn.Sequential(
-            nn.Linear(residual_channels, residual_channels * 4), nn.Mish(),
-            nn.Linear(residual_channels * 4, residual_channels))
+            Linear(residual_channels, residual_channels * 4), nn.Mish(),
+            Linear(residual_channels * 4, residual_channels))
         self.residual_layers = nn.ModuleList(
             ResidualBlock(encoder_hidden_dim, residual_channels, kernel_size,
                           2 ** (i % dilation_cycle_length))

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch.nn as nn
 
 from promptttspp_tpu_torch.models.bert import BertConfig, BertModel
+from promptttspp_tpu_torch.nn.layers import Linear
 
 
 class _BertHolder(nn.Module):
@@ -27,9 +28,9 @@ class PromptEncoder(nn.Module):
         super().__init__()
         self.bert = _BertHolder(bert_config)
         self.adaptor = nn.Sequential(
-            nn.Linear(bert_config.hidden_size, mid_channels), nn.ReLU(),
-            nn.Linear(mid_channels, mid_channels), nn.ReLU(),
-            nn.Linear(mid_channels, out_channels))
+            Linear(bert_config.hidden_size, mid_channels), nn.ReLU(),
+            Linear(mid_channels, mid_channels), nn.ReLU(),
+            Linear(mid_channels, out_channels))
 
     def forward(self, input_ids, attention_mask):
         """[B, L] ids + mask -> [B, 1, out_channels]."""

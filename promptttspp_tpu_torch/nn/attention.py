@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from promptttspp_tpu_torch.nn.layers import Dropout
+from promptttspp_tpu_torch.nn.layers import Dropout, Linear
 
 
 def masked_softmax(scores, mask):
@@ -54,11 +54,11 @@ class RelPositionMultiHeadedAttention(nn.Module):
         super().__init__()
         assert n_feat % n_head == 0
         self.h, self.d_k = n_head, n_feat // n_head
-        self.linear_q = nn.Linear(n_feat, n_feat)
-        self.linear_k = nn.Linear(n_feat, n_feat)
-        self.linear_v = nn.Linear(n_feat, n_feat)
-        self.linear_out = nn.Linear(n_feat, n_feat)
-        self.linear_pos = nn.Linear(n_feat, n_feat, bias=False)
+        self.linear_q = Linear(n_feat, n_feat)
+        self.linear_k = Linear(n_feat, n_feat)
+        self.linear_v = Linear(n_feat, n_feat)
+        self.linear_out = Linear(n_feat, n_feat)
+        self.linear_pos = Linear(n_feat, n_feat, bias=False)
         self.pos_bias_u = nn.Parameter(torch.empty(n_head, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.empty(n_head, self.d_k))
         nn.init.xavier_uniform_(self.pos_bias_u)
@@ -100,10 +100,10 @@ class GSTCrossAttention(nn.Module):
                  dropout_rate: float = 0.0):
         super().__init__()
         self.h, self.d_k = n_head, n_feat // n_head
-        self.linear_q = nn.Linear(q_dim, n_feat)
-        self.linear_k = nn.Linear(kv_dim, n_feat)
-        self.linear_v = nn.Linear(kv_dim, n_feat)
-        self.linear_out = nn.Linear(n_feat, n_feat)
+        self.linear_q = Linear(q_dim, n_feat)
+        self.linear_k = Linear(kv_dim, n_feat)
+        self.linear_v = Linear(kv_dim, n_feat)
+        self.linear_out = Linear(n_feat, n_feat)
         self.dropout = Dropout(dropout_rate)
 
     def _split(self, x):

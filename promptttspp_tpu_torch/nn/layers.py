@@ -9,11 +9,20 @@ Train mode (``module.train()``) switches ``WeightedBatchNorm`` to batch
 statistics and ``Dropout`` to drawing masks, together. Dropout draws from
 the generator that ``dropout_generator`` lends it for one call, never
 from torch's global RNG.
+
+Mixed dtypes promote as in JAX. Under bf16 training (``train/state.py``)
+the parameters are bfloat16 while much of the model's activations are
+float32 (JAX promotes bf16 with float32 to float32), and a flax layer then
+computes in float32 with its bf16-rounded parameters. torch refuses such
+operands in a product, a convolution or a norm, so ``Linear``,
+``LayerNorm``, ``ChannelLayerNorm`` and ``conv1d_btc`` cast them to their
+common dtype first (``promoted``); where the dtypes agree they do nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -25,11 +34,42 @@ def swish(x):
     return x * torch.sigmoid(x)
 
 
+def promoted(*tensors):
+    """``tensors`` cast to their common dtype, as JAX promotes the operands
+    of an operation (bfloat16 with float32 gives float32); ``None`` passes
+    through. Returned as given where they agree."""
+    dtypes = {t.dtype for t in tensors if t is not None}
+    if len(dtypes) < 2:
+        return tensors
+    dtype = functools.reduce(torch.promote_types, dtypes)
+    return tuple(None if t is None else t.to(dtype) for t in tensors)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose input and parameters promote as flax's ``Dense``
+    does (``promoted``)."""
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype:
+            return F.linear(x, self.weight, self.bias)
+        return F.linear(*promoted(x, self.weight, self.bias))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` whose input and parameters promote as flax's
+    ``LayerNorm`` does (``promoted``)."""
+
+    def forward(self, x):
+        x, w, b = promoted(x, self.weight, self.bias)
+        return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
+
+
 def conv1d_btc(x, weight, bias=None, stride: int = 1, padding: int = 0,
                dilation: int = 1, groups: int = 1):
     """``F.conv1d`` on ``[B, T, C_in]`` -> ``[B, T', C_out]`` with a torch
     weight ``[C_out, C_in/groups, k]``. A 1x1 conv is the same product as a
-    linear layer and runs as one."""
+    linear layer and runs as one. Mixed dtypes promote (``promoted``)."""
+    x, weight, bias = promoted(x, weight, bias)
     if (weight.shape[-1] == 1 and groups == 1 and stride == 1
             and padding == 0):
         return F.linear(x, weight[:, :, 0], bias)
@@ -93,13 +133,13 @@ class ChannelLayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        return F.layer_norm(x, (x.shape[-1],), self.gamma, self.beta,
-                            self.eps)
+        x, gamma, beta = promoted(x, self.gamma, self.beta)
+        return F.layer_norm(x, (x.shape[-1],), gamma, beta, self.eps)
 
 
-def layer_norm(features: int, eps: float = 1e-12) -> nn.LayerNorm:
+def layer_norm(features: int, eps: float = 1e-12) -> LayerNorm:
     """ESPnet LayerNorm (eps 1e-12) over the channel (last) axis."""
-    return nn.LayerNorm(features, eps=eps)
+    return LayerNorm(features, eps=eps)
 
 
 class WeightedBatchNorm(nn.Module):

@@ -13,14 +13,16 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from promptttspp_tpu_torch.nn.layers import Linear
+
 
 class MDNLayer(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, num_gaussians: int):
         super().__init__()
         self.G, self.D = num_gaussians, out_dim
-        self.log_pi = nn.Linear(in_dim, num_gaussians * out_dim)
-        self.log_sigma = nn.Linear(in_dim, num_gaussians * out_dim)
-        self.mu = nn.Linear(in_dim, num_gaussians * out_dim)
+        self.log_pi = Linear(in_dim, num_gaussians * out_dim)
+        self.log_sigma = Linear(in_dim, num_gaussians * out_dim)
+        self.mu = Linear(in_dim, num_gaussians * out_dim)
 
     def forward(self, x):
         B, T = x.shape[0], x.shape[1]

@@ -1,11 +1,15 @@
-"""Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
+"""Build the sources in ``csrc/`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and becomes its own
-shared library ``build/torch_kernels/<name>-<hash>.so`` under the repository
-root (``.gitignore`` lists ``build/``). The hash covers the source and every
-header in ``csrc/``, so an edited source is rebuilt and an unchanged one is
-reused within and across runs. ``build()`` starts one nvcc per missing
-library, all at once, and waits for all of them.
+Each ``csrc/<name>.cu`` (a CUDA kernel, built with nvcc) or
+``csrc/<name>.cpp`` (host code, ``HOST_LIBRARIES``: the feature loader,
+built with the host C++ compiler) exposes a plain C interface and becomes
+its own shared library ``build/torch_kernels/<name>-<hash>.so`` under the
+repository root (``.gitignore`` lists ``build/``). The hash covers the
+compiler flags, the source and, for CUDA, every header in ``csrc/``, so an
+edited source is rebuilt and an unchanged one is reused within and across
+runs. ``build()`` starts one compiler per missing library, all at once,
+and waits for all of them; a failed build raises with the compiler's
+output.
 
 Nothing is compiled when a module is imported: the first launch of a kernel
 (or an explicit ``build()``) compiles it.
@@ -30,6 +34,10 @@ KERNELS = ("antialias_snake", "amp_layer_tc", "amp_layer_wgmma",
            "amp_block")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_LIBRARIES = ("featloader",)
+# no -march=native: the library may run on another host than the one that
+# built it
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
 def nvcc_path() -> str:
@@ -41,18 +49,34 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def host_compiler() -> str:
+    for cand in ("c++", "g++"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler found (c++ or g++ on PATH)")
+
+
+def _flags_and_sources(name: str):
+    if name in HOST_LIBRARIES:
+        return HOST_FLAGS, [CSRC / f"{name}.cpp"]
+    return NVCC_FLAGS, [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256()
-    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    flags, sources = _flags_and_sources(name)
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in sources:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
-    """Compile every named library that is not built yet, one nvcc each,
-    all started together. Returns name -> nvcc's ``-Xptxas -v`` report
-    (registers, shared memory, spills) for the libraries built now."""
+    """Compile every named library that is not built yet, one compiler
+    each, all started together. Returns name -> the compiler's output
+    (for a kernel, nvcc's ``-Xptxas -v`` report: registers, shared memory,
+    spills) for the libraries built now."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -60,8 +84,10 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        flags, sources = _flags_and_sources(name)
+        compiler = host_compiler() if name in HOST_LIBRARIES \
+            else nvcc_path()
+        cmd = [compiler, *flags, "-o", str(tmp), str(sources[0])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -69,7 +95,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}:\n{log}")
+            failed.append(f"{Path(proc.args[0]).name} failed for {name}:\n"
+                          f"{log}")
             continue
         os.replace(tmp, out)
         reports[name] = log

@@ -2,6 +2,7 @@
 
     python3 -m promptttspp_tpu_torch.tools.train_profile [--updates 12]
         [--max-tokens 10000] [--utts 480] [--sync] [--cudnn-benchmark]
+        [--bf16] [--input-pipeline {sync,sync_native,prefetch}]
         [--root DIR]
 
 Writes a synthetic training corpus (``tools/synthetic_corpus.py``, the
@@ -9,10 +10,15 @@ repository's prompt candidates) under ``--root`` (default
 ``build/train_profile``, deleted at the end), builds the flagship and its
 optimizer as ``bin/train.py`` does (``train`` config, seed 42) and runs
 ``--updates`` updates over the epoch-1 batches of ``dataset.max_tokens``.
-Per update it times on the host the batch assembly (dataset items and
-collate), the copy to the card and the call of ``train_step``, and on the
-card the interval between the updates' starts (CUDA events, no
-synchronization added); ``--sync`` synchronizes after each update, so the
+Per update it times on the host the batch assembly, the copy to the card
+and the call of ``train_step``, and on the card the interval between the
+updates' starts (CUDA events, no synchronization added). The assembly is
+the trainer's ``--input-pipeline`` (default ``sync``): ``sync`` (dataset
+items and collate, then a blocking copy), ``sync_native`` (the C++ feature
+loader, then the copy) or ``prefetch`` (``data/prefetch.py``: a pool of 8
+threads, 3 batches ahead, copies on a copy stream; the time is then the
+wait for the next batch, and the copy's 0). ``--bf16`` trains in bf16
+(``train.bf16``). ``--sync`` synchronizes after each update, so the
 host's and the device's times add up instead of overlapping;
 ``--cudnn-benchmark`` lets cuDNN time its algorithms for each new shape
 (``torch.backends.cudnn.benchmark``; the port leaves it off). Then it
@@ -54,6 +60,9 @@ def main(argv=None) -> int:
     ap.add_argument("--utts", type=int, default=480)
     ap.add_argument("--sync", action="store_true")
     ap.add_argument("--cudnn-benchmark", action="store_true")
+    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--input-pipeline", default="sync",
+                    choices=("sync", "sync_native", "prefetch"))
     ap.add_argument("--root", default=str(REPO / "build" / "train_profile"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -67,10 +76,13 @@ def main(argv=None) -> int:
     from promptttspp_tpu_torch.data.dataset import (
         AllWithSpkPromptNormDataset, read_prompt_candidate,
         read_spk_prompt_candidate)
+    from promptttspp_tpu_torch.data.prefetch import (
+        _collate_native, prefetch_batches)
     from promptttspp_tpu_torch.models.bert import WordPieceTokenizer
     from promptttspp_tpu_torch.tools.synthetic_corpus import (
         training_rows, write_training_corpus)
-    from promptttspp_tpu_torch.train.trainer import TTSTrainer, to_device
+    from promptttspp_tpu_torch.train.trainer import (
+        MODEL_BATCH_KEYS, TTSTrainer, to_device)
 
     torch.backends.cudnn.benchmark = args.cudnn_benchmark
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -85,7 +97,8 @@ def main(argv=None) -> int:
         args.utts, cands, spk, (20, 80), (3, 12), seed=5), cands, spk,
         seed=6)
     cfg = conf.compose("train", [f"path.root={root}",
-                                 f"dataset.max_tokens={args.max_tokens}"])
+                                 f"dataset.max_tokens={args.max_tokens}",
+                                 f"train.bf16={str(args.bf16).lower()}"])
     ds = AllWithSpkPromptNormDataset(**cfg["dataset"]["train"])
     collator = PromptTTSCollator(WordPieceTokenizer.from_vocab_file(
         cfg["path"]["bert_vocab_file"]))
@@ -96,11 +109,34 @@ def main(argv=None) -> int:
     batches = list(sampler)
     dev = state.device
 
-    def run(idx):
-        t0 = time.perf_counter()
-        batch = collator([ds[i] for i in idx])
-        t1 = time.perf_counter()
-        tb = to_device(batch, dev)
+    def assembled():
+        """-> (batch, device batch, assembly s, copy s) for every update
+        this tool makes, the epoch's batches in turn."""
+        order = [batches[i % len(batches)] for i in range(args.updates + 4)]
+        if args.input_pipeline == "prefetch":
+            it = prefetch_batches(ds, order, collator,
+                                  model_keys=MODEL_BATCH_KEYS, device=dev)
+            while True:
+                t0 = time.perf_counter()
+                nxt = next(it, None)
+                if nxt is None:
+                    return
+                yield (*nxt, time.perf_counter() - t0, 0.0)
+        for idx in order:
+            t0 = time.perf_counter()
+            if args.input_pipeline == "sync_native":
+                batch = _collate_native([ds.item_meta(i) for i in idx],
+                                        collator, ds.stats)
+            else:
+                batch = collator([ds[i] for i in idx])
+            t1 = time.perf_counter()
+            tb = to_device(batch, dev)
+            yield batch, tb, t1 - t0, time.perf_counter() - t1
+
+    feed = assembled()
+
+    def run():
+        batch, tb, t_asm, t_copy = next(feed)
         t2 = time.perf_counter()
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
@@ -108,17 +144,18 @@ def main(argv=None) -> int:
         t3 = time.perf_counter()
         if args.sync:
             torch.cuda.synchronize()
-        return ev, out, (t1 - t0, t2 - t1, t3 - t2), int(
+        return ev, out, (t_asm, t_copy, t3 - t2), int(
             batch["frame_lengths"].sum()), batch["mel"].shape
 
     torch.cuda.reset_peak_memory_stats()
-    rows = [run(batches[i % len(batches)]) for i in range(args.updates)]
+    rows = [run() for _ in range(args.updates)]
     end = torch.cuda.Event(enable_timing=True)
     end.record()
     torch.cuda.synchronize()
     evs = [r[0] for r in rows] + [end]
     print(f"[{gpu}] train_profile: flagship, max_tokens {args.max_tokens}, "
-          f"{len(batches)} batches per epoch, sync after each update: "
+          f"{len(batches)} batches per epoch, input pipeline "
+          f"{args.input_pipeline}, bf16: {args.bf16}, sync after each update: "
           f"{args.sync}, cudnn.benchmark: {args.cudnn_benchmark}")
     for i, (ev, out, host, frames, shape) in enumerate(rows):
         print(f"  update {i}: {_ms(ev, evs[i + 1]):8.1f} ms between starts;"
@@ -143,8 +180,8 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(3):
-            run(batches[(args.updates + i) % len(batches)])
+        for _ in range(3):
+            run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -176,7 +213,7 @@ def main(argv=None) -> int:
         print(f"  {us / 1e3:9.2f} ms {n:6d}x  {key[:100]}")
 
     torch.cuda.memory._record_memory_history(max_entries=200000)
-    run(batches[(args.updates + 3) % len(batches)])
+    run()
     torch.cuda.synchronize()
     snap = torch.cuda.memory._snapshot()
     torch.cuda.memory._record_memory_history(enabled=None)
@@ -196,6 +233,7 @@ def main(argv=None) -> int:
                           if "cudnn" in f["name"]
                           or "convolution" in f["name"]][:2]
         print(f"  {e['size'] / 2**30:8.3f}  {' <- '.join(where)}")
+    feed.close()
     shutil.rmtree(root, ignore_errors=True)
     return 0
 

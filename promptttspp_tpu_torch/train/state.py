@@ -20,10 +20,25 @@ Counterpart of ``promptttspp_tpu/train/state.py`` (``bert_freeze_mask``,
   uninterrupted one draws.
 - Steps run in full float32 (``diffusion.float32_math``), so results do not
   depend on the TF32 flags.
+- ``bf16=True`` is ``make_train_step(bf16=True)``: the forward and backward
+  run on bfloat16 copies of every parameter (the frozen BERT's too) and of
+  every float leaf of the batch, with float32 masters. The copies are a
+  persistent shadow of the model (``bf16_shadow``) whose buffers (the
+  BatchNorm statistics) are the masters' own, so the statistics stay
+  float32. Each update refreshes the shadow's trainable parameters from the
+  masters with one multi-tensor copy (the frozen ones at the first update
+  only), and copies the bf16 gradients into float32 ones the same way:
+  JAX's gradient through ``astype`` is ``astype`` of the gradient, so this
+  is its arithmetic. Clip, AdamW and the norm then run on float32 as
+  without it. Which operations compute in bf16 follows JAX's promotion
+  (``nn/layers.py::promoted``): most of the model computes in float32 with
+  bf16-rounded weights. No loss scaling, as in JAX. Evaluation reads the
+  float32 masters.
 """
 
 from __future__ import annotations
 
+import copy
 import re
 from typing import Dict, List, Tuple
 
@@ -56,6 +71,23 @@ def step_generator(seed: int, step: int, device, stream: int = 0):
     return g
 
 
+def bf16_shadow(model: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``model`` whose floating parameters are bfloat16 copies
+    (``requires_grad`` as the originals') and whose buffers are
+    ``model``'s own tensors."""
+    shadow = copy.deepcopy(model)
+    for src, dst in zip(model.modules(), shadow.modules()):
+        for name, buf in src.named_buffers(recurse=False):
+            dst._buffers[name] = buf
+        for name, p in src.named_parameters(recurse=False):
+            if p.is_floating_point():
+                # setattr, so an RNN's flat weight list follows
+                setattr(dst, name, torch.nn.Parameter(
+                    p.detach().to(torch.bfloat16),
+                    requires_grad=p.requires_grad))
+    return shadow
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, as optax's
     ``global_norm`` (in a few multi-tensor launches: each tensor's norm,
@@ -65,13 +97,15 @@ def global_norm(tensors) -> torch.Tensor:
 
 class TrainState:
     """``model`` (a ``PromptTTSMDNDurCFG``) with AdamW over its trainable
-    parameters. ``step`` counts the updates made."""
+    parameters. ``step`` counts the updates made. ``bf16`` computes the
+    updates in bfloat16 on a shadow of the model (see the module
+    docstring)."""
 
     def __init__(self, model: torch.nn.Module, lr: float = 1e-3,
                  warmup_steps: int = 4000,
                  betas: Tuple[float, float] = (0.9, 0.98),
                  weight_decay: float = 0.0, grad_clip: float = 1.0,
-                 seed: int = 42):
+                 seed: int = 42, bf16: bool = False):
         self.model = model
         self.seed = seed
         self.grad_clip = grad_clip
@@ -86,6 +120,15 @@ class TrainState:
         self.optimizer = torch.optim.AdamW(
             self.params, lr=self.schedule(0), betas=tuple(betas), eps=1e-8,
             weight_decay=weight_decay)
+        self.shadow = bf16_shadow(model) if bf16 else None
+        if bf16:
+            shadow = dict(self.shadow.named_parameters())
+            self.shadow_params = [shadow[n] for n in trainable]
+            frozen = [n for n in named if n not in trainable
+                      and named[n].is_floating_point()]
+            self._frozen = ([named[n] for n in frozen],
+                            [shadow[n] for n in frozen])
+            self._grads = [torch.zeros_like(p) for p in self.params]
 
     @property
     def device(self) -> torch.device:
@@ -94,7 +137,9 @@ class TrainState:
     def train_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """One update on ``batch`` (tensors on the model's device) -> the
         losses and the gradients' global norm before clipping, as 0-dim
-        tensors (read them without syncing each step)."""
+        float32 tensors (read them without syncing each step)."""
+        if self.shadow is not None:
+            return self._bf16_step(batch)
         self.model.train()
         g = step_generator(self.seed, self.step, self.device)
         self.optimizer.zero_grad(set_to_none=True)
@@ -104,6 +149,39 @@ class TrainState:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        return self._update(losses)
+
+    def _bf16_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        with torch.no_grad():
+            if self._frozen is not None:
+                # at the first update, so a restored or warm-started
+                # model's frozen weights are the ones cast
+                torch._foreach_copy_(self._frozen[1], self._frozen[0])
+                self._frozen = None
+            torch._foreach_copy_(self.shadow_params, self.params)
+        batch = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                 for k, v in batch.items()}
+        self.shadow.train()
+        g = step_generator(self.seed, self.step, self.device)
+        for p in self.shadow_params:
+            p.grad = None
+        with float32_math():
+            losses = self.shadow(batch, generator=g)
+            losses["loss"].float().backward()
+        pairs = [(g, p.grad) for g, p in zip(self._grads, self.shadow_params)
+                 if p.grad is not None]
+        torch._foreach_copy_([g for g, _ in pairs], [s for _, s in pairs])
+        unused = [g for g, p in zip(self._grads, self.shadow_params)
+                  if p.grad is None]
+        if unused:  # JAX's gradient tree has zeros there
+            torch._foreach_zero_(unused)
+        for p, grad in zip(self.params, self._grads):
+            p.grad = grad
+        return self._update({k: v.float() for k, v in losses.items()})
+
+    def _update(self, losses: Dict) -> Dict[str, torch.Tensor]:
+        """Clip the trainable parameters' gradients by their global norm,
+        step AdamW at this update's rate."""
         grads = [p.grad for p in self.params]
         norm = global_norm(grads)
         scale = torch.where(norm < self.grad_clip, 1.0,

@@ -13,17 +13,29 @@ scalars when ``torch.utils.tensorboard`` is installed, checkpoints
 (``ckpt_path``) and warm start (``pretrained``). ``train.profile_steps=N``
 traces updates N .. N+2 with ``torch.profiler`` into ``logs/profile/``.
 
-Batches are assembled inline on the host, one after the other. The port
-raises, naming the key, on what it does not implement: half precision
-(``train.bf16``/``train.fp16``), more than one process, a model-parallel
-or pipelined mesh, the XLA compilation cache, the prefetching and native
-input pipelines, and the per-epoch scheduler.
+``train.bf16=true`` (``train.fp16`` is its alias, as in JAX) trains in
+bfloat16 with float32 masters (``train/state.py``). The input pipeline is
+JAX's: ``train.input_pipeline=sync`` assembles each batch inline,
+``sync_native`` inline with the C++ feature loader
+(``data/native_loader.py``), ``prefetch`` in a pool of
+``train.num_workers`` threads, ``train.prefetch_depth`` batches ahead,
+staged on the device on a copy stream (``data/prefetch.py``); unset, it is
+chosen for the host as JAX chooses it (``auto_input_pipeline``;
+``train.prefetch`` false means ``sync``). A mode that needs the loader
+raises if the loader does not build. Every ``train.host_sync_every``
+updates the host reads a loss back, so it runs at most that many updates
+ahead of the card. Validation assembles its batches inline. The port
+raises, naming the key, on what it does not implement: more than one
+process, a model-parallel or pipelined mesh, the XLA compilation cache and
+the per-epoch scheduler.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Dict, Mapping, Optional
@@ -32,15 +44,19 @@ import numpy as np
 import torch
 
 from promptttspp_tpu_torch import flagship
+from promptttspp_tpu_torch.data import native_loader
 from promptttspp_tpu_torch.data.batching import (
     ShuffleBatchSampler, batch_by_size)
 from promptttspp_tpu_torch.data.collate import PromptTTSCollator
 from promptttspp_tpu_torch.data.dataset import AllWithSpkPromptNormDataset
+from promptttspp_tpu_torch.data.prefetch import (
+    _collate_native, host_tensors, prefetch_batches)
 from promptttspp_tpu_torch.platform import resolve_device
 from promptttspp_tpu_torch.train import checkpoint as ckpt_lib
 from promptttspp_tpu_torch.train.state import TrainState
 from promptttspp_tpu_torch.train.tracker import Tracker
 
+INPUT_PIPELINES = ("sync", "sync_native", "prefetch")
 MODEL_BATCH_KEYS = (
     "phoneme", "duration", "phone_lengths", "mel", "log_cf0", "vuv",
     "frame_lengths", "prompt_ids", "prompt_mask", "batch_weight",
@@ -62,8 +78,6 @@ def check_supported(cfg: Mapping):
     """Raise, naming the key, where ``cfg`` asks for what the port's
     trainer does not implement."""
     refused = {
-        "train.bf16": "half precision is not ported",
-        "train.fp16": "half precision is not ported",
         "train.mesh.pipeline_microbatches": "pipeline parallelism is not "
                                             "ported",
         "train.mesh.model_spans_processes": "more than one process is not "
@@ -72,7 +86,6 @@ def check_supported(cfg: Mapping):
                                                  "not ported",
         "train.compilation_cache_dir": "the XLA compilation cache has no "
                                        "counterpart in the port",
-        "train.prefetch": "the prefetching input pipeline is not ported",
         "train.per_epoch_scheduler": "the per-epoch scheduler is not ported",
     }
     for key, why in refused.items():
@@ -85,22 +98,29 @@ def check_supported(cfg: Mapping):
         raise ValueError("train.mesh.model > 1: model parallelism is not "
                          "ported")
     pipeline = select(cfg, "train.input_pipeline")
-    if pipeline not in (None, "sync"):
-        raise ValueError(f"train.input_pipeline={pipeline!r}: the port "
-                         "assembles batches inline ('sync') only")
+    if pipeline not in (None, *INPUT_PIPELINES):
+        raise ValueError(f"train.input_pipeline={pipeline!r}: one of "
+                         f"{INPUT_PIPELINES}")
+
+
+def _has_meta(ds) -> bool:
+    return hasattr(ds, "item_meta") and getattr(ds, "stats", None) is not None
+
+
+def auto_input_pipeline(ds) -> str:
+    """JAX's choice for this host: "prefetch" with 4 or more cores, where
+    its workers have cores to run on; else inline assembly, with the C++
+    loader where the dataset has file-backed item metadata."""
+    if (os.cpu_count() or 1) >= 4:
+        return "prefetch"
+    return "sync_native" if _has_meta(ds) else "sync"
 
 
 def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """The model's keys of a collated batch as tensors on ``device``
     (integers as int64)."""
-    out = {}
-    for k in MODEL_BATCH_KEYS:
-        if k in batch:
-            a = np.asarray(batch[k])
-            t = torch.from_numpy(a.astype(np.int64) if a.dtype.kind in "iu"
-                                 else a)
-            out[k] = t.to(device)
-    return out
+    return {k: t.to(device)
+            for k, t in host_tensors(batch, MODEL_BATCH_KEYS).items()}
 
 
 class TTSTrainer:
@@ -174,7 +194,8 @@ class TTSTrainer:
                                 4000),
             betas=tuple(select(self.cfg, "optimizer.betas", (0.9, 0.98))),
             weight_decay=select(self.cfg, "optimizer.weight_decay", 0.0),
-            seed=self.seed)
+            seed=self.seed, bf16=bool(select(self.cfg, "train.bf16")
+                                      or select(self.cfg, "train.fp16")))
 
     def batches(self, ds, shuffle: bool) -> ShuffleBatchSampler:
         """The batch sampler of ``ds`` (``dataset.dynamic_batch``: token
@@ -197,7 +218,8 @@ class TTSTrainer:
         self.state = state = self.build_state()
         n_params = sum(p.numel() for p in state.params)
         self.logger.info(f"number of trainable params: {n_params / 1e6:.3f}"
-                         f" M on {self.device}; batches assembled inline")
+                         f" M on {self.device}"
+                         + (", bf16" if state.shadow is not None else ""))
         start_epoch = 1
         if cfg.get("ckpt_path"):
             last = ckpt_lib.restore_checkpoint(cfg["ckpt_path"], state)
@@ -250,12 +272,54 @@ class TTSTrainer:
             self.logger.info(f"profile of updates {first}..{first + 2} -> "
                              f"{out / 'trace.json'}")
 
+    def input_pipeline(self) -> str:
+        """The input pipeline of ``cfg`` (see the module docstring); the C++
+        loader is built here when the pipeline needs it."""
+        cfg = self.cfg
+        pipeline = select(cfg, "train.input_pipeline")
+        if pipeline is None:
+            if select(cfg, "train.prefetch") is not None:
+                pipeline = "prefetch" if select(cfg, "train.prefetch") \
+                    else "sync"
+            else:
+                pipeline = auto_input_pipeline(self.train_ds)
+                self.logger.info(f"input pipeline auto-selected: {pipeline} "
+                                 f"({os.cpu_count()} host cores)")
+        if pipeline == "sync_native" and not _has_meta(self.train_ds):
+            raise ValueError("train.input_pipeline=sync_native needs a "
+                             "dataset with item_meta and stats")
+        if pipeline == "sync_native" or (pipeline == "prefetch"
+                                         and _has_meta(self.train_ds)):
+            try:
+                native_loader.library()
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"input pipeline {pipeline!r} reads features with the "
+                    "C++ loader, which did not build; set "
+                    "train.input_pipeline=sync to assemble batches in "
+                    "Python") from e
+        return pipeline
+
+    def _sync_batches(self, sampler, collator, native: bool = False):
+        """Inline assembly: each batch built when it is due, with the C++
+        loader under ``native``; -> (host batch, device batch)."""
+        ds = self.train_ds
+        for idx in sampler:
+            if native:
+                batch = _collate_native([ds.item_meta(i) for i in idx],
+                                        collator, ds.stats)
+            else:
+                batch = collator([ds[i] for i in idx])
+            yield batch, to_device(batch, self.device)
+
     def _train_loop(self, state: TrainState, start_epoch: int,
                     num_epochs: int):
         cfg = self.cfg
         collator = PromptTTSCollator(tokenizer=self.tokenizer)
         sampler = self.batches(self.train_ds, shuffle=True)
         save_interval = select(cfg, "train.save_interval", 20)
+        host_sync_every = select(cfg, "train.host_sync_every", 64)
+        pipeline = self.input_pipeline()
         tracker = Tracker(str(self.log_dir / "loss.csv"))
         global_step = state.step
         for epoch in range(start_epoch, num_epochs + 1):
@@ -266,15 +330,27 @@ class TTSTrainer:
             tracker.reset()
             t0 = time.perf_counter()
             n_frames, n_steps, sums = 0, 0, None
-            for idx in sampler:
-                batch = collator([self.train_ds[i] for i in idx])
-                n_frames += int(np.sum(batch["frame_lengths"]))
-                self._profile(global_step)
-                metrics = state.train_step(to_device(batch, self.device))
-                sums = metrics if sums is None else {
-                    k: sums[k] + v for k, v in metrics.items()}
-                global_step += 1
-                n_steps += 1
+            if pipeline == "prefetch":
+                loader = prefetch_batches(
+                    self.train_ds, sampler, collator,
+                    model_keys=MODEL_BATCH_KEYS, device=self.device,
+                    num_workers=select(cfg, "train.num_workers", 8),
+                    prefetch_depth=select(cfg, "train.prefetch_depth", 3))
+            else:
+                loader = self._sync_batches(
+                    sampler, collator, native=pipeline == "sync_native")
+            with contextlib.closing(loader):  # stops a prefetch on a fault
+                for batch, device_batch in loader:
+                    n_frames += int(np.sum(batch["frame_lengths"]))
+                    self._profile(global_step)
+                    metrics = state.train_step(device_batch)
+                    if host_sync_every and \
+                            n_steps % host_sync_every == host_sync_every - 1:
+                        metrics["loss"].item()  # bounds the run-ahead
+                    sums = metrics if sums is None else {
+                        k: sums[k] + v for k, v in metrics.items()}
+                    global_step += 1
+                    n_steps += 1
             self._profile(global_step)
             if sums is not None:
                 vals = torch.stack(list(sums.values())).tolist()

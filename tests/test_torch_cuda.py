@@ -888,6 +888,143 @@ def test_weighted_batchnorm_train_mode_on_both_devices(dev):
             torch.testing.assert_close(b.cpu(), a, atol=1e-5, rtol=1e-5)
 
 
+# -- training's options: bf16, the prefetching pipeline, the C++ loader ----
+
+def _loader_corpus(root):
+    """A 12-utterance training corpus of 20-mel features under ``root``
+    -> (dataset factory, collator, batches)."""
+    from pathlib import Path
+
+    from promptttspp_tpu_torch.data import dataset
+    from promptttspp_tpu_torch.data.collate import PromptTTSCollator
+    from promptttspp_tpu_torch.models.bert import WordPieceTokenizer
+    from promptttspp_tpu_torch.tools.synthetic_corpus import (
+        training_rows, write_training_corpus)
+
+    meta = Path(__file__).resolve().parent.parent / "metadata"
+    cands = dataset.read_prompt_candidate(meta / "style_prompt_candidates.csv")
+    spk = dataset.read_spk_prompt_candidate(
+        meta / "speaker_prompt_candidates.csv")
+    cands = {k: cands[k] for k in sorted(cands)[:8]}
+    spk = {k: spk[k] for k in sorted(spk)[:6]}
+    write_training_corpus(root, training_rows(
+        12, cands, spk, (4, 12), (1, 5), valid_every=100, seed=2), cands,
+        spk, vocab_size=4000, n_mels=20, seed=3)
+    d = root / "dump/libritts_r_per_spk_cleaned"
+
+    def make_ds():
+        return dataset.AllWithSpkPromptNormDataset(
+            d / "df_filtered/trn.csv", root / "data_prep", d / "feats",
+            d / "mel63", root / "metadata/style_prompt_candidates.csv",
+            root / "metadata/speaker_prompt_candidates.csv", seed=7)
+
+    collator = PromptTTSCollator(WordPieceTokenizer.from_vocab_file(
+        root / "metadata/bert-base-uncased-vocab.txt"))
+    return make_ds, collator, [[0, 1, 2], [3, 4], [5, 6, 7, 8], [9, 10, 11]]
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["python", "native"])
+def test_prefetch_on_the_card_equals_the_sync_batches(dev, tmp_path,
+                                                      native):
+    """prefetch_batches onto the card: each batch's device tensors equal the
+    inline path's ``to_device`` bit for bit; the native loader writes the
+    features into pinned buffers."""
+    from promptttspp_tpu_torch.data.prefetch import prefetch_batches
+    from promptttspp_tpu_torch.train.trainer import (
+        MODEL_BATCH_KEYS, to_device)
+
+    make_ds, collator, batches = _loader_corpus(tmp_path)
+    ds = make_ds()
+    want = [to_device(collator([ds[i] for i in idx]), dev)
+            for idx in batches]
+    got = list(prefetch_batches(make_ds(), batches, collator,
+                                model_keys=MODEL_BATCH_KEYS, device=dev,
+                                num_workers=3, prefetch_depth=2,
+                                use_native=native))
+    assert len(got) == len(want)
+    for (host, staged), ref in zip(got, want):
+        assert staged.keys() == ref.keys()
+        for k, t in staged.items():
+            assert t.device == dev and t.dtype == ref[k].dtype, k
+            assert torch.equal(t, ref[k]), k
+        assert torch.from_numpy(host["mel"]).is_pinned() == native
+
+
+def test_prefetched_batch_is_read_after_its_copy(dev, tmp_path):
+    """Each batch's copies queue behind a ~25 ms spin on the copy stream;
+    a reduction queued on the consumer's stream right after ``next()``
+    still reads the copied values, since that stream waits on the copy's
+    event."""
+    from promptttspp_tpu_torch.data import prefetch
+    from promptttspp_tpu_torch.train.trainer import (
+        MODEL_BATCH_KEYS, to_device)
+
+    make_ds, collator, batches = _loader_corpus(tmp_path)
+    ds = make_ds()
+    want = [to_device(collator([ds[i] for i in idx]), "cpu")["mel"].sum()
+            for idx in batches]
+    stage = prefetch._stage
+
+    def slow_stage(batch, keys, device, stream):
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(50_000_000)
+        return stage(batch, keys, device, stream)
+
+    with mock.patch.object(prefetch, "_stage", slow_stage):
+        sums = [staged["mel"].sum() for _, staged in
+                prefetch.prefetch_batches(
+                    make_ds(), batches, collator,
+                    model_keys=MODEL_BATCH_KEYS, device=dev,
+                    num_workers=1, prefetch_depth=1)]
+    for got, ref in zip(sums, want):
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-6, atol=1e-4)
+
+
+def test_bf16_step_on_the_card(dev):
+    """One bf16 ``train_step`` of the tiny model on the card: finite losses
+    within 1e-2 of the CPU's bf16 step (bf16 rounds at 4e-3 relative), the
+    masters float32 and moved, the shadow bf16."""
+    from promptttspp_tpu_torch.train.state import TrainState
+
+    cpu = flagship.build_model(zero_dropout_config(), "cpu", 0, ZERO_BERT)
+    gpu = flagship.build_model(zero_dropout_config(), dev, 0, ZERO_BERT)
+    gpu.load_state_dict(cpu.state_dict())
+    init = {k: v.clone() for k, v in gpu.state_dict().items()}
+    outs = []
+    for model, d in ((cpu, "cpu"), (gpu, dev)):
+        state = TrainState(model, seed=0, bf16=True, **OPT)
+        outs.append({k: v.item() for k, v in state.train_step(
+            torch_batch(train_batch(), d)).items()})
+    assert all(math.isfinite(v) for v in outs[1].values())
+    for k, v in outs[0].items():
+        np.testing.assert_allclose(outs[1][k], v, atol=1e-2, rtol=1e-2,
+                                   err_msg=k)
+    assert all(p.dtype == torch.float32 for p in gpu.parameters())
+    assert all(p.dtype == torch.bfloat16 and p.device == dev
+               for p in state.shadow.parameters())
+    assert any(not torch.equal(v, init[k]) for k, v in
+               gpu.state_dict().items() if v.is_floating_point())
+
+
+def test_feature_loader_builds_here(dev, tmp_path):
+    """The C++ loader builds through ``_build.py`` with this machine's host
+    compiler and reads float32 files as numpy normalizes them."""
+    from promptttspp_tpu_torch.data import native_loader
+    from promptttspp_tpu_torch.ops.kernels import _build
+
+    _build.build(["featloader"])
+    assert _build.library_path("featloader").exists()
+    rng = np.random.RandomState(0)
+    mel = (rng.randn(80, 37) - 4).astype(np.float32)
+    for name, a in (("mel", mel), ("cf0", mel[:1]), ("vuv", mel[:1])):
+        np.save(tmp_path / f"{name}.npy", a)
+    out = native_loader.load_feature_batch(
+        [tmp_path / "mel.npy"], [tmp_path / "cf0.npy"],
+        [tmp_path / "vuv.npy"], 64, -4.0, 2.0)
+    np.testing.assert_array_equal(out["mel"][0, :37], ((mel + 4.0) / 2.0).T)
+    assert out["frame_lengths"][0] == 37
+
+
 # -- the recipe: batched YIN, interp1d, the mel and the preprocess CLI ------
 # the bars of tests/test_torch_f0.py and tests/test_torch_preprocess.py
 VUV_AGREEMENT, F0_RTOL, MEL_ATOL = 0.995, 1e-3, 1e-4

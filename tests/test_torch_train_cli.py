@@ -1,9 +1,11 @@
 """The port's trainer and its CLI on the CPU, on a synthetic corpus
 (``tools/synthetic_corpus.py``) with the tiny model of the CLI tests
-(``tests/test_torch_cuda.py::TINY_CLI_MODEL``): the settings it refuses,
-resume against an uninterrupted run, the emergency checkpoint, warm start,
-a fixed batch size and a profile, and ``bin/train.py`` for two epochs
-whose ``ckpt/last`` ``bin/synthesize.py`` then serves."""
+(``tests/test_torch_cuda.py::TINY_CLI_MODEL``): the settings it refuses
+and those it takes, the input pipelines against each other and the
+automatic choice among them, resume against an uninterrupted run, the
+emergency checkpoint, warm start, a fixed batch size and a profile, and
+``bin/train.py`` for two epochs (and for one in bf16) whose ``ckpt/last``
+``bin/synthesize.py`` then serves."""
 
 import json
 import os
@@ -77,7 +79,6 @@ def _rows(path):
 
 
 @pytest.mark.parametrize("override,key", [
-    ("train.bf16=true", "train.bf16"), ("train.fp16=true", "train.fp16"),
     ("+train.mesh.model=2", "train.mesh.model"),
     ("+train.mesh.pipeline_microbatches=2",
      "train.mesh.pipeline_microbatches"),
@@ -85,12 +86,80 @@ def _rows(path):
      "train.distributed.num_processes"),
     ("+train.compilation_cache_dir=/tmp/xla",
      "train.compilation_cache_dir"),
-    ("+train.input_pipeline=prefetch", "train.input_pipeline"),
+    ("+train.input_pipeline=threads", "train.input_pipeline"),
     ("train.per_epoch_scheduler=true", "train.per_epoch_scheduler")])
 def test_unported_settings_raise_naming_the_key(tmp_path, override, key):
     cfg = conf.compose("train", train_args(tmp_path, tmp_path, override))
     with pytest.raises(ValueError, match=key.replace(".", r"\.")):
         TTSTrainer(cfg)
+
+
+@pytest.mark.parametrize("override,bf16,pipeline", [
+    ("train.bf16=true", True, None), ("train.fp16=true", True, None),
+    ("+train.input_pipeline=prefetch", False, "prefetch"),
+    ("+train.input_pipeline=sync_native", False, "sync_native"),
+    ("+train.prefetch=false", False, "sync")])
+def test_ported_settings_are_taken(corpus, tmp_path, override, bf16,
+                                   pipeline):
+    """The settings the port refused before bf16 training and the input
+    pipelines came in."""
+    cfg = conf.compose("train", train_args(corpus, tmp_path, override))
+    trainer = TTSTrainer(cfg)
+    assert (trainer.build_state().shadow is not None) == bf16
+    if pipeline is not None:
+        trainer._setup_logging()
+        trainer._build_datasets()
+        assert trainer.input_pipeline() == pipeline
+
+
+def test_auto_input_pipeline(corpus, tmp_path, monkeypatch):
+    """Unset, the pipeline is JAX's choice for the host: prefetch with 4
+    cores or more; inline below, with the C++ loader where the dataset
+    has file-backed items; the choice is logged. A mode that needs the
+    loader raises, naming the way out, where the loader does not build."""
+    from promptttspp_tpu_torch.data import native_loader
+    from promptttspp_tpu_torch.train import trainer as tr
+
+    cfg = conf.compose("train", train_args(corpus, tmp_path))
+    trainer = TTSTrainer(cfg)
+    trainer._setup_logging()
+    trainer._build_datasets()
+    monkeypatch.setattr(tr.os, "cpu_count", lambda: 8)
+    assert trainer.input_pipeline() == "prefetch"
+    monkeypatch.setattr(tr.os, "cpu_count", lambda: 2)
+    assert trainer.input_pipeline() == "sync_native"
+    assert tr.auto_input_pipeline([]) == "sync"  # no item_meta
+    assert "input pipeline auto-selected: sync_native (2 host cores)" in \
+        (tmp_path / "logs/train.log").read_text()
+
+    def no_compiler():
+        raise RuntimeError("c++ failed for featloader")
+
+    monkeypatch.setattr(native_loader, "library", no_compiler)
+    for cores in (2, 8):
+        monkeypatch.setattr(tr.os, "cpu_count", lambda: cores)
+        with pytest.raises(RuntimeError,
+                           match=r"train\.input_pipeline=sync "):
+            trainer.input_pipeline()
+
+
+def _weights(trainer):
+    return trainer.state.model.state_dict()
+
+
+def test_input_pipelines_train_alike(corpus, tmp_path):
+    """One epoch through each input pipeline: the same batches, so the
+    same loss rows and weights, bit for bit."""
+    runs = {p: run_trainer(corpus, tmp_path / p, "train.num_epochs=1",
+                           f"+train.input_pipeline={p}")
+            for p in ("sync", "prefetch", "sync_native")}
+    want = runs.pop("sync")
+    rows = (tmp_path / "sync/logs/loss.csv").read_text()
+    for p, got in runs.items():
+        assert got.state.step == want.state.step > 2
+        assert (tmp_path / p / "logs/loss.csv").read_text() == rows, p
+        for k, v in _weights(want).items():
+            assert torch.equal(_weights(got)[k], v), (p, k)
 
 
 def test_entry_point_needs_a_gpu_unless_told(tmp_path, monkeypatch):
@@ -132,15 +201,16 @@ def test_resume_equals_an_uninterrupted_run(corpus, tmp_path):
 
 
 class FailingDataset(AllWithSpkPromptNormDataset):
-    """Raises on the ``fail_at``-th item read."""
+    """Raises on the ``fail_at``-th item read (``item_meta``, which every
+    input pipeline calls)."""
 
     fail_at = 12
 
-    def __getitem__(self, idx):
+    def item_meta(self, idx):
         self.reads = getattr(self, "reads", 0) + 1
         if self.reads == self.fail_at:
             raise RuntimeError("disk gone")
-        return super().__getitem__(idx)
+        return super().item_meta(idx)
 
 
 def test_a_crash_writes_an_emergency_checkpoint(corpus, tmp_path):
@@ -219,6 +289,38 @@ def test_train_cli_then_synthesize_serves_its_checkpoint(corpus, tmp_path):
         sr, data = wavfile.read(p)
         assert sr == 24000 and len(data) > 0
         assert np.isfinite(data.astype(np.float64)).all()
+
+
+def test_bf16_epoch_serves_its_float32_checkpoint(corpus, tmp_path):
+    """One bf16 epoch (prefetched) through ``bin/train.py``: finite losses,
+    a ``ckpt/last`` of float32 weights that ``bin/synthesize.py`` serves."""
+    from scipy.io import wavfile
+
+    out, cwd = tmp_path / "train", os.getcwd()
+    try:
+        trainer = train_cli.main(train_args(
+            corpus, out, "train.num_epochs=1", "train.bf16=true",
+            "+train.input_pipeline=prefetch",
+            f"hydra.run.dir={tmp_path / 'run'}"))
+        synth_cli.main([
+            f"path.root={corpus}", f"model_ckpt={out / 'ckpt/last'}",
+            f"vocoder_ckpt={corpus / 'vocoder.ckpt'}",
+            f"output_dir={tmp_path / 'wavs'}",
+            f"hydra.run.dir={tmp_path / 'run'}", "num_eval_utts=1",
+            "device=cpu", *TINY_CLI_MODEL, *TINY_CLI_VOCODER])
+    finally:
+        os.chdir(cwd)
+    assert trainer.state.shadow is not None and trainer.state.step > 2
+    (row,) = _rows(out / "logs/loss.csv")
+    assert np.isfinite(list(row.values())).all()
+    model = torch.load(out / "ckpt/last", weights_only=True)["model"]
+    assert {v.dtype for v in model.values() if v.is_floating_point()} == {
+        torch.float32}
+    files = sorted((tmp_path / "wavs").rglob("*.wav"))
+    assert len(files) == 2
+    for p in files:
+        data = wavfile.read(p)[1]
+        assert len(data) and np.isfinite(data.astype(np.float64)).all()
 
 
 def test_train_cli_needs_the_vocabulary(corpus, tmp_path):
