@@ -5,6 +5,10 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --phase12`` builds the kernels and runs phase 12
+alone (on every visible GPU where it uses more than one), with no result
+line.
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. Build the hand-written kernels from ``promptttspp_tpu_torch/csrc/`` with
@@ -146,7 +150,32 @@ Phases (any failure exits non-zero and prints no result line):
     request, counts set to 0 just before and read just after) and
     ``bin/eval.py`` on that output, every ``mcd`` and ``mel_l1`` finite.
     The files are deleted at the end.
-12. Print the ``kernels`` JSON line, the GPU line and the result line.
+12. Parallelism (``promptttspp_tpu_torch/parallel/``): (a) three flagship
+    updates of ``bin/train.py`` on a synthetic corpus of three batches of
+    the config's 32 rows, at the config's peak rate from the first update
+    (warm-up 1, so the updates dwarf the bars), in this process without a
+    process group, then over NCCL at world size ``device_count()`` (in
+    this process, under torchrun's environment, at 1: its losses, gradient
+    and parameters must equal the first run's bit for bit), then two gloo
+    ranks spawned on ``cuda:0`` (their parameters equal to each other;
+    against the first run: the first update's losses and grad_norm within
+    1e-5 relative and its global gradient within 0.1 (L2) in every
+    tensor, the later losses within 1e-2, the parameters' L2 difference
+    within a tenth of the updates'; the reasons stand beside
+    ``PARALLEL_LOSS_RTOL``): update time, the gradient all-reduce's
+    time and bytes and the peak memory of each rank. Where there are two
+    GPUs or more, the NCCL ranks are held to the first run as the gloo
+    ranks are, and ``bin/train.py`` with no distributed keys spawns one
+    NCCL worker per GPU (it returns None; its ``ckpt/last`` against the
+    first run's). (b) A 640-frame request with
+    ``Synthesizer(frame_sharded_decode=True, vocoder_mode="sharded")``
+    over the mesh ``[cuda:0, cuda:0]``: its mel within 1e-5 of the
+    unsharded eager decode's, its wav's interior within 5e-3 of the
+    batched path's, its K1 and K2-bf16 launches (counts set to 0 just
+    before, read just after), the decode and vocoder times of both paths.
+    Where there are two GPUs or more, the request also runs over
+    ``[cuda:0, cuda:1]``; with one the lines say so.
+13. Print the ``kernels`` JSON line, the GPU line and the result line.
 
 TF32 is switched off for cuDNN convolutions and cuBLAS matrix products, so
 the plain versions are full float32 references; the bf16 plain version
@@ -238,6 +267,37 @@ RECIPE_EVAL_SPEAKERS, RECIPE_EVAL_SECONDS = {121: 2}, (3.0, 9.0)
 # the card's YIN and mel against the port's CPU path: the bars of
 # tests/test_torch_f0.py and tests/test_torch_preprocess.py
 RECIPE_VUV_AGREEMENT, RECIPE_F0_RTOL, RECIPE_MEL_ATOL = 0.995, 1e-3, 1e-4
+# phase 12: fixed batches of PARALLEL_BATCH rows (the config's
+# train.batch_size, conf/train/noam.yaml; it divides by 2 and 4 ranks),
+# PARALLEL_UPDATES of them (one epoch), 2 gloo ranks. The updates run at
+# the config's peak rate (optimizer.lr 1e-3) from the first
+# (PARALLEL_WARMUP), so AdamW moves the parameters by up to about 3e-3.
+# Against one process on the same global batches:
+# - the first update (the same parameters enter it) computes the global
+#   step: its losses and grad_norm within 1e-5 relative, its gradient
+#   within 0.1 relative (L2) in every tensor. The sums run in another
+#   order, and a ReLU input that rounding puts on the other side of 0
+#   passes another gradient back (one such element on the CPU moved the
+#   tiny model's gradient by 3e-3 in the worst tensor, 9e-4 in all); a
+#   BatchNorm backward that skipped its all-reduce moved 3 tensors by 1.5
+#   and grad_norm by only 9e-6. A tensor whose gradient is 0 but for
+#   rounding (an attention's key bias: the softmax ignores a constant per
+#   query) is held relative to 1e-6 of the whole gradient's norm;
+# - the later updates and the parameters: AdamW's first steps are about
+#   lr whatever a gradient element's size, so an element near 0 that
+#   rounding moves across 0 steps its parameter the other way (the later
+#   losses within 1e-2 relative; the parameters' and statistics'
+#   difference under a tenth of what the updates moved them, L2)
+PARALLEL_BATCH, PARALLEL_UPDATES, GLOO_RANKS = 32, 3, 2
+PARALLEL_WARMUP = "train.lr_scheduler.warmup_steps=1"
+PARALLEL_LOSS_RTOL, PARALLEL_LATER_RTOL = 1e-5, 1e-2
+PARALLEL_GRAD_RTOL, PARALLEL_GRAD_FLOOR, PARALLEL_PARAM_RTOL = 0.1, 1e-6, 0.1
+# the sharded decode's mel against the unsharded eager decode's; timed
+# turns
+SHARDED_MEL_ATOL, PARALLEL_TURNS = 1e-5, 3
+# the train CLI in this process, timed from here: on a machine with more
+# than one GPU it would otherwise spawn one worker per GPU
+ONE_PROCESS = "+train.distributed.num_processes=1"
 
 
 def gpu_line() -> str:
@@ -490,9 +550,7 @@ def main() -> int:
           f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     synth = Synthesizer(model, vocoder, tokenizer=FixedTokenizer(PROMPT_LEN),
                         device=dev)
-    rng = np.random.RandomState(3)
-    seqs = [list(rng.randint(1, 90, PHONES))]
-    prompts = ["a deep calm male voice speaking slowly"]
+    seqs, prompts = request_inputs()
     samples = FRAMES * 240
     audio_s = samples / flagship.VOCODER["sampling_rate"]
 
@@ -639,6 +697,11 @@ def main() -> int:
     print(f"phase 11 starts at {time.perf_counter() - t_start:.1f} s",
           flush=True)
     phase_recipe(k1, k2, vocoder, dev, gpu, failures)
+
+    # -- phase 12: parallelism -------------------------------------------------
+    print(f"phase 12 starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    phase_parallel(k1, k2, model, vocoder, seqs, prompts, dev, gpu, failures)
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
@@ -1689,7 +1752,8 @@ def phase_train(k1, k2, vocoder, dev, gpu, failures, model_cfg=None,
     argv = [f"path.root={root}", f"output_dir={out_dir}",
             f"hydra.run.dir={root / 'run'}", "train.num_epochs=1",
             f"dataset.max_tokens={MAX_TOKENS}",
-            f"+train.profile_steps={PROFILE_STEP}", *train_overrides]
+            f"+train.profile_steps={PROFILE_STEP}", ONE_PROCESS,
+            *train_overrides]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1891,7 +1955,8 @@ def phase_train_options(k1, k2, vocoder, dev, gpu, failures, model_cfg=None,
         argv = [f"path.root={root}", f"output_dir={out_dir}",
                 f"hydra.run.dir={root / 'run'}", "train.num_epochs=1",
                 f"dataset.max_tokens={MAX_TOKENS}", "+dataset.train.seed=1",
-                "+dataset.valid.seed=2", *settings[name], *train_overrides]
+                "+dataset.valid.seed=2", ONE_PROCESS, *settings[name],
+                *train_overrides]
         if profiled:
             argv.append(f"+train.profile_steps={first}")
         torch.cuda.synchronize()
@@ -2231,7 +2296,7 @@ def phase_recipe(k1, k2, vocoder, dev, gpu, failures, cli_overrides=(),
         trainer = train_cli.main([
             f"path.root={corpus}", f"output_dir={out_dir}", run_dir,
             "train.num_epochs=1", f"dataset.max_tokens={MAX_TOKENS}",
-            *cli_overrides, *model_overrides])
+            ONE_PROCESS, *cli_overrides, *model_overrides])
         os.chdir(cwd)
         losses = (out_dir / "logs/loss.csv").read_text().splitlines()
         print(f"[{gpu}] phase 11 (c): train CLI, one epoch on the "
@@ -2289,6 +2354,455 @@ def phase_recipe(k1, k2, vocoder, dev, gpu, failures, cli_overrides=(),
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s in all",
+          flush=True)
+
+
+def _timed_train(argv):
+    """``bin/train.py``'s ``main(argv)`` with CUDA events around each
+    update (from its first launch to its last: the update's span on the
+    card) and each gradient all-reduce -> its numbers, the model's state
+    dict before the first update and after the last, and the first
+    update's global gradient (all on the CPU)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from promptttspp_tpu_torch.bin import train as train_cli
+    from promptttspp_tpu_torch.parallel.distributed import DataGroup
+    from promptttspp_tpu_torch.train import state as state_lib
+    from promptttspp_tpu_torch.train.state import TrainState
+
+    spans, losses, reduces, nbytes = [], [], [], []
+    init, grad = {}, []
+    step_fn, reduce_fn = TrainState.train_step, DataGroup.reduce_grads
+    norm_fn = state_lib.global_norm
+
+    def timed_step(self, b):
+        if not spans:  # on the host, out of the peak memory
+            init.update({k: v.detach().to("cpu", copy=True) for k, v in
+                         self.model.state_dict().items()})
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        evs[0].record()
+        out = step_fn(self, b)
+        evs[1].record()
+        spans.append(evs)
+        losses.append(torch.stack(list(out.values())))
+        return out
+
+    def timed_reduce(self, grads, *a, **kw):
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        evs[0].record()
+        n = reduce_fn(self, grads, *a, **kw)
+        evs[1].record()
+        reduces.append(evs)
+        nbytes.append(n)
+        return n
+
+    def first_norm(tensors):
+        # the gradient the clip and AdamW see: after the all-reduce
+        if not grad:
+            grad.append([t.detach().to("cpu", copy=True) for t in tensors])
+        return norm_fn(tensors)
+
+    cwd = os.getcwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.object(TrainState, "train_step", timed_step), \
+                mock.patch.object(DataGroup, "reduce_grads", timed_reduce), \
+                mock.patch.object(state_lib, "global_norm", first_norm):
+            trainer = train_cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    out = dict(
+        wall_s=time.perf_counter() - t0,
+        update_ms=[a.elapsed_time(b) for a, b in spans],
+        allreduce_ms=[a.elapsed_time(b) for a, b in reduces],
+        allreduce_bytes=nbytes,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        losses=torch.stack(losses).cpu().numpy().tolist(),
+        device=str(trainer.device), world=trainer.world,
+        tensors=dict(
+            state_dict={k: v.detach().cpu().clone() for k, v in
+                        trainer.state.model.state_dict().items()},
+            init=init, grad=dict(zip(trainer.state.trainable, grad[0]))))
+    out["finite"] = bool(np.isfinite(out["losses"]).all())
+    del trainer, init, grad
+    torch.cuda.empty_cache()
+    return out
+
+
+def _timed_train_in_group(argv):
+    """``_timed_train`` in this process under torchrun's environment for a
+    group of one rank (NCCL on the card)."""
+    import os
+
+    from promptttspp_tpu_torch.bin.train import free_port
+
+    env = dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return _timed_train(argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _train_rank(rank, world, backend, argv, address, out_dir):
+    """One spawned rank of phase 12 (a): torchrun's environment, then
+    ``_timed_train``; writes its numbers and parameters to ``out_dir``."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    host, port = address.rsplit(":", 1)
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(world), MASTER_ADDR=host,
+                      MASTER_PORT=port)
+    stats = _timed_train([*argv, f"+train.distributed.backend={backend}",
+                          f"+train.distributed.num_processes={world}"])
+    torch.save(stats.pop("tensors"), Path(out_dir) / f"rank{rank}.pt")
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(stats))
+
+
+def _spawn_ranks(world, backend, argv, out_dir):
+    """``world`` ranks of ``_train_rank`` -> their numbers by rank, each
+    with its ``tensors``."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from promptttspp_tpu_torch.bin.train import free_port
+
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    mp.start_processes(_train_rank, args=(
+        world, backend, argv, f"localhost:{free_port()}", str(out_dir)),
+        nprocs=world, join=True, start_method="spawn")
+    return [dict(json.loads((Path(out_dir) / f"rank{r}.json").read_text()),
+                 tensors=torch.load(Path(out_dir) / f"rank{r}.pt"))
+            for r in range(world)]
+
+
+def _param_gap(sd, ref, init=None):
+    """The parameters and statistics ``sd`` against one process's ``ref``
+    (both from ``init``): the largest difference and the L2 norm of the
+    difference over the floating tensors, the largest magnitude in
+    ``ref``, the L2 norm and the largest element of ``ref``'s update (ref
+    - init; 0 without ``init``), and whether the other tensors are
+    equal."""
+    import torch
+
+    out = dict(diff=0.0, l2=0.0, scale=0.0, update_l2=0.0, moved=0.0,
+               exact=True)
+    for k, v in ref.items():
+        if v.is_floating_point():
+            d = (sd[k] - v).double()
+            u = (v - (v if init is None else init[k])).double()
+            out["diff"] = max(out["diff"], float(d.abs().max()))
+            out["l2"] += float(d.square().sum())
+            out["scale"] = max(out["scale"], float(v.abs().max()))
+            out["update_l2"] += float(u.square().sum())
+            out["moved"] = max(out["moved"], float(u.abs().max()))
+        else:
+            out["exact"] &= bool(torch.equal(sd[k], v))
+    out["l2"], out["update_l2"] = out["l2"] ** 0.5, out["update_l2"] ** 0.5
+    return out
+
+
+def _agreement(st, ref):
+    """Run ``st`` against one process's run ``ref`` on the same global
+    batches -> (its gaps, the failures among them)."""
+    import numpy as np
+    import torch
+
+    a, b = np.asarray(st["losses"]), np.asarray(ref["losses"])
+    rel = np.abs(a - b) / np.abs(b) if a.shape == b.shape else \
+        np.full((2, 1), np.inf)
+    grad, grad_ref = st["tensors"]["grad"], ref["tensors"]["grad"]
+    floor = PARALLEL_GRAD_FLOOR * float(torch.stack(
+        [g.norm() for g in grad_ref.values()]).norm())
+    grad_rel = max(float((grad[k] - g).norm()) / (float(g.norm()) + floor)
+                   for k, g in grad_ref.items())
+    gap = _param_gap(st["tensors"]["state_dict"],
+                     ref["tensors"]["state_dict"], ref["tensors"]["init"])
+    gap.update(first_rel=float(rel[0].max()),
+               later_rel=float(rel[1:].max()) if len(rel) > 1 else 0.0,
+               grad_rel=grad_rel, param_rel=gap["l2"] / gap["update_l2"])
+    bad = []
+    if not gap["first_rel"] <= PARALLEL_LOSS_RTOL:
+        bad.append(f"first update's losses and grad_norm "
+                   f"{gap['first_rel']:.3g} relative")
+    if not gap["later_rel"] <= PARALLEL_LATER_RTOL:
+        bad.append(f"later updates' losses and grad_norm "
+                   f"{gap['later_rel']:.3g} relative")
+    if not grad_rel <= PARALLEL_GRAD_RTOL:
+        bad.append(f"first-update gradient {grad_rel:.3g} relative")
+    if not (gap["param_rel"] <= PARALLEL_PARAM_RTOL and gap["exact"]):
+        bad.append(f"parameters {gap['l2']:.3g} against the update's "
+                   f"{gap['update_l2']:.3g}, integers equal {gap['exact']}")
+    return gap, bad
+
+
+def _gap_text(gap):
+    return (f"the first update's losses and grad_norm "
+            f"{gap['first_rel']:.3g} relative (bar {PARALLEL_LOSS_RTOL}), the "
+            f"later updates' {gap['later_rel']:.3g} (bar "
+            f"{PARALLEL_LATER_RTOL}); the first update's gradient "
+            f"{gap['grad_rel']:.3g} relative, L2, in its worst tensor (bar "
+            f"{PARALLEL_GRAD_RTOL}); parameters and statistics: L2 "
+            f"{gap['l2']:.3g} from one process's against the updates' "
+            f"{gap['update_l2']:.3g} ({gap['param_rel']:.3g}, bar "
+            f"{PARALLEL_PARAM_RTOL}), largest difference {gap['diff']:.3g} "
+            f"(largest value {gap['scale']:.3g}, largest change "
+            f"{gap['moved']:.3g})")
+
+
+def _train_line(gpu, label, st):
+    import numpy as np
+
+    red = (f"gradient all-reduce {np.median(st['allreduce_ms']):.3f} ms "
+           f"median for {st['allreduce_bytes'][0] / 2**20:.1f} MiB"
+           if st["allreduce_ms"] else "no gradient all-reduce")
+    return (f"[{gpu}] phase 12 (a): {label} on {st['device']}: "
+            f"{len(st['update_ms'])} updates, update ms "
+            f"{[round(t, 1) for t in st['update_ms']]}, {red}, peak "
+            f"{st['peak_gib']:.2f} GiB, losses finite {st['finite']}, "
+            f"wall {st['wall_s']:.1f} s")
+
+
+def phase_parallel(k1, k2, model, vocoder, seqs, prompts, dev, gpu,
+                   failures, model_cfg=None, train_overrides=()):
+    """Data-parallel training and frame-parallel serving on the card (see
+    phase 12 of the module docstring). ``model_cfg`` (default the
+    flagship's) and ``train_overrides`` exist to rehearse the phase at a
+    smaller size."""
+    import copy
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from promptttspp_tpu_torch import flagship
+    from promptttspp_tpu_torch.bin import train as train_cli
+    from promptttspp_tpu_torch.data.dataset import (
+        read_prompt_candidate, read_spk_prompt_candidate)
+    from promptttspp_tpu_torch.infer import Synthesizer
+    from promptttspp_tpu_torch.models import decode_graph
+    from promptttspp_tpu_torch.parallel import make_mesh
+    from promptttspp_tpu_torch.parallel.sp import decode_frames_sharded
+    from promptttspp_tpu_torch.tools.synthetic_corpus import (
+        training_rows, write_training_corpus)
+    from promptttspp_tpu_torch.vocoders.streaming import vocode_sharded
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    model_cfg = copy.deepcopy(model_cfg or flagship.MODEL)
+    one_card = ("" if count > 1 else
+                "; only one GPU is present, so NCCL runs at world size 1 "
+                "and the multi-rank run is gloo's on cuda:0")
+
+    # (a) three updates: one process, NCCL, two gloo ranks
+    root = OUT_DIR / "parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    meta = ROOT / "metadata"
+    cands = read_prompt_candidate(meta / "style_prompt_candidates.csv")
+    spk = read_spk_prompt_candidate(meta / "speaker_prompt_candidates.csv")
+    n_train = PARALLEL_BATCH * PARALLEL_UPDATES
+    rows = training_rows(n_train + 2, cands, spk, TRAIN_PHONES, TRAIN_FPP,
+                         valid_every=(n_train + 2) // 2, seed=12)
+    write_training_corpus(root, rows, cands, spk,
+                          n_mels=model_cfg["decoder"]["out_dim"],
+                          mel_mean=-5.0, mel_std=2.0, seed=13)
+
+    def argv(name):
+        return [f"path.root={root}", f"output_dir={root / name}",
+                f"hydra.run.dir={root / 'run'}", "train.num_epochs=1",
+                "dataset.dynamic_batch=false",
+                f"train.batch_size={PARALLEL_BATCH}", "train.seed=5",
+                "+dataset.train.seed=1", "+dataset.valid.seed=2",
+                "+train.input_pipeline=sync", PARALLEL_WARMUP,
+                *train_overrides]
+
+    # deterministic algorithms for the two runs held bit for bit: else
+    # the backward's float atomics (index_add, cuDNN's weight gradients)
+    # sum in another order in any two runs
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        single = _timed_train([*argv("single"), ONE_PROCESS])
+        if count == 1:
+            nccl = _timed_train_in_group(argv("nccl"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(_train_line(gpu, "one process, no process group, deterministic "
+                      "algorithms", single), flush=True)
+    if len(single["update_ms"]) != PARALLEL_UPDATES or not single["finite"]:
+        failures.append(f"phase 12 (a): {len(single['update_ms'])} updates, "
+                        f"finite {single['finite']}")
+    ref = single["tensors"]
+
+    if count == 1:
+        same = (nccl["losses"] == single["losses"]
+                and all(torch.equal(nccl["tensors"][part][k], v)
+                        for part in ("grad", "state_dict")
+                        for k, v in ref[part].items()))
+        print(_train_line(gpu, "NCCL, world size 1, in this process, "
+                          "deterministic algorithms", nccl)
+              + f"; losses, gradient and parameters equal the run without "
+              f"a group bit for bit: {same}{one_card}", flush=True)
+        if not same:
+            failures.append("phase 12 (a): the NCCL step at world size 1 "
+                            "differs from the step without a group")
+        del nccl
+    else:
+        ranks = _spawn_ranks(count, "nccl", argv("nccl"), root / "nccl_out")
+        for r, st in enumerate(ranks):
+            print(_train_line(gpu, f"NCCL rank {r} of {count}", st),
+                  flush=True)
+        gap, bad = _agreement(ranks[0], single)
+        print(f"[{gpu}] phase 12 (a): NCCL at world size {count}, rank 0 "
+              f"against one process: {_gap_text(gap)}", flush=True)
+        failures.extend(f"phase 12 (a): NCCL ranks: {b}" for b in bad)
+        del ranks
+
+        # bin/train.py as a user runs it: no distributed keys, so it
+        # spawns one NCCL worker per visible GPU and returns None
+        t0 = time.perf_counter()
+        spawned = train_cli.main(argv("spawn"))
+        wall = time.perf_counter() - t0
+        ckpt = root / "spawn/ckpt/last"
+        line = (f"[{gpu}] phase 12 (a): bin/train.py with no distributed "
+                f"keys over {count} GPUs: returned {spawned!r}, "
+                f"ckpt/last {ckpt.exists()}, wall {wall:.1f} s")
+        if spawned is not None or not ckpt.exists():
+            failures.append(line)
+        else:
+            # the checkpoints hold the reference's names: the update's
+            # norm is the one process's, in the model's names
+            gap = _param_gap(
+                torch.load(ckpt, weights_only=True)["model"],
+                torch.load(root / "single/ckpt/last",
+                           weights_only=True)["model"])
+            update_l2 = _param_gap(ref["state_dict"], ref["state_dict"],
+                                   ref["init"])["update_l2"]
+            line += (f"; parameters: largest difference {gap['diff']:.3g} "
+                     f"from one process's (largest {gap['scale']:.3g}), L2 "
+                     f"{gap['l2']:.3g} against the update's {update_l2:.3g}")
+            if not (gap["l2"] <= PARALLEL_PARAM_RTOL * update_l2
+                    and gap["exact"]):
+                failures.append(line)
+        print(line, flush=True)
+
+    gloo = _spawn_ranks(GLOO_RANKS, "gloo", argv("gloo"), root / "gloo_out")
+    equal = all(torch.equal(gloo[0]["tensors"]["state_dict"][k], v)
+                for k, v in gloo[1]["tensors"]["state_dict"].items())
+    for r, st in enumerate(gloo):
+        print(_train_line(gpu, f"gloo rank {r} of {GLOO_RANKS}", st),
+              flush=True)
+    gap, bad = _agreement(gloo[0], single)
+    print(f"[{gpu}] phase 12 (a): {GLOO_RANKS} gloo ranks on "
+          f"{[st['device'] for st in gloo]}: the ranks' parameters equal: "
+          f"{equal}; rank 0 against one process: {_gap_text(gap)}",
+          flush=True)
+    if not (equal and all(st["finite"] for st in gloo)):
+        bad.append(f"the ranks' parameters equal {equal}")
+    failures.extend(f"phase 12 (a): gloo ranks: {b}" for b in bad)
+    del gloo, single, ref
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (b) a 640-frame request over [cuda:0, cuda:0] (and cuda:0, cuda:1)
+    meshes = [[dev, dev]] + ([[dev, torch.device("cuda", 1)]]
+                             if count > 1 else [])
+    kw = dict(tokenizer=FixedTokenizer(PROMPT_LEN), device=dev,
+              chunk_frames=CHUNK, halo_frames=HALO)
+    req = dict(use_max=True, noise_scale=0.0, seed=4)
+    plain = Synthesizer(model, vocoder, **kw)
+    with mock.patch.object(decode_graph, "decode", _eager_decode):
+        ref_wav, ref_mel = plain.synthesize(seqs, prompts, **req)
+    margin = HALO * 240
+    for devices in meshes:
+        mesh = make_mesh(devices=devices)
+        sharded = Synthesizer(model, vocoder, frame_sharded_decode=True,
+                              vocoder_mode="sharded", mesh=mesh, **kw)
+        sharded.synthesize(seqs, prompts, **req)  # the replicas' warm-up
+        _zero_counts(k1, k2)
+        t0 = time.perf_counter()
+        wav, mel = sharded.synthesize(seqs, prompts, **req)
+        wall = time.perf_counter() - t0
+        launches = _counts(k1, k2)
+        mel_err = float(np.abs(mel[0] - ref_mel[0]).max())
+        wav_err = float(np.abs(wav[0][margin:-margin]
+                               - ref_wav[0][margin:-margin]).max())
+        n_shards = len(devices)
+        chunks = -(-(-(-FRAMES // CHUNK)) // n_shards) * n_shards
+        expect = {"antialias_snake": n_shards,
+                  "amp_layer_bf16": 72 * n_shards, "amp_layer": 0,
+                  "amp_block": 0}
+        print(f"[{gpu}] phase 12 (b): {FRAMES}-frame request, "
+              f"frame_sharded_decode over {[str(d) for d in devices]}, "
+              f"sharded vocoder ({chunks} chunks of {CHUNK}): wall "
+              f"{wall * 1e3:.1f} ms; mel {mel_err:.3g} from the unsharded "
+              f"eager decode's (bar {SHARDED_MEL_ATOL}); wav interior "
+              f"{wav_err:.3g} from the batched path's (bar {STREAM_ATOL}); "
+              f"launches {launches} (expected {expect})"
+              + (one_card if devices[1] == devices[0] else ""), flush=True)
+        if not (mel[0].shape == ref_mel[0].shape
+                and mel_err <= SHARDED_MEL_ATOL and wav_err <= STREAM_ATOL
+                and launches == expect):
+            failures.append(f"phase 12 (b) {devices}: mel {mel_err:.3g}, "
+                            f"wav {wav_err:.3g}, launches {launches}")
+
+        # the decode and the vocoder alone, each path in alternated turns
+        _, _, rq = plain._request(seqs, prompts, None, None, True, 0.0, 4)
+        with torch.inference_mode():
+            cond, _, fmask, log_cf0, vuv, _ = model.infer_cond(
+                rq["phoneme"], rq["plens"], FRAMES, rq["prompt_ids"],
+                rq["prompt_mask"], use_max=True, noise_scale=0.0,
+                style_generator=plain._generator(4))
+            f0, mel_denorm = plain._postprocess(
+                plain._decoder.inference(cond, generator=plain._generator(5))
+                * fmask[:, :, None], log_cf0, vuv)
+        paths = {
+            "graph decode": lambda: decode_graph.decode(
+                plain._decoder, cond, None, False, plain._generator(5)),
+            "sharded eager decode": lambda: decode_frames_sharded(
+                mesh, plain._decoder, cond, generator=plain._generator(5),
+                denoiser=sharded._sharded_denoiser),
+            "batched vocoder": lambda: vocoder(mel_denorm, f0,
+                                               deterministic=True),
+            "sharded vocoder": lambda: vocode_sharded(
+                mesh, vocoder, mel_denorm, f0, chunk_frames=CHUNK,
+                halo_frames=HALO, replicas=sharded._voc_replicas,
+                deterministic=True)}
+        times = {name: [] for name in paths}
+        with torch.inference_mode():
+            for turn in range(PARALLEL_TURNS):
+                order = list(paths) if turn % 2 == 0 else list(paths)[::-1]
+                for name in order:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    paths[name]()
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+        print(f"[{gpu}] phase 12 (b): over {[str(d) for d in devices]}, "
+              f"median of {PARALLEL_TURNS} alternated turns (host clock, "
+              "synchronized): " + ", ".join(
+                  f"{name} {np.median(t):.1f} ms" for name, t in
+                  times.items()), flush=True)
+        del sharded, cond, f0, mel_denorm
+        torch.cuda.empty_cache()
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s in all",
           flush=True)
 
 
@@ -2374,5 +2888,46 @@ def profile_request(synth, seqs, prompts, gpu, wall_s, label="default"):
     return summary
 
 
+def request_inputs():
+    """The main path's request: one utterance of PHONES phones and its
+    style prompt."""
+    import numpy as np
+
+    rng = np.random.RandomState(3)
+    return ([list(rng.randint(1, 90, PHONES))],
+            ["a deep calm male voice speaking slowly"])
+
+
+def phase12_only() -> int:
+    """Build the kernels and run phase 12 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from promptttspp_tpu_torch import flagship
+    from promptttspp_tpu_torch.ops.kernels import _build
+    from promptttspp_tpu_torch.ops.kernels import amp as k2
+    from promptttspp_tpu_torch.ops.kernels import snake as k1
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _build.build(_build.KERNELS)
+    for name in _build.KERNELS:
+        _build.load(name)
+    model = flagship.build_flagship_model(dev, seed=0, frames_per_phone=10.0)
+    vocoder = flagship.build_vocoder(dev, seed=1)
+    seqs, prompts = request_inputs()
+    failures = []
+    phase_parallel(k1, k2, model, vocoder, seqs, prompts, dev, gpu_line(),
+                   failures)
+    if failures:
+        print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
+        return 1
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phase12_only() if sys.argv[1:] == ["--phase12"] else main())

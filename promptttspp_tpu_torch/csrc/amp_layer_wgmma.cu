@@ -64,6 +64,7 @@
 // - The epilogue writes each output from the accumulators with the bias
 //   (and the residual) added, masked at the ragged end of T and for any
 //   C >= 1.
+#include <atomic>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -650,18 +651,28 @@ inline bool aligned16(const void* ptr) {
 
 constexpr int kSmemPerBlock = 232448;  // an H100 block's shared memory
 
-// The first launch of a configuration lifts its shared-memory cap to all a
-// block may have, so that later launches, inside a CUDA-graph capture too,
-// make no other runtime call than the launch.
+constexpr int kMaxDevices = 64;
+
+// The first launch of a configuration on a device lifts its shared-memory
+// cap there to all a block may have. The attribute belongs to the device
+// (the current one, which the caller sets), so the flag is one per device
+// ordinal: a first launch on a second card lifts that card's cap too. Once
+// a device is capped, a launch makes no runtime call but cudaGetDevice,
+// which touches no stream, and the launch itself, so it can be captured
+// into a CUDA graph.
 template <class G>
 int launch(const Params& p, int smem, int grid, cudaStream_t stream) {
-  static bool capped = false;
-  if (!capped) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  static std::atomic<bool> capped[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!capped[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(
         aa_conv_wgmma_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemPerBlock);
     if (err != cudaSuccess) return (int)err;
-    capped = true;
+    capped[dev].store(true, std::memory_order_release);
   }
   aa_conv_wgmma_kernel<G><<<grid, G::THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();

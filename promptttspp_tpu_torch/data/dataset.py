@@ -121,6 +121,11 @@ class AllWithSpkPromptNormDataset:
     def num_tokens(self, index: int) -> int:
         return self.lengths[index]
 
+    def num_phones(self, index: int) -> int:
+        """The phone count from the CSV row (no feature file read): data
+        parallelism's global phone bucket."""
+        return str(self.data[index][-2]).count(" ") + 1
+
     def ordered_indices(self) -> np.ndarray:
         """Length-sorted (stable) indices."""
         return np.argsort(np.asarray(self.lengths), kind="mergesort")

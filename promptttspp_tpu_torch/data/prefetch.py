@@ -2,8 +2,10 @@
 while the card runs earlier updates.
 
 Counterpart of ``promptttspp_tpu/data/prefetch.py`` (``_collate_native``,
-``prefetch_batches``) for one process: no mesh, and no rows padded (the
-multi-host ``host_batches`` entries come with data parallelism). A producer
+``prefetch_batches``). The sampler's entries are batches of indices or, under
+data parallelism, ``parallel/distributed.py::host_batches``' (indices,
+kwargs): this rank's rows, collated at the global batch's buckets and padded
+with zero-weight rows (``entry_metas``, ``finish``). A producer
 thread walks the batch sampler in order and calls the dataset's
 ``item_meta`` serially, so the prompts are drawn as the synchronous loop
 draws them; a pool of ``num_workers`` threads assembles the batches (the
@@ -34,7 +36,8 @@ import torch
 from promptttspp_tpu_torch.data import native_loader
 from promptttspp_tpu_torch.data.batching import bucket_shape
 from promptttspp_tpu_torch.data.collate import (
-    FRAME_QUANTUM, PHONE_QUANTUM, PROMPT_QUANTUM)
+    FRAME_QUANTUM, PHONE_QUANTUM, encode_prompts, prompt_bucket)
+from promptttspp_tpu_torch.parallel.mesh import pad_batch_to_rows
 
 
 def host_tensors(batch: Dict, keys: Sequence[str]) -> Dict[str, torch.Tensor]:
@@ -49,13 +52,48 @@ def host_tensors(batch: Dict, keys: Sequence[str]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def entry_metas(dataset, entry, tokenizer=None) -> Tuple[List[Dict], Dict,
+                                                        Dict]:
+    """The serial part of a sampler entry's assembly -> (metas, collate
+    kwargs, padding): the ``item_meta`` of its rows, drawn in order. An
+    entry of ``host_batches`` draws every row of its global batch, so the
+    prompt draws are one process's, keeps its own rows' and, where
+    ``prompt_pad_to`` is None, pads the prompts to the global batch's
+    bucket; ``padding`` holds its reserved keys for ``finish``."""
+    idx, kwargs = entry if isinstance(entry, tuple) else (entry, {})
+    kwargs = dict(kwargs)
+    glob = kwargs.pop("_global", None)
+    padding = dict(rows=kwargs.pop("_pad_rows_to", None),
+                   zero_weight=kwargs.pop("_zero_weight", False))
+    if glob is None:
+        return [dataset.item_meta(i) for i in idx], kwargs, padding
+    metas = {i: dataset.item_meta(i) for i in glob}
+    if kwargs.get("prompt_pad_to", 0) is None and tokenizer is not None:
+        kwargs["prompt_pad_to"] = prompt_bucket(
+            tokenizer, [metas[i]["prompt"] for i in glob])
+    return [metas[i] for i in idx], kwargs, padding
+
+
+def finish(batch: Dict, padding: Dict) -> Dict:
+    """``batch`` padded to the slab's rows with zero-weight rows, all of
+    weight 0 for a slab that lies in the global batch's padding."""
+    if padding["rows"] is not None:
+        batch = pad_batch_to_rows(batch, padding["rows"])
+    if padding["zero_weight"]:
+        batch["batch_weight"] = np.zeros_like(batch["batch_weight"])
+    return batch
+
+
 def _collate_native(metas: List[Dict], collator, stats: Dict,
-                    pin: bool = False) -> Dict:
+                    pin: bool = False, t_phones: Optional[int] = None,
+                    t_frames: Optional[int] = None,
+                    prompt_pad_to: Optional[int] = None) -> Dict:
     """The batch of ``metas`` (``item_meta`` dicts), as the collator makes
     it from the items: the C++ loader reads, normalizes and pads the mel,
     log-F0 and V/UV and computes the energy in one multithreaded pass
     (into pinned buffers with ``pin``); the phonemes, durations and prompts
-    are assembled here."""
+    are assembled here. ``t_phones``, ``t_frames`` and ``prompt_pad_to``
+    as the collator takes them."""
     B = len(metas)
     phon = [np.asarray([int(s) for s in m["seq"].split()], np.int32)
             for m in metas]
@@ -66,8 +104,8 @@ def _collate_native(metas: List[Dict], collator, stats: Dict,
     # from the .npy headers
     shapes = [np.load(m["mel_path"], mmap_mode="r").shape for m in metas]
     n_mels = shapes[0][0]
-    Tp = bucket_shape(int(plens.max()), PHONE_QUANTUM)
-    Tf = bucket_shape(max(s[-1] for s in shapes), FRAME_QUANTUM)
+    Tp = t_phones or bucket_shape(int(plens.max()), PHONE_QUANTUM)
+    Tf = t_frames or bucket_shape(max(s[-1] for s in shapes), FRAME_QUANTUM)
     out = None
     if pin:
         out = {k: torch.empty(shape, pin_memory=True).numpy() for k, shape in
@@ -102,14 +140,8 @@ def _collate_native(metas: List[Dict], collator, stats: Dict,
         prompts=[m["prompt"] for m in metas],
     )
     if collator.tokenizer is not None:
-        raw_ids, raw_mask = collator.tokenizer.batch_encode(batch["prompts"])
-        L = bucket_shape(raw_ids.shape[1], PROMPT_QUANTUM)
-        ids = np.full((B, L), collator.tokenizer.pad_id, np.int32)
-        mask = np.zeros((B, L), np.int32)
-        ids[:, : raw_ids.shape[1]] = raw_ids
-        mask[:, : raw_mask.shape[1]] = raw_mask
-        batch["prompt_ids"] = ids
-        batch["prompt_mask"] = mask
+        batch["prompt_ids"], batch["prompt_mask"] = encode_prompts(
+            collator.tokenizer, batch["prompts"], prompt_pad_to)
     return batch
 
 
@@ -143,7 +175,9 @@ def prefetch_batches(
 ) -> Iterator[Tuple[Dict, Dict[str, torch.Tensor]]]:
     """Yield ``(host_batch, device_batch)`` in sampler order: the whole
     numpy batch (lengths, ids, prompts) and its ``model_keys`` as tensors
-    on ``device``, ready for the current stream.
+    on ``device``, ready for the current stream. The sampler's entries are
+    index lists or ``host_batches``' (indices, kwargs), which need a
+    dataset with ``item_meta``.
 
     ``use_native``: None takes the C++ loader where the dataset has the
     ``item_meta`` / ``load_item_features`` split and its mel ``stats``;
@@ -163,11 +197,14 @@ def prefetch_batches(
     pin = device.type == "cuda"
     stream = torch.cuda.Stream(device) if pin else None
 
-    def assemble_meta(metas):
+    def assemble_meta(metas, kwargs, padding):
         if use_native:
-            batch = _collate_native(metas, collator, dataset.stats, pin)
+            batch = _collate_native(metas, collator, dataset.stats, pin,
+                                    **kwargs)
         else:
-            batch = collator([dataset.load_item_features(m) for m in metas])
+            batch = collator([dataset.load_item_features(m) for m in metas],
+                             **kwargs)
+        batch = finish(batch, padding)
         return (batch, *_stage(batch, model_keys, device, stream))
 
     def assemble_items(items):
@@ -190,16 +227,16 @@ def prefetch_batches(
 
     def producer():
         try:
-            for idx in sampler:
+            for entry in sampler:
                 if stop.is_set():
                     return
                 if has_meta:
                     # serial: the prompt draws of the synchronous loop
-                    work = pool.submit(assemble_meta,
-                                       [dataset.item_meta(i) for i in idx])
+                    work = pool.submit(assemble_meta, *entry_metas(
+                        dataset, entry, collator.tokenizer))
                 else:
                     work = pool.submit(assemble_items,
-                                       [dataset[i] for i in idx])
+                                       [dataset[i] for i in entry])
                 if not put(work):
                     return
         except BaseException as e:  # raised again in the consumer

@@ -20,13 +20,15 @@ How the frame bucket is chosen:
   the one readback of the audio together with the unclipped duration sums,
   and re-dispatches at the true bucket when they overflow the prediction.
 
-Vocoding is batched (one call over the utterance batch) or chunked
+Vocoding is batched (one call over the utterance batch), chunked
 (``vocoder_mode="chunked"``: fixed-size chunks with halo context folded into
-the batch axis); ``synthesize_streaming`` yields the waveform chunk by chunk
-(``vocoders/streaming.py``). Sharded vocoding and the frame-sharded decode
-need several GPUs and are not ported.
+the batch axis) or sharded (``vocoder_mode="sharded"``: the chunk batch
+split over a mesh's devices); ``synthesize_streaming`` yields the waveform
+chunk by chunk (``vocoders/streaming.py``). ``frame_sharded_decode`` spreads
+the diffusion decode's frames over the mesh's devices
+(``parallel/sp.py``), eagerly.
 
-On the GPU every path's diffusion decode runs as the CUDA graph of its
+On the GPU every other path's diffusion decode runs as the CUDA graph of its
 (batch, frame bucket) (``models/decode_graph.py``), the counterpart of
 JAX's jitted decode: captured at the first request of a shape, or ahead of
 it by ``prewarm``, as JAX compiles at first use or in its prewarm. The rest
@@ -46,9 +48,13 @@ import torch
 from promptttspp_tpu_torch.data.batching import bucket_shape
 from promptttspp_tpu_torch.models import decode_graph
 from promptttspp_tpu_torch.ops.filters import lowpass_filter
+from promptttspp_tpu_torch.parallel.mesh import (
+    MODEL_AXIS_UNPORTED, make_mesh, replicas)
+from promptttspp_tpu_torch.parallel.sp import (
+    FrameShardedDenoiser, decode_frames_sharded)
 from promptttspp_tpu_torch.platform import resolve_device
 from promptttspp_tpu_torch.vocoders.streaming import (
-    vocode_chunked, vocode_streaming)
+    vocode_chunked, vocode_sharded, vocode_streaming)
 
 
 def _rounded_decoder(decoder, dtype: str):
@@ -94,15 +100,27 @@ class Synthesizer:
                  spec_duration_std: Optional[np.ndarray] = None,
                  spec_margin: float = 3.0, spec_rate_margin: float = 0.2,
                  return_int16: bool = False,
-                 decode_param_dtype: Optional[str] = None, device="cuda"):
+                 decode_param_dtype: Optional[str] = None,
+                 mesh=None, frame_sharded_decode: bool = False,
+                 decode_pipelined: bool = False,
+                 pipeline_microbatches: int = 1, device="cuda"):
         """model / vocoder: the port's modules; they are moved to
         ``device`` and put in eval mode. ``device`` defaults to ``cuda`` and
         raises if no GPU is present. ``to_mel``: a
         ``ops/mel.py::MelSpectrogramTransform`` for reference wavs.
 
-        vocoder_mode: "batched" or "chunked" (``chunk_frames`` with
+        vocoder_mode: "batched", "chunked" (``chunk_frames`` with
         ``halo_frames`` of context; ``first_chunk_frames`` shrinks the first
-        streamed chunk).
+        streamed chunk) or "sharded" (chunked, the chunk batch split over
+        ``mesh``'s data axis, one vocoder replica per distinct device).
+
+        frame_sharded_decode: the diffusion decode with every denoiser call
+        split over ``mesh``'s data axis by frames, with halos
+        (``parallel/sp.py``); eager, also on the GPU. The frame bucket must
+        divide by the axis. ``mesh``: a ``parallel/mesh.py::Mesh``
+        (default, for these two: ``make_mesh()``, every visible GPU).
+        ``decode_pipelined`` and ``pipeline_microbatches`` > 1 (GPipe over
+        a model axis) are not ported and raise.
 
         speculative: predict the frame bucket on the host instead of running
         the duration pre-pass (see the module docstring); counters
@@ -126,9 +144,12 @@ class Synthesizer:
         against float32 activations. The rounded values are kept in float32
         storage, because the decode's float32 convolutions and products
         read float32: the model passed in is not changed."""
-        if vocoder_mode not in ("batched", "chunked"):
-            raise ValueError(f"vocoder_mode {vocoder_mode!r}: 'batched' or "
-                             "'chunked' (sharded vocoding is not ported)")
+        if vocoder_mode not in ("batched", "chunked", "sharded"):
+            raise ValueError(f"vocoder_mode {vocoder_mode!r}: 'batched', "
+                             "'chunked' or 'sharded'")
+        if decode_pipelined or pipeline_microbatches != 1:
+            raise ValueError("decode_pipelined / pipeline_microbatches: "
+                             f"{MODEL_AXIS_UNPORTED}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self._decoder = (model.decoder if decode_param_dtype is None
@@ -162,6 +183,16 @@ class Synthesizer:
         self.return_int16 = return_int16
         self.spec_requests = 0
         self.spec_mispredicts = 0
+        self.frame_sharded_decode = frame_sharded_decode
+        if (vocoder_mode == "sharded" or frame_sharded_decode) \
+                and mesh is None:
+            mesh = make_mesh()
+        self.mesh = mesh
+        self._sharded_denoiser = None if not frame_sharded_decode else \
+            FrameShardedDenoiser(self._decoder.denoise_fn, mesh.data_devices)
+        self._voc_replicas = None
+        if vocoder_mode == "sharded" and self.vocoder is not None:
+            self._voc_replicas = replicas(self.vocoder, mesh.data_devices)
 
     # ------------------------------------------------------------ inputs
     def _to(self, arr):
@@ -271,16 +302,22 @@ class Synthesizer:
 
     def _acoustic(self, req, max_frames: int, x_T=None,
                   zero_noise: bool = False):
-        """``model.infer`` with the decode as a graph (``decode_graph``) +
-        F0 post + mel denormalization -> (mel_denorm, f0, frame_lengths,
-        raw_frame_lengths), all on the device."""
+        """``model.infer`` with the decode as a graph (``decode_graph``),
+        or frame-sharded + F0 post + mel denormalization -> (mel_denorm,
+        f0, frame_lengths, raw_frame_lengths), all on the device."""
         cond, flens, fmask, log_cf0, vuv, raw = self.model.infer_cond(
             req["phoneme"], req["plens"], max_frames, req["prompt_ids"],
             req["prompt_mask"], req["ref_mel"], req["ref_lens"],
             use_max=req["use_max"], noise_scale=req["noise_scale"],
             style_generator=self._generator(req["seed"]))
-        mel = decode_graph.decode(self._decoder, cond, x_T, zero_noise,
-                                  self._generator(req["seed"] + 1))
+        if self.frame_sharded_decode:
+            mel = decode_frames_sharded(
+                self.mesh, self._decoder, cond, x_T, zero_noise,
+                self._generator(req["seed"] + 1),
+                denoiser=self._sharded_denoiser)
+        else:
+            mel = decode_graph.decode(self._decoder, cond, x_T, zero_noise,
+                                      self._generator(req["seed"] + 1))
         mel = mel * fmask[:, :, None].to(mel.dtype)
         f0, mel_denorm = self._postprocess(mel, log_cf0, vuv)
         return mel_denorm, f0, flens, raw
@@ -294,9 +331,16 @@ class Synthesizer:
         return f0, mel_denorm
 
     def _vocode(self, mel_denorm, f0):
-        """-> wav [B, samples, 1]. Chunked vocoding returns float32 whatever
-        ``return_int16`` says: as in JAX, only the batched vocoder (JAX's
-        fused request program) quantizes."""
+        """-> wav [B, samples, 1]. Chunked and sharded vocoding return
+        float32 whatever ``return_int16`` says: as in JAX, only the batched
+        vocoder (JAX's fused request program) quantizes."""
+        if self.vocoder_mode == "sharded":
+            return vocode_sharded(self.mesh, self.vocoder, mel_denorm, f0,
+                                  chunk_frames=self.chunk_frames,
+                                  halo_frames=self.halo_frames,
+                                  upsample=self.upsample,
+                                  replicas=self._voc_replicas,
+                                  deterministic=True)
         if self.vocoder_mode == "chunked":
             return vocode_chunked(self.vocoder, mel_denorm, f0,
                                   chunk_frames=self.chunk_frames,
@@ -524,12 +568,14 @@ class Synthesizer:
         mels) like ``synthesize``. Submitting request N+1 before resolving
         request N keeps the device busy while N's audio comes back.
 
-        Requires ``speculative=True``, a vocoder and
-        ``vocoder_mode="batched"``."""
+        Requires ``speculative=True``, a vocoder,
+        ``vocoder_mode="batched"`` and ``frame_sharded_decode=False``."""
         if not (self.speculative and self.vocoder is not None
-                and self.vocoder_mode == "batched"):
+                and self.vocoder_mode == "batched"
+                and not self.frame_sharded_decode):
             raise ValueError("synthesize_async requires speculative=True, "
-                             "a vocoder and vocoder_mode='batched'")
+                             "a vocoder, vocoder_mode='batched' and "
+                             "frame_sharded_decode=False")
         phoneme, plens, req = self._request(
             phoneme_seqs, prompts, reference_mels, reference_wavs, use_max,
             noise_scale, seed)
@@ -555,7 +601,8 @@ class Synthesizer:
             noise_scale, seed)
         n = len(phoneme_seqs)
         if (self.speculative and self.vocoder is not None
-                and self.vocoder_mode == "batched" and x_T is None
+                and self.vocoder_mode == "batched"
+                and not self.frame_sharded_decode and x_T is None
                 and not zero_noise):
             return self._dispatch_speculative(n, phoneme, plens, req,
                                               return_mels).result()

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from promptttspp_tpu_torch.nn.layers import Conv1d, Linear, conv1d_btc
+from promptttspp_tpu_torch.nn.layers import Conv1d, Linear, conv1d_btc, draw
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int, scale: float = 1.0):
@@ -256,18 +256,20 @@ class GaussianDiffusion(nn.Module):
         return c1 * x_start + c2 * noise
 
     def forward(self, cond, y, mask=None, t=None, noise=None,
-                generator=None):
+                generator=None, data=None):
         """Training: cond [B,T,H]; y mel [B,T,out_dim]; mask [B,T,1] ->
         (noise, eps_pred), both [B,T,out_dim] and unmasked. ``t`` [B] and
-        ``noise`` are drawn from ``generator`` when not given, t first."""
+        ``noise`` are drawn from ``generator`` when not given, t first;
+        with ``data`` (a ``DataGroup``) at the global batch's shape, cut to
+        this rank's rows."""
         B = cond.shape[0]
         if t is None:
-            t = torch.randint(0, self.K_step, (B,), generator=generator,
-                              device=cond.device)
+            t = draw(functools.partial(torch.randint, 0, self.K_step), (B,),
+                     data, generator=generator, device=cond.device)
         x = self._norm(y)
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator,
-                                dtype=x.dtype, device=x.device)
+            noise = draw(torch.randn, x.shape, data, generator=generator,
+                         dtype=x.dtype, device=x.device)
         x_noisy = self.q_sample(x, t, noise)
         eps = self.denoise_fn(x_noisy, t, self.denoise_fn.precompute_cond(
             cond), mask)

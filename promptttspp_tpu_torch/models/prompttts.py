@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 
 from promptttspp_tpu_torch.models.variance_adaptor import durations_from_log
-from promptttspp_tpu_torch.nn.layers import dropout_generator
+from promptttspp_tpu_torch.nn.layers import data_parallel, dropout_generator
 from promptttspp_tpu_torch.nn.mdn import (
     mdn_get_most_probable_sigma_and_mu, mdn_loss, mdn_sample_sigma_and_mu)
 from promptttspp_tpu_torch.ops.masks import sequence_mask, to_log_scale
@@ -62,7 +62,7 @@ class PromptTTSMDNDurCFG(nn.Module):
             torch.float32))
         return self.encoder(x, phone_lengths, row_weight), phone_mask
 
-    def forward(self, batch, generator=None):
+    def forward(self, batch, generator=None, data=None):
         """The training losses of one batch -> {"loss", "dec", "dur", "cf0",
         "vuv", "style"}, scalars. ``batch``: phoneme, duration (int
         [B, Tp]), phone_lengths, mel [B, Tf, 80], log_cf0 and vuv
@@ -70,11 +70,19 @@ class PromptTTSMDNDurCFG(nn.Module):
         optionally batch_weight [B] (rows of weight 0 count in no
         reduction and in no BatchNorm statistic), diffusion_t [B] and
         diffusion_noise [B, Tf, 80] (else drawn from ``generator``, which
-        dropout draws from too)."""
-        with dropout_generator(self, generator):
-            return self._losses(batch, generator)
+        dropout draws from too).
 
-    def _losses(self, batch, generator):
+        ``data`` (a ``parallel/distributed.py::DataGroup``): ``batch`` is
+        this rank's block of a global batch. The losses' normalizers and
+        the BatchNorm statistics are then the global batch's, and every
+        draw is made at its shape and cut to these rows, so the losses
+        are this rank's rows' share of the global losses: their sum over
+        the ranks, and its gradient, are one process's on the global
+        batch."""
+        with dropout_generator(self, generator), data_parallel(self, data):
+            return self._losses(batch, generator, data)
+
+    def _losses(self, batch, generator, data=None):
         duration, mel = batch["duration"], batch["mel"]
         log_cf0, vuv = batch["log_cf0"], batch["vuv"]
         w = batch.get("batch_weight")
@@ -99,17 +107,21 @@ class PromptTTSMDNDurCFG(nn.Module):
 
         noise, eps_pred = self.decoder(
             x, mel, fmask, t=batch.get("diffusion_t"),
-            noise=batch.get("diffusion_noise"), generator=generator)
-        n_frames = fmask.sum()
+            noise=batch.get("diffusion_noise"), generator=generator,
+            data=data)
+        pmask = phone_mask[:, :, None]
+        pweight = pmask.to(torch.float32) * w_b11
+        n_frames, n_phones, n_rows = fmask.sum(), pweight.sum(), w.sum()
+        if data is not None:  # the global batch's counts
+            n_frames, n_phones, n_rows = data.total(
+                torch.stack([n_frames, n_phones, n_rows]))
         loss_dec = (torch.abs(noise * fmask - eps_pred * fmask).sum()
                     / n_frames / self.loss_dec_scale)
 
         log_duration = to_log_scale(duration.to(torch.float32))[:, :, None]
-        pmask = phone_mask[:, :, None]
         dur_nll = mdn_loss(*mdn_out, log_duration, reduce=False, mask=pmask)
-        pweight = pmask.to(torch.float32) * w_b11
         loss_dur = ((torch.where(pmask, dur_nll, 0.0) * pweight).sum()
-                    / pweight.sum())
+                    / n_phones)
 
         loss_cf0 = (torch.abs(log_cf0_pred - log_cf0) * fmask).sum() \
             / n_frames
@@ -119,7 +131,7 @@ class PromptTTSMDNDurCFG(nn.Module):
         # into the reference encoder through it
         style_nll = mdn_loss(*style_mdn_out, style_emb.detach().float())
         loss_style = ((style_nll * w[:, None]).sum()
-                      / (w.sum() * style_nll.shape[1]))
+                      / (n_rows * style_nll.shape[1]))
 
         loss = loss_dec + loss_dur + loss_cf0 + loss_vuv + loss_style
         return dict(loss=loss, dec=loss_dec, dur=loss_dur, cf0=loss_cf0,

@@ -96,7 +96,7 @@ class RelPositionalEncoding(nn.Module):
         pos_emb = _device_table(rel_sinusoid_table, x.shape[1],
                                 self.d_model, x.device)
         return (self.dropout(x * math.sqrt(self.d_model)),
-                self.dropout(pos_emb[None]))
+                self.dropout(pos_emb[None], batched=False))
 
 
 class LegacyRelPositionalEncoding(nn.Module):
@@ -118,4 +118,4 @@ class LegacyRelPositionalEncoding(nn.Module):
         table = _device_table(legacy_rel_table, max(self.max_len, T),
                               self.d_model, x.device)
         return (self.dropout(x * math.sqrt(self.d_model)),
-                self.dropout(table[None, :T]))
+                self.dropout(table[None, :T], batched=False))

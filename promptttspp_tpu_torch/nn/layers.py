@@ -153,7 +153,10 @@ class WeightedBatchNorm(nn.Module):
     ``row_weight`` 0 left out; then ``running = momentum * running +
     (1 - momentum) * batch`` (flax's momentum 0.9 keeps 0.9 of the old
     value). The names are ``BatchNorm1d``'s, so checkpoints load as
-    before."""
+    before. Under data parallelism (``data_parallel``) the weighted sums
+    and the count are summed over the ranks, with gradient, before the
+    mean and variance: the statistics of the global batch, the same on
+    every rank."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.9):
@@ -165,6 +168,7 @@ class WeightedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
+        self.data = None  # the DataGroup that data_parallel lends
 
     def forward(self, x, row_weight=None):
         """x [B, C, ...]; row_weight [B] float or None (every row)."""
@@ -173,14 +177,20 @@ class WeightedBatchNorm(nn.Module):
                                 self.weight, self.bias, False, 0.0, self.eps)
         dims = [0] + list(range(2, x.ndim))
         xf = x.float()
-        if row_weight is None:
+        if row_weight is None and self.data is None:
             mean = xf.mean(dims)
             mean2 = xf.square().mean(dims)
         else:
-            w = row_weight.float().reshape((-1,) + (1,) * (x.ndim - 1))
-            n = w.sum() * math.prod(x.shape[2:])
-            mean = (xf * w).sum(dims) / n
-            mean2 = (xf.square() * w).sum(dims) / n
+            w = (torch.ones(x.shape[0], device=x.device)
+                 if row_weight is None else row_weight.float())
+            w = w.reshape((-1,) + (1,) * (x.ndim - 1))
+            n = (w.sum() * math.prod(x.shape[2:])).reshape(1)
+            sums = torch.cat([(xf * w).sum(dims),
+                              (xf.square() * w).sum(dims), n])
+            if self.data is not None:
+                sums = self.data.sum(sums)
+            C = x.shape[1]
+            mean, mean2 = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
         var = mean2 - mean.square()
         with torch.no_grad():
             m = self.momentum
@@ -205,8 +215,11 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = float(p)
         self.generator = None
+        self.data = None  # the DataGroup that data_parallel lends
 
-    def forward(self, x):
+    def forward(self, x, batched: bool = True):
+        """``batched`` False: x's leading axis is not the batch's (a table
+        broadcast over it), so every rank draws the same mask."""
         if not self.training or self.p == 0.0:
             return x
         if self.p >= 1.0:
@@ -215,8 +228,8 @@ class Dropout(nn.Module):
             raise RuntimeError("Dropout in train mode draws from a generator: "
                                "call the model inside dropout_generator()")
         keep_prob = 1.0 - self.p
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep_prob
+        keep = draw(torch.rand, x.shape, self.data if batched else None,
+                    generator=self.generator, device=x.device) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -232,3 +245,30 @@ def dropout_generator(module: nn.Module, generator):
     finally:
         for m in drops:
             m.generator = None
+
+
+def draw(fn, shape, data=None, **kwargs):
+    """``fn(shape, **kwargs)`` (``torch.rand``, ``torch.randn``, ...) or,
+    with ``data`` (a ``DataGroup``), ``data.draw``'s draw at the global
+    batch's shape cut to this rank's rows."""
+    if data is None:
+        return fn(shape, **kwargs)
+    return data.draw(fn, shape, **kwargs)
+
+
+@contextlib.contextmanager
+def data_parallel(module: nn.Module, data):
+    """Lend ``data`` (a ``parallel/distributed.py::DataGroup``, or None) to
+    every ``Dropout`` and ``WeightedBatchNorm`` under ``module`` for the
+    duration of the block: dropout masks are drawn at the global batch's
+    shape and cut to this rank's rows, BatchNorm statistics are summed
+    over the ranks."""
+    mods = [m for m in module.modules()
+            if isinstance(m, (Dropout, WeightedBatchNorm))]
+    for m in mods:
+        m.data = data
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.data = None

@@ -34,6 +34,16 @@ Counterpart of ``promptttspp_tpu/train/state.py`` (``bert_freeze_mask``,
   (``nn/layers.py::promoted``): most of the model computes in float32 with
   bf16-rounded weights. No loss scaling, as in JAX. Evaluation reads the
   float32 masters.
+- ``data`` (a ``parallel/distributed.py::DataGroup``): data parallelism.
+  Each rank's batch is its block of a global batch; the model's losses
+  are its rows' share of the global ones (global normalizers and BatchNorm
+  statistics, draws at the global shape from the same generator on every
+  rank: ``models/prompttts.py``). After the backward (and, under bf16, the
+  copy to the float32 gradients) one float32 SUM over the ranks of the
+  trainable gradients, in a few flat buckets, makes them the global
+  batch's gradient, so clip, AdamW and the norm agree on every rank; the
+  reported losses are summed over the ranks too. The frozen BERT weights
+  are not reduced.
 """
 
 from __future__ import annotations
@@ -105,9 +115,10 @@ class TrainState:
                  warmup_steps: int = 4000,
                  betas: Tuple[float, float] = (0.9, 0.98),
                  weight_decay: float = 0.0, grad_clip: float = 1.0,
-                 seed: int = 42, bf16: bool = False):
+                 seed: int = 42, bf16: bool = False, data=None):
         self.model = model
         self.seed = seed
+        self.data = data
         self.grad_clip = grad_clip
         self.schedule = noam_schedule(lr, warmup_steps)
         self.step = 0
@@ -144,7 +155,7 @@ class TrainState:
         g = step_generator(self.seed, self.step, self.device)
         self.optimizer.zero_grad(set_to_none=True)
         with float32_math():
-            losses = self.model(batch, generator=g)
+            losses = self.model(batch, generator=g, data=self.data)
             losses["loss"].backward()
         for p in self.params:
             if p.grad is None:
@@ -166,7 +177,7 @@ class TrainState:
         for p in self.shadow_params:
             p.grad = None
         with float32_math():
-            losses = self.shadow(batch, generator=g)
+            losses = self.shadow(batch, generator=g, data=self.data)
             losses["loss"].float().backward()
         pairs = [(g, p.grad) for g, p in zip(self._grads, self.shadow_params)
                  if p.grad is not None]
@@ -181,8 +192,12 @@ class TrainState:
 
     def _update(self, losses: Dict) -> Dict[str, torch.Tensor]:
         """Clip the trainable parameters' gradients by their global norm,
-        step AdamW at this update's rate."""
+        step AdamW at this update's rate; under data parallelism the
+        gradients and losses are summed over the ranks first."""
         grads = [p.grad for p in self.params]
+        if self.data is not None:
+            self.data.reduce_grads(grads)
+            losses = self._total(losses)
         norm = global_norm(grads)
         scale = torch.where(norm < self.grad_clip, 1.0,
                             self.grad_clip / norm)
@@ -196,6 +211,11 @@ class TrainState:
         out["grad_norm"] = norm.detach()
         return out
 
+    def _total(self, losses: Dict) -> Dict[str, torch.Tensor]:
+        """``losses`` summed over the ranks, in one collective."""
+        return dict(zip(losses, self.data.total(
+            torch.stack([v.detach() for v in losses.values()]))))
+
     @torch.no_grad()
     def eval_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The losses of ``batch`` on the running statistics, no dropout;
@@ -203,5 +223,6 @@ class TrainState:
         self.model.eval()
         g = step_generator(self.seed, self.step, self.device, stream=1)
         with float32_math():
-            return {k: v.detach() for k, v in
-                    self.model(batch, generator=g).items()}
+            out = {k: v.detach() for k, v in
+                   self.model(batch, generator=g, data=self.data).items()}
+        return out if self.data is None else self._total(out)

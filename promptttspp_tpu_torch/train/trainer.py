@@ -1,4 +1,4 @@
-"""Single-GPU training of the acoustic model.
+"""Training of the acoustic model, on one GPU or data-parallel over several.
 
 Counterpart of ``promptttspp_tpu/train/trainer.py::TTSTrainer``: the model,
 the optimizer and the data from the ``train`` config (``bin/conf.py``), the
@@ -24,10 +24,25 @@ chosen for the host as JAX chooses it (``auto_input_pipeline``;
 ``train.prefetch`` false means ``sync``). A mode that needs the loader
 raises if the loader does not build. Every ``train.host_sync_every``
 updates the host reads a loss back, so it runs at most that many updates
-ahead of the card. Validation assembles its batches inline. The port
-raises, naming the key, on what it does not implement: more than one
-process, a model-parallel or pipelined mesh, the XLA compilation cache and
-the per-epoch scheduler.
+ahead of the card. Validation assembles its batches inline.
+
+Data parallelism (``parallel/distributed.py``): in a process group (torchrun's
+environment, or ``train.distributed.{coordinator_address,num_processes,
+process_id}``, NCCL on a GPU and gloo on the CPU or with
+``train.distributed.backend=gloo``) each rank trains on ``cuda:LOCAL_RANK``.
+The batches are formed with a row multiple of the world size W and only
+W-divisible ones are kept (all, where none is, as JAX does); each rank
+collates its rows of every global batch at the global batch's buckets, a
+ragged batch padded with zero-weight rows, validation's too; the step is
+the global batch's (``train/state.py``). Rank 0 writes the logs,
+``loss.csv``, the profile and the checkpoints, the others wait at a
+barrier after each checkpoint; every rank restores the same checkpoint,
+and rank 0's parameters are broadcast before the first update. At world
+size 1 the step is the single-process one, bit for bit.
+
+The port raises, naming the key, on what it does not implement: a
+model-parallel or pipelined mesh (M6b), the XLA compilation cache and the
+per-epoch scheduler.
 """
 
 from __future__ import annotations
@@ -36,12 +51,14 @@ import contextlib
 import json
 import logging
 import os
+import random
 import time
 from pathlib import Path
 from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from promptttspp_tpu_torch import flagship
 from promptttspp_tpu_torch.data import native_loader
@@ -50,7 +67,9 @@ from promptttspp_tpu_torch.data.batching import (
 from promptttspp_tpu_torch.data.collate import PromptTTSCollator
 from promptttspp_tpu_torch.data.dataset import AllWithSpkPromptNormDataset
 from promptttspp_tpu_torch.data.prefetch import (
-    _collate_native, host_tensors, prefetch_batches)
+    _collate_native, entry_metas, finish, host_tensors, prefetch_batches)
+from promptttspp_tpu_torch.parallel.distributed import (
+    DataGroup, host_batches, init_distributed, rank_device)
 from promptttspp_tpu_torch.platform import resolve_device
 from promptttspp_tpu_torch.train import checkpoint as ckpt_lib
 from promptttspp_tpu_torch.train.state import TrainState
@@ -78,12 +97,10 @@ def check_supported(cfg: Mapping):
     """Raise, naming the key, where ``cfg`` asks for what the port's
     trainer does not implement."""
     refused = {
-        "train.mesh.pipeline_microbatches": "pipeline parallelism is not "
-                                            "ported",
-        "train.mesh.model_spans_processes": "more than one process is not "
-                                            "ported",
-        "train.distributed.coordinator_address": "more than one process is "
-                                                 "not ported",
+        "train.mesh.pipeline_microbatches": "pipeline parallelism (M6b) is "
+                                            "not ported",
+        "train.mesh.model_spans_processes": "a model axis across processes "
+                                            "(M6b) is not ported",
         "train.compilation_cache_dir": "the XLA compilation cache has no "
                                        "counterpart in the port",
         "train.per_epoch_scheduler": "the per-epoch scheduler is not ported",
@@ -91,12 +108,13 @@ def check_supported(cfg: Mapping):
     for key, why in refused.items():
         if select(cfg, key):
             raise ValueError(f"{key}={select(cfg, key)!r}: {why}")
-    if (select(cfg, "train.distributed.num_processes") or 1) > 1:
-        raise ValueError("train.distributed.num_processes > 1: more than "
-                         "one process is not ported")
     if (select(cfg, "train.mesh.model") or 1) > 1:
-        raise ValueError("train.mesh.model > 1: model parallelism is not "
-                         "ported")
+        raise ValueError("train.mesh.model > 1: model parallelism (M6b) is "
+                         "not ported")
+    backend = select(cfg, "train.distributed.backend")
+    if backend not in (None, "nccl", "gloo"):
+        raise ValueError(f"train.distributed.backend={backend!r}: 'nccl' or "
+                         "'gloo'")
     pipeline = select(cfg, "train.input_pipeline")
     if pipeline not in (None, *INPUT_PIPELINES):
         raise ValueError(f"train.input_pipeline={pipeline!r}: one of "
@@ -135,6 +153,20 @@ class TTSTrainer:
         self.valid_ds = None
         self.tokenizer = tokenizer
         self.device = resolve_device(cfg.get("device", "cuda"))
+        # a process group: torchrun's environment or train.distributed.*
+        self.data = None
+        if init_distributed(
+                select(cfg, "train.distributed.coordinator_address"),
+                select(cfg, "train.distributed.num_processes"),
+                select(cfg, "train.distributed.process_id"),
+                select(cfg, "train.distributed.backend"), self.device.type):
+            self.data = DataGroup.current()
+            self.device = rank_device(self.device.type)
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+        self.rank = self.data.rank if self.data else 0
+        self.world = self.data.world if self.data else 1
+        self.is_main = self.rank == 0
         self.output_dir = Path(cfg.get("output_dir", "./out"))
         self.log_dir = self.output_dir / "logs"
         self.ckpt_dir = self.output_dir / "ckpt"
@@ -150,15 +182,29 @@ class TTSTrainer:
         if select(self.cfg, "dataset.valid"):
             self.valid_ds = AllWithSpkPromptNormDataset(
                 **self.cfg["dataset"]["valid"])
+        unseeded = [ds for ds in (self.train_ds, self.valid_ds)
+                    if getattr(ds, "seed", 0) is None]
+        if self.world > 1 and unseeded:
+            # every rank draws every row's prompt (host_batches): an
+            # unseeded dataset takes rank 0's random seed, so the ranks
+            # draw alike, as one process would
+            seed = self.data.broadcast_object(random.randrange(2**31),
+                                              self.device)
+            for ds in unseeded:
+                ds.seed = seed
 
     def _setup_logging(self):
+        self.logger = logging.getLogger("promptttspp_tpu_torch.train")
+        self.logger.setLevel(logging.INFO)
+        self.writer = None
+        if not self.is_main:  # the records come from rank 0 only
+            return
         for d in (self.output_dir, self.log_dir, self.ckpt_dir):
             d.mkdir(parents=True, exist_ok=True)
         snapshot = {k: v for k, v in self.cfg.items() if k != "hydra"}
         (self.output_dir / "config.yaml").write_text(
             json.dumps(snapshot, indent=2, default=str) + "\n")
-        logger = logging.getLogger("promptttspp_tpu_torch.train")
-        logger.setLevel(logging.INFO)
+        logger = self.logger
         log_path = str((self.log_dir / "train.log").absolute())
         for h in list(logger.handlers):
             if isinstance(h, logging.FileHandler) and \
@@ -195,20 +241,50 @@ class TTSTrainer:
             betas=tuple(select(self.cfg, "optimizer.betas", (0.9, 0.98))),
             weight_decay=select(self.cfg, "optimizer.weight_decay", 0.0),
             seed=self.seed, bf16=bool(select(self.cfg, "train.bf16")
-                                      or select(self.cfg, "train.fp16")))
+                                      or select(self.cfg, "train.fp16")),
+            data=self.data)
 
     def batches(self, ds, shuffle: bool) -> ShuffleBatchSampler:
         """The batch sampler of ``ds`` (``dataset.dynamic_batch``: token
-        buckets of ``dataset.max_tokens``; else ``train.batch_size``)."""
+        buckets of ``dataset.max_tokens`` in multiples of the world size,
+        only the divisible ones kept where any is; else
+        ``train.batch_size``)."""
         if select(self.cfg, "dataset.dynamic_batch", True):
             batches = batch_by_size(
                 ds.ordered_indices(), ds.num_tokens,
-                max_tokens=select(self.cfg, "dataset.max_tokens", 10000))
+                max_tokens=select(self.cfg, "dataset.max_tokens", 10000),
+                required_batch_size_multiple=self.world)
+            batches = [b for b in batches
+                       if len(b) % self.world == 0] or batches
         else:
             bs = select(self.cfg, "train.batch_size", 32)
             idx = list(range(len(ds)))
             batches = [idx[i:i + bs] for i in range(0, len(idx), bs)]
         return ShuffleBatchSampler(batches, shuffle=shuffle, seed=self.seed)
+
+    def _rank_batches(self, sampler, ds):
+        """This rank's entries of ``sampler`` (``host_batches``: the
+        global batch's buckets, the prompts padded to its longest's, rows
+        padded to a multiple of the world size), or ``sampler`` itself at
+        world size 1."""
+        if self.world == 1:
+            return sampler
+        if not hasattr(ds, "item_meta"):
+            raise ValueError("data parallelism needs a dataset with "
+                             "item_meta and load_item_features")
+        return host_batches(sampler, ds, rank=self.rank, world=self.world,
+                            prompt_pad_to=None, row_multiple=self.world)
+
+    def _barrier(self):
+        if self.data is not None:
+            dist.barrier(device_ids=[self.device.index]
+                         if self.device.type == "cuda" else None)
+
+    def _save(self, name: str, state: TrainState, epoch: int):
+        """Rank 0 writes ``ckpt/<name>``; every rank waits for it."""
+        if self.is_main:
+            ckpt_lib.save_checkpoint(self.ckpt_dir / name, state, epoch)
+        self._barrier()
 
     # --------------------------------------------------------------- run
     def run(self, num_epochs: Optional[int] = None) -> TrainState:
@@ -219,7 +295,9 @@ class TTSTrainer:
         n_params = sum(p.numel() for p in state.params)
         self.logger.info(f"number of trainable params: {n_params / 1e6:.3f}"
                          f" M on {self.device}"
-                         + (", bf16" if state.shadow is not None else ""))
+                         + (", bf16" if state.shadow is not None else "")
+                         + (f", rank {self.rank} of {self.world}"
+                            if self.data is not None else ""))
         start_epoch = 1
         if cfg.get("ckpt_path"):
             last = ckpt_lib.restore_checkpoint(cfg["ckpt_path"], state)
@@ -229,10 +307,14 @@ class TTSTrainer:
         elif cfg.get("pretrained"):
             ckpt_lib.load_pretrained(cfg["pretrained"], state)
             self.logger.info(f"warm start from {cfg['pretrained']}")
+        if self.data is not None:
+            self.data.broadcast_module(state.model)
         num_epochs = num_epochs or select(cfg, "train.num_epochs", 1000)
         try:
             self._train_loop(state, start_epoch, num_epochs)
         except Exception:
+            if not self.is_main:
+                raise
             try:
                 ckpt_lib.save_checkpoint(self.ckpt_dir / "crash", state,
                                          epoch=-1)
@@ -250,7 +332,7 @@ class TTSTrainer:
         """Start the profiler before update ``train.profile_steps``, stop
         and export it after three updates."""
         first = select(self.cfg, "train.profile_steps", 0)
-        if not first:
+        if not first or not self.is_main:
             return
         if global_step == first:
             from torch.profiler import ProfilerActivity, profile
@@ -300,16 +382,25 @@ class TTSTrainer:
                     "Python") from e
         return pipeline
 
-    def _sync_batches(self, sampler, collator, native: bool = False):
-        """Inline assembly: each batch built when it is due, with the C++
-        loader under ``native``; -> (host batch, device batch)."""
-        ds = self.train_ds
-        for idx in sampler:
-            if native:
-                batch = _collate_native([ds.item_meta(i) for i in idx],
-                                        collator, ds.stats)
+    def _sync_batches(self, sampler, collator, native: bool = False,
+                      ds=None):
+        """Inline assembly of ``ds``'s (default: the training set's)
+        batches, each built when it is due, with the C++ loader under
+        ``native``; -> (host batch, device batch)."""
+        ds = self.train_ds if ds is None else ds
+        for entry in sampler:
+            if isinstance(entry, tuple) or native:
+                metas, kwargs, padding = entry_metas(ds, entry,
+                                                     collator.tokenizer)
+                if native:
+                    batch = _collate_native(metas, collator, ds.stats,
+                                            **kwargs)
+                else:
+                    batch = collator([ds.load_item_features(m)
+                                      for m in metas], **kwargs)
+                batch = finish(batch, padding)
             else:
-                batch = collator([ds[i] for i in idx])
+                batch = collator([ds[i] for i in entry])
             yield batch, to_device(batch, self.device)
 
     def _train_loop(self, state: TrainState, start_epoch: int,
@@ -320,7 +411,8 @@ class TTSTrainer:
         save_interval = select(cfg, "train.save_interval", 20)
         host_sync_every = select(cfg, "train.host_sync_every", 64)
         pipeline = self.input_pipeline()
-        tracker = Tracker(str(self.log_dir / "loss.csv"))
+        tracker = Tracker(str(self.log_dir / "loss.csv")
+                          if self.is_main else None)
         global_step = state.step
         for epoch in range(start_epoch, num_epochs + 1):
             sampler.set_epoch(epoch)
@@ -330,18 +422,20 @@ class TTSTrainer:
             tracker.reset()
             t0 = time.perf_counter()
             n_frames, n_steps, sums = 0, 0, None
+            epoch_sampler = self._rank_batches(sampler, self.train_ds)
             if pipeline == "prefetch":
                 loader = prefetch_batches(
-                    self.train_ds, sampler, collator,
+                    self.train_ds, epoch_sampler, collator,
                     model_keys=MODEL_BATCH_KEYS, device=self.device,
                     num_workers=select(cfg, "train.num_workers", 8),
                     prefetch_depth=select(cfg, "train.prefetch_depth", 3))
             else:
                 loader = self._sync_batches(
-                    sampler, collator, native=pipeline == "sync_native")
+                    epoch_sampler, collator, native=pipeline == "sync_native")
             with contextlib.closing(loader):  # stops a prefetch on a fault
                 for batch, device_batch in loader:
-                    n_frames += int(np.sum(batch["frame_lengths"]))
+                    n_frames += int(np.sum(batch["frame_lengths"]
+                                           * (batch["batch_weight"] > 0)))
                     self._profile(global_step)
                     metrics = state.train_step(device_batch)
                     if host_sync_every and \
@@ -356,6 +450,10 @@ class TTSTrainer:
                 vals = torch.stack(list(sums.values())).tolist()
                 tracker.update({k: v / n_steps
                                 for k, v in zip(sums, vals)})
+            if self.data is not None:  # every rank's real frames
+                n_frames = int(self.data.total(torch.tensor(
+                    [n_frames], dtype=torch.float64,
+                    device=self.device)).item())
             dt = time.perf_counter() - t0
             avgs = tracker.averages()
             fps = n_frames / max(dt, 1e-9)
@@ -370,17 +468,22 @@ class TTSTrainer:
                                        global_step)
             if self.valid_ds is not None:
                 self._validate(state, collator, epoch, global_step)
-            ckpt_lib.save_checkpoint(self.ckpt_dir / "last", state, epoch)
+            self._save("last", state, epoch)
             if epoch % save_interval == 0:
-                ckpt_lib.save_checkpoint(
-                    self.ckpt_dir / f"epoch-{epoch:04d}", state, epoch)
+                self._save(f"epoch-{epoch:04d}", state, epoch)
             tracker.write(epoch)
 
     def _validate(self, state, collator, epoch: int, global_step: int):
+        """The validation losses on the running statistics; under data
+        parallelism each rank evaluates its rows of every global batch,
+        padded as the training batches are, and the losses are the global
+        batch's."""
         vtracker = Tracker()
-        for idx in self.batches(self.valid_ds, shuffle=False):
-            batch = collator([self.valid_ds[i] for i in idx])
-            out = state.eval_step(to_device(batch, self.device))
+        sampler = self._rank_batches(
+            self.batches(self.valid_ds, shuffle=False), self.valid_ds)
+        for _, device_batch in self._sync_batches(sampler, collator,
+                                                  ds=self.valid_ds):
+            out = state.eval_step(device_batch)
             vals = dict(zip(out, torch.stack(list(out.values())).tolist()))
             vtracker.update(vals)
             if self.writer is not None:

@@ -1,12 +1,14 @@
 """Chunked and streaming vocoder synthesis.
 
-Counterpart of ``promptttspp_tpu/vocoders/streaming.py`` (``vocode_chunked``
-and ``vocode_streaming``). The vocoder runs over fixed-size mel chunks, each
-with ``halo_frames`` of context on both sides that is synthesized and
-dropped:
+Counterpart of ``promptttspp_tpu/vocoders/streaming.py`` (``vocode_chunked``,
+``vocode_sharded`` and ``vocode_streaming``). The vocoder runs over
+fixed-size mel chunks, each with ``halo_frames`` of context on both sides
+that is synthesized and dropped:
 
 - ``vocode_chunked`` folds the chunks into the batch axis and synthesizes
   them in one vocoder call;
+- ``vocode_sharded`` pads that chunk batch to a multiple of a mesh's data
+  axis and splits it over its devices, one vocoder call on each;
 - ``vocode_streaming`` yields waveform chunks one after another (the first
   may be shorter, ``first_chunk_frames``: the time-to-first-audio ramp).
 
@@ -24,6 +26,8 @@ from typing import Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from promptttspp_tpu_torch.parallel.mesh import replicas as mesh_replicas
 
 
 def _replicate(x, left: int, right: int):
@@ -73,21 +77,19 @@ def _chunk_grid(T: int, step: int, first: Optional[int] = None
     return spans, first + n_rest * step
 
 
-def vocode_chunked(vocoder, mel, f0=None, chunk_frames: int = 256,
-                   halo_frames: int = 16, upsample: int = 240,
-                   sample_rate: Optional[int] = None, **forward_kwargs):
-    """mel [B, T, n_mels] (+ f0 [B, T, 1]) -> wav [B, T * upsample, 1],
-    every chunk in one batched vocoder call."""
+def _chunk_batch(vocoder, mel, f0, n_chunks: int, step: int,
+                 halo_frames: int, upsample: int, sample_rate):
+    """The vocoder's inputs for ``n_chunks`` chunks of ``step`` frames
+    with their halos, folded into the batch axis -> (args, kwargs), each
+    tensor [B * n_chunks, ...], batch-major."""
     B, T, M = mel.shape
-    step = chunk_frames
-    n_chunks = -(-T // step)
     Tp = n_chunks * step
     win = step + 2 * halo_frames
     idx = (torch.arange(n_chunks, device=mel.device)[:, None] * step
            + torch.arange(win, device=mel.device)[None, :])  # [n, win]
     mel_p = _replicate(_pad_to(mel, Tp + halo_frames), halo_frames, 0)
     args = (mel_p[:, idx, :].reshape(B * n_chunks, win, M),)
-    kwargs = dict(forward_kwargs)
+    kwargs = {}
     if f0 is not None:
         f0_p = _replicate(_pad_to(f0, Tp + halo_frames), halo_frames, 0)
         args = args + (f0_p[:, idx, :].reshape(B * n_chunks, win, 1),)
@@ -97,11 +99,59 @@ def vocode_chunked(vocoder, mel, f0=None, chunk_frames: int = 256,
             kwargs["phase0"] = _chunk_phase0(
                 f0_p, starts, halo_frames, upsample, sr).reshape(
                     B * n_chunks, 1)
-    wav_c = vocoder(*args, **kwargs)
+    return args, kwargs
+
+
+def _stitch(wav_c, B: int, T: int, n_chunks: int, step: int,
+            halo_frames: int, upsample: int):
+    """The chunks' waveforms [B * n_chunks, samples, 1] without their halos,
+    joined -> [B, T * upsample, 1]."""
     h = halo_frames * upsample
     wav = wav_c[:, h:h + step * upsample, :].reshape(
         B, n_chunks * step * upsample, 1)
     return wav[:, : T * upsample, :]
+
+
+def vocode_chunked(vocoder, mel, f0=None, chunk_frames: int = 256,
+                   halo_frames: int = 16, upsample: int = 240,
+                   sample_rate: Optional[int] = None, **forward_kwargs):
+    """mel [B, T, n_mels] (+ f0 [B, T, 1]) -> wav [B, T * upsample, 1],
+    every chunk in one batched vocoder call."""
+    B, T, _ = mel.shape
+    n_chunks = -(-T // chunk_frames)
+    args, kwargs = _chunk_batch(vocoder, mel, f0, n_chunks, chunk_frames,
+                                halo_frames, upsample, sample_rate)
+    wav_c = vocoder(*args, **forward_kwargs, **kwargs)
+    return _stitch(wav_c, B, T, n_chunks, chunk_frames, halo_frames,
+                   upsample)
+
+
+def vocode_sharded(mesh, vocoder, mel, f0=None, chunk_frames: int = 256,
+                   halo_frames: int = 16, upsample: int = 240,
+                   sample_rate: Optional[int] = None, replicas=None,
+                   **forward_kwargs):
+    """``vocode_chunked`` spread over ``mesh``'s data axis: the chunk
+    batch, padded to a multiple of the axis's W chunks, is split into W
+    contiguous blocks, one vocoder call each on its device
+    (``replicas``: {device: vocoder}, default ``parallel.mesh.replicas``); the
+    waveform comes back on mel's device. Padding chunks are synthesized
+    and dropped, so the result is ``vocode_chunked``'s."""
+    B, T, _ = mel.shape
+    devices = mesh.data_devices
+    n_data = len(devices)
+    n_chunks = -(-(-(-T // chunk_frames)) // n_data) * n_data
+    args, kwargs = _chunk_batch(vocoder, mel, f0, n_chunks, chunk_frames,
+                                halo_frames, upsample, sample_rate)
+    replicas = replicas or mesh_replicas(vocoder, devices)
+    per = B * n_chunks // n_data
+    outs = []
+    for i, d in enumerate(devices):
+        rows = slice(i * per, (i + 1) * per)
+        outs.append(replicas[d](
+            *(a[rows].to(d) for a in args), **forward_kwargs,
+            **{k: v[rows].to(d) for k, v in kwargs.items()}).to(mel.device))
+    return _stitch(torch.cat(outs), B, T, n_chunks, chunk_frames,
+                   halo_frames, upsample)
 
 
 def vocode_streaming(vocoder, mel, f0=None, chunk_frames: int = 256,

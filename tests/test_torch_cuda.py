@@ -1126,3 +1126,83 @@ def test_preprocess_cli_on_the_card(dev, tmp_path):
         assert mel.shape[0] == 80 and cf0.shape == (1, mel.shape[1])
         assert np.isfinite(mel).all() and np.isfinite(cf0).all()
     assert (dump / "mel63/stats.yaml").exists()
+
+
+@pytest.mark.parametrize("C,T,k,d", [(32, 153600, 11, 5), (256, 3840, 3, 1)])
+def test_k2_bf16_on_a_second_card_after_the_first(dev, C, T, k, d):
+    """K2-bf16 lifts its shared-memory cap per device: a layer launched on
+    cuda:1 after cuda:0, at flagship shapes whose plans ask for more than
+    the 48 KB default, against the plain version on each card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    assert k2.wgmma_plan(C, k, d)["smem"] > 48 * 1024
+    for d_ in (dev, torch.device("cuda", 1)):
+        g = torch.Generator(device=d_).manual_seed(12)
+        args = _layer_args(g, 1, T, C, k, d)
+        out = k2.amp_layer(*args, bf16=True)
+        torch.cuda.synchronize(d_)
+        assert out.device == d_
+        torch.testing.assert_close(out, k2.amp_layer_plain(*args, bf16=True),
+                                   **K2_BF16_TOL)
+
+
+def test_nccl_step_at_world_size_one_equals_the_plain_step(dev,
+                                                           monkeypatch):
+    """A ``TrainState`` step over an NCCL group of one rank (the global
+    counts, the draws at the global shape and the gradient sum all run, as
+    identities) equals the step without a group bit for bit, dropout on,
+    under deterministic algorithms (else the backward's float atomics sum
+    in another order in any two steps)."""
+    import torch.distributed as dist
+
+    from promptttspp_tpu_torch.bin.train import free_port
+    from promptttspp_tpu_torch.parallel.distributed import DataGroup
+    from promptttspp_tpu_torch.train.state import TrainState
+
+    batch = train_batch()
+    del batch["diffusion_t"], batch["diffusion_noise"]
+    models = [flagship.build_model(tiny_model_config(), dev, 0, TINY_BERT)
+              for _ in range(2)]
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        outs = [TrainState(m, seed=0, data=data, **OPT).train_step(
+            torch_batch(batch, dev)) for m, data in
+            zip(models, (None, DataGroup(0, 1)))]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    for k, v in outs[0].items():
+        assert torch.equal(outs[1][k], v), k
+    ref = models[0].state_dict()
+    for k, v in models[1].state_dict().items():
+        assert torch.equal(v, ref[k]), k
+
+
+def test_sharded_vocoder_on_one_card_equals_chunked(dev):
+    """``vocode_sharded`` over the mesh [cuda:0, cuda:0] (5 chunks padded
+    to 6, K1 and K2-bf16 launched once per shard's call) against
+    ``vocode_chunked`` on the card."""
+    from promptttspp_tpu_torch.parallel import make_mesh
+    from promptttspp_tpu_torch.vocoders.streaming import (
+        vocode_chunked, vocode_sharded)
+
+    synth = _tiny_synth(dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    mel = _randn(g, 1, 80, MEL)
+    f0 = 150.0 + 20.0 * torch.sin(torch.linspace(0, 6, 80, device=dev))
+    kw = dict(chunk_frames=16, halo_frames=4, upsample=240,
+              deterministic=True)
+    with torch.inference_mode():
+        ref = vocode_chunked(synth.vocoder, mel, f0[None, :, None], **kw)
+        before = (k1.antialias_snake.launches, k2.amp_layer.launches_bf16)
+        out = vocode_sharded(make_mesh(devices=[dev, dev]), synth.vocoder,
+                             mel, f0[None, :, None], **kw)
+        torch.cuda.synchronize()
+    n_layers = (k2.amp_layer.launches_bf16 - before[1]) // 2
+    assert k1.antialias_snake.launches - before[0] == 2 and n_layers > 0
+    assert out.shape == ref.shape
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)

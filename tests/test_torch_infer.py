@@ -111,7 +111,7 @@ def test_exactly_one_conditioning(port_kw):
     with pytest.raises(ValueError, match="to_mel"):
         synth.synthesize(SEQS, reference_wavs=_ref_wavs())
     with pytest.raises(ValueError, match="vocoder_mode"):
-        Synthesizer(vocoder_mode="sharded", **port_kw)
+        Synthesizer(vocoder_mode="streamed", **port_kw)
 
 
 def _two_phase(port_kw, frame_quantum, seed=2, **cond):

@@ -365,10 +365,11 @@ def test_noam_rates_match_optax():
         assert ours(0) == ours(1)
 
 
-def test_three_train_steps_match_jax(twins):
-    """``TrainState.train_step`` three times against ``make_train_step``
-    (clip 1.0, AdamW, Noam, BERT freeze): the losses and grad_norm of each
-    step, then every parameter and BatchNorm statistic."""
+@pytest.fixture(scope="module")
+def jax_step(twins):
+    """JAX's initial train state of the twins and its jitted
+    ``make_train_step`` (clip 1.0, AdamW, Noam, BERT freeze), compiled once
+    for the module's [3, 12, 64] batches."""
     from promptttspp_tpu.train.state import (
         TrainState as JaxState, bert_freeze_mask, freeze_opt_state,
         make_optimizer, make_train_step)
@@ -380,7 +381,15 @@ def test_three_train_steps_match_jax(twins):
     jstate = freeze_opt_state(JaxState(
         step=jnp.zeros((), jnp.int32), params=variables["params"],
         batch_stats=variables["batch_stats"], opt_state=None), tx, mask)
-    step = make_train_step(model, tx, donate=False, freeze_mask=mask)
+    return jstate, make_train_step(model, tx, donate=False, freeze_mask=mask)
+
+
+def test_three_train_steps_match_jax(twins, jax_step):
+    """``TrainState.train_step`` three times against ``make_train_step``
+    (clip 1.0, AdamW, Noam, BERT freeze): the losses and grad_norm of each
+    step, then every parameter and BatchNorm statistic."""
+    _, variables = twins
+    jstate, step = jax_step
     port = port_model(variables)
     state = TrainState(port, seed=0, **OPT)
     for i in range(3):
@@ -406,3 +415,36 @@ def test_three_train_steps_match_jax(twins):
         if k in init:
             moved = max(moved, float((v - init[k]).abs().max()))
     assert moved > 1e-4  # the updates are far larger than the tolerance
+
+
+def test_step_on_a_padded_batch_matches_jax(twins, jax_step):
+    """One update on a batch padded with a zero-weight row (2 real rows to
+    3, ``parallel/mesh.py::pad_batch_to_multiple``, equal to JAX's
+    padding) against JAX's step on the same padded batch: the losses,
+    grad_norm, parameters and statistics at the three-step test's bars."""
+    from promptttspp_tpu.parallel.mesh import (
+        pad_batch_to_multiple as jax_pad)
+
+    from promptttspp_tpu_torch.parallel.mesh import pad_batch_to_multiple
+
+    _, variables = twins
+    jstate, step = jax_step
+    batch = train_batch(seed=31, B=2, weights=(1.0, 1.0))
+    padded = pad_batch_to_multiple(dict(batch), 3)
+    ref_padded = jax_pad(dict(batch), 3)
+    assert sorted(padded) == sorted(ref_padded)
+    for k, v in padded.items():
+        np.testing.assert_array_equal(v, ref_padded[k], err_msg=k)
+    jstate, ref = step(jstate, {k: jnp.asarray(v) for k, v in padded.items()},
+                       jax.random.PRNGKey(0))
+    port = port_model(variables)
+    out = TrainState(port, seed=0, **OPT).train_step(torch_batch(padded))
+    for k in LOSS_KEYS + ("grad_norm",):
+        np.testing.assert_allclose(float(out[k]), float(ref[k]), err_msg=k,
+                                   **LOSS_TOL)
+    sd = port.state_dict()
+    for k, v in {**_named(jstate.params),
+                 **_named(jstate.batch_stats, "batch_stats")}.items():
+        if not k.endswith("num_batches_tracked"):
+            np.testing.assert_allclose(sd[k].numpy(), v.numpy(), atol=1e-5,
+                                       rtol=0, err_msg=k)
