@@ -7,7 +7,7 @@ Run from the repository root, with no arguments:
 
 ``python3 chip_smoke.py --phase12`` builds the kernels and runs phase 12
 alone (on every visible GPU where it uses more than one), with no result
-line.
+line; ``--phase13`` does the same for phase 13.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -175,7 +175,35 @@ Phases (any failure exits non-zero and prints no result line):
     before, read just after), the decode and vocoder times of both paths.
     Where there are two GPUs or more, the request also runs over
     ``[cuda:0, cuda:1]``; with one the lines say so.
-13. Print the ``kernels`` JSON line, the GPU line and the result line.
+13. The model axis (``parallel/tp.py``, ``parallel/pp.py``), at the
+    flagship's widths: (a) TP=2 training: three updates of ``bin/train.py``
+    with ``train.mesh.model=2`` (batches of the config's 32 rows, peak
+    rate from the first update) on two gloo ranks spawned on ``cuda:0``
+    (NCCL over two GPUs where there are two), against one process on the
+    same batches: the first update's losses and grad_norm within 1e-5
+    relative, its whole gradient (the sharded tensors joined) at phase
+    12's bars, the later losses and the whole ``ckpt/last`` as phase 12
+    holds them; the update span, the model group's all-reduce time and
+    bytes per update and each rank's peak memory; the all-reduces in each
+    update's forward and backward must number ``TP_ALLREDUCES`` (one per
+    row product, gather and shared column input). (b) PP training: ten
+    updates with ``train.mesh.model=5``, ``pipeline_microbatches=5`` and
+    ``model_spans_processes`` (TP off, as JAX turns it off) on five gloo
+    ranks on ``cuda:0``: S = 5 stages of the DiffNet's 20 blocks (the
+    only S > 1 its dilation cycle allows) over batches of 30 rows, against
+    the unpipelined process on the same batches at the same bars, the
+    later-updates bar on updates 2-3 (the one process run again drifts
+    from itself by up to about 1e-2 by the tenth update: printed beside
+    it), and one stage in 5 microbatches in one process held alike.
+    (c) PP serving: ``Synthesizer(decode_pipelined=True, mesh=Mesh([[cuda:0]
+    * 5]))``, one request at 1 microbatch and a batch of two at 2 (and,
+    where there are two GPUs or more, one request over the GPUs in turn):
+    the mel within 1e-5 of the unpipelined eager decode's, the wav through
+    K1 and K2-bf16 (launch counts set to 0 just before and read just
+    after), the pipelined decode's time beside the graph decode's. (d)
+    ``tools/dryrun_multichip.py``'s three checks (DP x TP, SP, DP x PP on
+    four ranks: gloo on ``cuda:0``, or NCCL over four GPUs).
+14. Print the ``kernels`` JSON line, the GPU line and the result line.
 
 TF32 is switched off for cuDNN convolutions and cuBLAS matrix products, so
 the plain versions are full float32 references; the bf16 plain version
@@ -298,6 +326,19 @@ SHARDED_MEL_ATOL, PARALLEL_TURNS = 1e-5, 3
 # the train CLI in this process, timed from here: on a machine with more
 # than one GPU it would otherwise spawn one worker per GPU
 ONE_PROCESS = "+train.distributed.num_processes=1"
+# phase 13: TP over 2 ranks at phase 12's batches; PP of the DiffNet's 20
+# blocks in 5 stages of one dilation cycle (4 blocks), 5 microbatches of 6
+# rows (30: the multiple of 5 nearest the config's 32), PP_UPDATES
+# updates; the serving mesh's stages
+TP_RANKS, PP_STAGES, PP_MICRO, PP_BATCH, PP_UPDATES = 2, 5, 5, 30, 10
+# the model group's all-reduces in a TP update's forward and backward: one
+# after each row product (4 conformer blocks x 3, 12 BERT layers x 2, 20
+# DiffNet blocks and mlp.2, the GST's linear_out: 58), the adaptor's gather
+# (1), and one in the backward per distinct input of the column products
+# that takes a gradient (4 conformer blocks x (q|k|v + 2 w_1), the GST's
+# query and k|v, 20 dilated_conv and one cond for every conditioner
+# projection, adaptor.0, the last BERT layer's intermediate.dense: 37)
+TP_ALLREDUCES = 96
 
 
 def gpu_line() -> str:
@@ -703,6 +744,12 @@ def main() -> int:
           flush=True)
     phase_parallel(k1, k2, model, vocoder, seqs, prompts, dev, gpu, failures)
 
+    # -- phase 13: the model axis ----------------------------------------------
+    print(f"phase 13 starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    piped = phase_model_axis(k1, k2, model, vocoder, seqs, prompts, dev,
+                             gpu, failures)
+
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -712,6 +759,7 @@ def main() -> int:
              source="promptttspp_tpu_torch/csrc/antialias_snake.cu",
              replaces="promptttspp_tpu/ops/pallas/snake.py:248",
              launches=launches["antialias_snake"], max_abs_err=k1_err,
+             launches_pipelined_request=piped["antialias_snake"],
              ms=k1_row["ms"], plain_ms=k1_row["plain_ms"],
              bound_ms=k1_row["bound_ms"], bound_by=k1_row["bound_by"],
              library_ms=None, shape=k1_row["shape"]),
@@ -719,6 +767,7 @@ def main() -> int:
              source="promptttspp_tpu_torch/csrc/amp_layer_wgmma.cu",
              replaces="promptttspp_tpu/ops/pallas/amp.py:332",
              launches=launches["amp_layer_bf16"],
+             launches_pipelined_request=piped["amp_layer_bf16"],
              max_abs_err=k2bf_row["err"], ms=k2bf_row["ms"],
              plain_ms=k2bf_row["plain_ms"], bound_ms=k2bf_row["bound_ms"],
              bound_by=k2bf_row["bound_by"], library_ms=None,
@@ -2369,14 +2418,19 @@ def _timed_train(argv):
     import torch
 
     from promptttspp_tpu_torch.bin import train as train_cli
+    from promptttspp_tpu_torch.parallel import distributed
     from promptttspp_tpu_torch.parallel.distributed import DataGroup
-    from promptttspp_tpu_torch.train import state as state_lib
     from promptttspp_tpu_torch.train.state import TrainState
 
-    spans, losses, reduces, nbytes = [], [], [], []
-    init, grad = {}, []
+    spans, losses, reduces, nbytes, keys = [], [], [], [], []
+    init, grad, calls = {}, [], []
+    # where an all-reduce is made: in the model's forward and backward
+    # ("layers"), in the update's gradient sums and norm ("update"), or in
+    # joining the first gradient for the comparison ("probe", not counted)
+    where = ["layers"]
     step_fn, reduce_fn = TrainState.train_step, DataGroup.reduce_grads
-    norm_fn = state_lib.global_norm
+    norm_fn, all_reduce_fn = TrainState._global_norm, distributed._all_reduce
+    update_fn = TrainState._update
 
     def timed_step(self, b):
         if not spans:  # on the host, out of the peak memory
@@ -2388,6 +2442,7 @@ def _timed_train(argv):
         evs[1].record()
         spans.append(evs)
         losses.append(torch.stack(list(out.values())))
+        keys[:] = list(out)
         return out
 
     def timed_reduce(self, grads, *a, **kw):
@@ -2399,11 +2454,38 @@ def _timed_train(argv):
         nbytes.append(n)
         return n
 
-    def first_norm(tensors):
-        # the gradient the clip and AdamW see: after the all-reduce
+    def update(self, step_losses):
+        where[0] = "update"
+        try:
+            return update_fn(self, step_losses)
+        finally:
+            where[0] = "layers"
+
+    def first_norm(self, tensors):
+        # the gradient the clip and AdamW see: after the all-reduces, the
+        # tensors sharded over a model group joined (a collective there)
         if not grad:
-            grad.append([t.detach().to("cpu", copy=True) for t in tensors])
-        return norm_fn(tensors)
+            shards = getattr(self.model, "tp_shards", None) or {}
+            where[0] = "probe"
+            grad.append([
+                (self.model.tp_group.gather_dim(
+                    t, shards[n].dim, shards[n].interleave)
+                 if n in shards else t).detach().to("cpu", copy=True)
+                for n, t in zip(self.trainable, tensors)])
+            where[0] = "update"
+        return norm_fn(self, tensors)
+
+    def timed_all_reduce(x, group=None):
+        # every all-reduce, with its group, update and place (the model
+        # group's "layers" ones are TP's collectives in the forward and
+        # backward, or the pipeline's)
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        evs[0].record()
+        out = all_reduce_fn(x, group)
+        evs[1].record()
+        calls.append((len(spans), group, evs, x.numel() * x.element_size(),
+                      where[0]))
+        return out
 
     cwd = os.getcwd()
     torch.cuda.synchronize()
@@ -2412,18 +2494,31 @@ def _timed_train(argv):
     try:
         with mock.patch.object(TrainState, "train_step", timed_step), \
                 mock.patch.object(DataGroup, "reduce_grads", timed_reduce), \
-                mock.patch.object(state_lib, "global_norm", first_norm):
+                mock.patch.object(TrainState, "_global_norm", first_norm), \
+                mock.patch.object(TrainState, "_update", update), \
+                mock.patch.object(distributed, "_all_reduce",
+                                  timed_all_reduce):
             trainer = train_cli.main(argv)
         torch.cuda.synchronize()
     finally:
         os.chdir(cwd)
+    group = getattr(trainer.model_group, "group", False)
+    model_ms, model_bytes = [0.0] * len(spans), [0] * len(spans)
+    model_calls = {"layers": [0] * len(spans), "update": [0] * len(spans)}
+    for i, g, (a, b), n, at in calls:  # i: the update the call was in
+        if g is group and i < len(spans) and at != "probe":
+            model_ms[i] += a.elapsed_time(b)
+            model_bytes[i] += n
+            model_calls[at][i] += 1
     out = dict(
+        model_allreduce_ms=model_ms, model_allreduce_bytes=model_bytes,
+        model_allreduce_calls=model_calls,
         wall_s=time.perf_counter() - t0,
         update_ms=[a.elapsed_time(b) for a, b in spans],
         allreduce_ms=[a.elapsed_time(b) for a, b in reduces],
         allreduce_bytes=nbytes,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-        losses=torch.stack(losses).cpu().numpy().tolist(),
+        losses=torch.stack(losses).cpu().numpy().tolist(), loss_keys=keys,
         device=str(trainer.device), world=trainer.world,
         tensors=dict(
             state_dict={k: v.detach().cpu().clone() for k, v in
@@ -2518,9 +2613,13 @@ def _param_gap(sd, ref, init=None):
     return out
 
 
-def _agreement(st, ref):
+def _agreement(st, ref, ckpts=None, held=None):
     """Run ``st`` against one process's run ``ref`` on the same global
-    batches -> (its gaps, the failures among them)."""
+    batches -> (its gaps, the failures among them). ``ckpts``: the two
+    runs' ``ckpt/last`` (whole files), whose parameters are compared in
+    place of ``st``'s own (a model sharded over a model group holds
+    slices). ``held``: the later-updates bar holds the first ``held``
+    updates only (the rest are reported)."""
     import numpy as np
     import torch
 
@@ -2528,15 +2627,29 @@ def _agreement(st, ref):
     rel = np.abs(a - b) / np.abs(b) if a.shape == b.shape else \
         np.full((2, 1), np.inf)
     grad, grad_ref = st["tensors"]["grad"], ref["tensors"]["grad"]
-    floor = PARALLEL_GRAD_FLOOR * float(torch.stack(
-        [g.norm() for g in grad_ref.values()]).norm())
-    grad_rel = max(float((grad[k] - g).norm()) / (float(g.norm()) + floor)
-                   for k, g in grad_ref.items())
-    gap = _param_gap(st["tensors"]["state_dict"],
-                     ref["tensors"]["state_dict"], ref["tensors"]["init"])
+    norm = lambda ts: float(torch.stack([t.norm() for t in ts]).norm())
+    whole = norm(grad_ref.values())
+    tensor_rel = sorted(((float((grad[k] - g).norm())
+                          / (float(g.norm()) + PARALLEL_GRAD_FLOOR * whole),
+                          k) for k, g in grad_ref.items()), reverse=True)
+    grad_rel = tensor_rel[0][0]
+    if ckpts is None:
+        gap = _param_gap(st["tensors"]["state_dict"],
+                         ref["tensors"]["state_dict"], ref["tensors"]["init"])
+    else:
+        gap = _param_gap(*(torch.load(c, weights_only=True)["model"]
+                           for c in ckpts))
+        gap["update_l2"] = _param_gap(
+            ref["tensors"]["state_dict"], ref["tensors"]["state_dict"],
+            ref["tensors"]["init"])["update_l2"]
     gap.update(first_rel=float(rel[0].max()),
-               later_rel=float(rel[1:].max()) if len(rel) > 1 else 0.0,
-               grad_rel=grad_rel, param_rel=gap["l2"] / gap["update_l2"])
+               later_rel=float(rel[1:held].max()) if len(rel) > 1
+               else 0.0,
+               grad_rel=grad_rel, param_rel=gap["l2"] / gap["update_l2"],
+               whole_grad_rel=norm(grad[k] - g for k, g in grad_ref.items())
+               / whole, loss_rel=[float(r[0]) for r in rel],
+               worst=[(ref["loss_keys"][int(np.argmax(r))], float(r.max()))
+                      for r in rel], worst_tensors=tensor_rel[:3])
     bad = []
     if not gap["first_rel"] <= PARALLEL_LOSS_RTOL:
         bad.append(f"first update's losses and grad_norm "
@@ -2558,12 +2671,15 @@ def _gap_text(gap):
             f"later updates' {gap['later_rel']:.3g} (bar "
             f"{PARALLEL_LATER_RTOL}); the first update's gradient "
             f"{gap['grad_rel']:.3g} relative, L2, in its worst tensor (bar "
-            f"{PARALLEL_GRAD_RTOL}); parameters and statistics: L2 "
+            f"{PARALLEL_GRAD_RTOL}; the worst three "
+            + ", ".join(f"{k} {r:.3g}" for r, k in gap["worst_tensors"])
+            + f"); parameters and statistics: L2 "
             f"{gap['l2']:.3g} from one process's against the updates' "
             f"{gap['update_l2']:.3g} ({gap['param_rel']:.3g}, bar "
             f"{PARALLEL_PARAM_RTOL}), largest difference {gap['diff']:.3g} "
             f"(largest value {gap['scale']:.3g}, largest change "
-            f"{gap['moved']:.3g})")
+            f"{gap['moved']:.3g}); the worst loss or grad_norm per update "
+            + str([f"{k} {r:.3g}" for k, r in gap["worst"]]))
 
 
 def _train_line(gpu, label, st):
@@ -2806,6 +2922,229 @@ def phase_parallel(k1, k2, model, vocoder, seqs, prompts, dev, gpu,
           flush=True)
 
 
+def _model_axis_line(gpu, label, st):
+    import numpy as np
+
+    calls = st["model_allreduce_calls"]
+    return (f"[{gpu}] phase 13 {label} on {st['device']}: update ms "
+            f"{[round(t, 1) for t in st['update_ms']]}; model group "
+            f"all-reduces per update: {calls['layers']} in the forward and "
+            f"backward, {calls['update']} in the update, "
+            f"{np.median(st['model_allreduce_ms']):.1f} ms median "
+            f"(CUDA events around each), "
+            f"{np.median(st['model_allreduce_bytes']) / 2**20:.1f} MiB; "
+            f"data group gradient all-reduce "
+            + (f"{np.median(st['allreduce_ms']):.1f} ms"
+               if st["allreduce_ms"] else "none")
+            + f"; peak {st['peak_gib']:.2f} GiB; wall {st['wall_s']:.1f} s")
+
+
+def phase_model_axis(k1, k2, model, vocoder, seqs, prompts, dev, gpu,
+                     failures):
+    """Tensor and pipeline parallelism at the flagship's widths (see phase
+    13 of the module docstring) -> the launch counts of the pipelined
+    single request."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from promptttspp_tpu_torch import flagship
+    from promptttspp_tpu_torch.data.dataset import (
+        read_prompt_candidate, read_spk_prompt_candidate)
+    from promptttspp_tpu_torch.infer import Synthesizer
+    from promptttspp_tpu_torch.models import decode_graph
+    from promptttspp_tpu_torch.parallel.mesh import Mesh
+    from promptttspp_tpu_torch.tools import dryrun_multichip
+    from promptttspp_tpu_torch.tools.synthetic_corpus import (
+        training_rows, write_training_corpus)
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    root = OUT_DIR / "model_axis"
+    shutil.rmtree(root, ignore_errors=True)
+    meta = ROOT / "metadata"
+    cands = read_prompt_candidate(meta / "style_prompt_candidates.csv")
+    spk = read_spk_prompt_candidate(meta / "speaker_prompt_candidates.csv")
+    # phase 12's corpus: PARALLEL_UPDATES batches of PARALLEL_BATCH rows
+    # (TP), and PP_UPDATES of PP_BATCH (PP)
+    for name, n_train in (("corpus_tp", PARALLEL_BATCH * PARALLEL_UPDATES),
+                          ("corpus_pp", PP_BATCH * PP_UPDATES)):
+        rows = training_rows(n_train + 2, cands, spk, TRAIN_PHONES,
+                             TRAIN_FPP, valid_every=(n_train + 2) // 2,
+                             seed=12)
+        write_training_corpus(root / name, rows, cands, spk,
+                              n_mels=flagship.MODEL["decoder"]["out_dim"],
+                              mel_mean=-5.0, mel_std=2.0, seed=13)
+
+    def argv(name, batch=PARALLEL_BATCH, corpus="corpus_tp"):
+        return [f"path.root={root / corpus}", f"output_dir={root / name}",
+                f"hydra.run.dir={root / 'run'}", "train.num_epochs=1",
+                "dataset.dynamic_batch=false", f"train.batch_size={batch}",
+                "train.seed=5", "+dataset.train.seed=1",
+                "+dataset.valid.seed=2", "+train.input_pipeline=sync",
+                PARALLEL_WARMUP]
+
+    # (a) TP=2 against one process on phase 12's batches
+    backend = "nccl" if count >= TP_RANKS else "gloo"
+    single = _timed_train([*argv("single"), ONE_PROCESS])
+    tp = _spawn_ranks(TP_RANKS, backend, [*argv("tp"),
+                                          f"+train.mesh.model={TP_RANKS}"],
+                      root / "tp_out")
+    where = ("" if backend == "nccl" else
+             f"; {count} GPU, so the {TP_RANKS} ranks are gloo's on cuda:0")
+    for r, st in enumerate(tp):
+        print(_model_axis_line(gpu, f"(a): TP={TP_RANKS} {backend} rank {r}",
+                               st) + where, flush=True)
+    layer_calls = [st["model_allreduce_calls"]["layers"] for st in tp]
+    print(_train_line(gpu, "one process", single).replace(
+        "phase 12 (a)", "phase 13 (a)"), flush=True)
+    gap, bad = _agreement(tp[0], single, (root / "tp/ckpt/last",
+                                          root / "single/ckpt/last"))
+    print(f"[{gpu}] phase 13 (a): TP={TP_RANKS} rank 0 against one process: "
+          f"{_gap_text(gap)}; whole first-update gradient "
+          f"{gap['whole_grad_rel']:.3g} relative (L2 over every tensor); the "
+          f"loss per update {[f'{r:.3g}' for r in gap['loss_rel']]} "
+          "relative", flush=True)
+    if not all(st["finite"] for st in tp):
+        bad.append("a loss is not finite")
+    if any(n != TP_ALLREDUCES for calls in layer_calls for n in calls):
+        bad.append(f"model-group all-reduces in the forward and backward "
+                   f"{layer_calls}, not {TP_ALLREDUCES} per update")
+    failures.extend(f"phase 13 (a): {b}" for b in bad)
+    del tp
+
+    # (b) PP: S stages, M microbatches, TP off, against one process; the
+    # same process again (the card's own spread: its backward's atomics)
+    # and one stage in M microbatches in one process (the split alone)
+    single_pp = _timed_train([*argv("single_pp", PP_BATCH, "corpus_pp"),
+                              ONE_PROCESS])
+    again = _timed_train([*argv("again_pp", PP_BATCH, "corpus_pp"),
+                          ONE_PROCESS])
+    split = _timed_train([*argv("split_pp", PP_BATCH, "corpus_pp"),
+                          ONE_PROCESS,
+                          f"+train.mesh.pipeline_microbatches={PP_MICRO}"])
+    pp_argv = [*argv("pp", PP_BATCH, "corpus_pp"),
+               f"+train.mesh.model={PP_STAGES}",
+               f"+train.mesh.pipeline_microbatches={PP_MICRO}",
+               "+train.mesh.model_spans_processes=true"]
+    pp = _spawn_ranks(PP_STAGES, "gloo" if count < PP_STAGES else "nccl",
+                      pp_argv, root / "pp_out")
+    for r, st in enumerate(pp):
+        print(_model_axis_line(gpu, f"(b): PP stage {r} of {PP_STAGES}", st),
+              flush=True)
+    gap, _ = _agreement(again, single_pp)
+    print(f"[{gpu}] phase 13 (b): the unpipelined process again against "
+          f"itself: {_gap_text(gap)}", flush=True)
+    gap, bad = _agreement(split, single_pp, held=PARALLEL_UPDATES)
+    print(f"[{gpu}] phase 13 (b): one stage in {PP_MICRO} microbatches in "
+          f"one process against the unpipelined process (the later-updates "
+          f"bar on updates 2-{PARALLEL_UPDATES}): {_gap_text(gap)}",
+          flush=True)
+    failures.extend(f"phase 13 (b), one stage: {b}" for b in bad)
+    n_up = len(single_pp["update_ms"])
+    gap, bad = _agreement(pp[0], single_pp, (root / "pp/ckpt/last",
+                                             root / "single_pp/ckpt/last"),
+                          held=PARALLEL_UPDATES)
+    blocks = flagship.MODEL["decoder"]["denoise_fn"]["residual_layers"]
+    print(f"[{gpu}] phase 13 (b): PP over {PP_STAGES} stages of "
+          f"{blocks // PP_STAGES} blocks, {PP_MICRO} microbatches of "
+          f"{PP_BATCH // PP_MICRO} rows, "
+          f"{n_up} updates, against the unpipelined process (update ms "
+          f"{[round(t, 1) for t in single_pp['update_ms']]}; the "
+          f"later-updates bar on updates 2-{PARALLEL_UPDATES}): "
+          f"{_gap_text(gap)}; whole first-update gradient "
+          f"{gap['whole_grad_rel']:.3g} relative; the loss per update "
+          f"{[f'{r:.3g}' for r in gap['loss_rel']]} relative", flush=True)
+    if not all(st["finite"] for st in pp):
+        bad.append("a loss is not finite")
+    failures.extend(f"phase 13 (b): {b}" for b in bad)
+    del pp, single, single_pp, split, again
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) PP serving over [[cuda:0] * S] (and over every GPU, in turn)
+    kw = dict(tokenizer=FixedTokenizer(PROMPT_LEN), device=dev)
+    req = dict(use_max=True, noise_scale=0.0, seed=4)
+    plain = Synthesizer(model, vocoder, **kw)
+    runs = [(1, 1, [dev] * PP_STAGES), (2, 2, [dev] * PP_STAGES)]
+    if count > 1:
+        runs.append((1, 1, [torch.device("cuda", i % count)
+                            for i in range(PP_STAGES)]))
+    single_launches = None
+    for n_items, m, devices in runs:
+        mesh = Mesh([devices])
+        s_, p_ = seqs * n_items, prompts * n_items
+        with mock.patch.object(decode_graph, "decode", _eager_decode):
+            ref_wav, ref_mel = plain.synthesize(s_, p_, **req)
+        piped = Synthesizer(model, vocoder, decode_pipelined=True,
+                            pipeline_microbatches=m, mesh=mesh, **kw)
+        piped.synthesize(s_, p_, **req)  # warm-up
+        _zero_counts(k1, k2)
+        t0 = time.perf_counter()
+        wav, mel = piped.synthesize(s_, p_, **req)
+        wall = time.perf_counter() - t0
+        launches = _counts(k1, k2)
+        mel_err = max(float(np.abs(a - b).max())
+                      for a, b in zip(mel, ref_mel))
+        wav_err = max(float(np.abs(a - b).max())
+                      for a, b in zip(wav, ref_wav))
+        expect = {"antialias_snake": 1, "amp_layer_bf16": 72,
+                  "amp_layer": 0, "amp_block": 0}
+        _, _, rq = plain._request(s_, p_, None, None, True, 0.0, 4)
+        with torch.inference_mode():
+            cond = model.infer_cond(
+                rq["phoneme"], rq["plens"], FRAMES, rq["prompt_ids"],
+                rq["prompt_mask"], use_max=True, noise_scale=0.0,
+                style_generator=plain._generator(4))[0]
+            paths = {"graph decode": lambda: decode_graph.decode(
+                         plain._decoder, cond, None, False,
+                         plain._generator(5)),
+                     "pipelined eager decode": lambda: piped._decoder
+                     .inference(cond, generator=plain._generator(5))}
+            times = {name: [] for name in paths}
+            for turn in range(PARALLEL_TURNS):
+                order = list(paths) if turn % 2 == 0 else list(paths)[::-1]
+                for name in order:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    paths[name]()
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+        print(f"[{gpu}] phase 13 (c): {n_items} x {FRAMES}-frame request, "
+              f"decode pipelined over {PP_STAGES} stages on "
+              f"{[str(d) for d in devices]} in {m} microbatches: wall {wall * 1e3:.1f} ms; mel {mel_err:.3g} "
+              f"from the unpipelined eager decode's (bar "
+              f"{SHARDED_MEL_ATOL}); wav {wav_err:.3g} from it (bar "
+              f"{WAV_BF16_ATOL}); launches {launches} (expected {expect}); "
+              f"median of {PARALLEL_TURNS} alternated turns (host clock, "
+              "synchronized): " + ", ".join(
+                  f"{name} {np.median(t):.1f} ms"
+                  for name, t in times.items()), flush=True)
+        if not (len(mel) == n_items and mel_err <= SHARDED_MEL_ATOL
+                and wav_err <= WAV_BF16_ATOL and launches == expect):
+            failures.append(f"phase 13 (c) batch {n_items} over "
+                            f"{[str(d) for d in devices]}: mel "
+                            f"{mel_err:.3g}, wav {wav_err:.3g}, launches "
+                            f"{launches}")
+        if single_launches is None:
+            single_launches = launches
+        del piped, cond
+        torch.cuda.empty_cache()
+
+    # (d) the dry run of every axis
+    t0 = time.perf_counter()
+    out = dryrun_multichip.dryrun(4, 2, dev.type)
+    for line in out["lines"]:
+        print(f"[{gpu}] phase 13 (d): {line}", flush=True)
+    print(f"phase 13 (d): {time.perf_counter() - t0:.1f} s", flush=True)
+    if not out["ok"]:
+        failures.append("phase 13 (d): the dry run failed")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all",
+          flush=True)
+    return single_launches
+
+
 def profile_busy(prof, wall_s) -> str:
     """The device-busy share of a torch.profiler window: the sum of its
     kernels' device times over its wall time."""
@@ -2898,8 +3237,8 @@ def request_inputs():
             ["a deep calm male voice speaking slowly"])
 
 
-def phase12_only() -> int:
-    """Build the kernels and run phase 12 alone."""
+def phase_only(phase: int) -> int:
+    """Build the kernels and run phase 12 or 13 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2921,8 +3260,8 @@ def phase12_only() -> int:
     vocoder = flagship.build_vocoder(dev, seed=1)
     seqs, prompts = request_inputs()
     failures = []
-    phase_parallel(k1, k2, model, vocoder, seqs, prompts, dev, gpu_line(),
-                   failures)
+    run = phase_parallel if phase == 12 else phase_model_axis
+    run(k1, k2, model, vocoder, seqs, prompts, dev, gpu_line(), failures)
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -2930,4 +3269,6 @@ def phase12_only() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(phase12_only() if sys.argv[1:] == ["--phase12"] else main())
+    if sys.argv[1:] in (["--phase12"], ["--phase13"]):
+        sys.exit(phase_only(int(sys.argv[1][-2:])))
+    sys.exit(main())

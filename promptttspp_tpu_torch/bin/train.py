@@ -15,7 +15,9 @@ Counterpart of ``egs/proposed/bin/train.py``, with its command line (the
         [+train.distributed.num_processes=N] \\
         [+train.distributed.process_id=P] \\
         [+train.distributed.coordinator_address=host:port] \\
-        [+train.distributed.backend=nccl|gloo]
+        [+train.distributed.backend=nccl|gloo] [+train.mesh.model=M] \\
+        [+train.mesh.pipeline_microbatches=P] \\
+        [+train.mesh.model_spans_processes=true]
 
 It runs on ``cuda``; ``device=cpu`` runs it on the CPU. It reads the
 train/valid CSVs, features and prompt candidates under ``path.root``
@@ -37,15 +39,23 @@ and the reference spawns one DDP worker per GPU:
   ``train.distributed.process_id`` (and ``num_processes`` and
   ``coordinator_address``), this process joins that group;
 - otherwise, with ``train.distributed.num_processes`` above 1, or without
-  it and with more than one visible GPU on ``cuda``, it spawns one worker
-  per process (per GPU) on this host, joined at
-  ``train.distributed.coordinator_address`` or a free local port, and
-  returns None when they are done;
+  it and with more than one visible GPU on ``cuda`` or a model axis, it
+  spawns one worker per process on this host (without the key: one per
+  GPU, rounded down to a multiple of ``train.mesh.model`` and at least
+  one model group), joined at ``train.distributed.coordinator_address`` or
+  a free local port, and returns None when they are done;
 - otherwise (``train.distributed.num_processes=1`` on any machine) it
   trains in this process.
 
 The backend is NCCL on a GPU (one GPU per rank) and gloo on the CPU;
 ``train.distributed.backend=gloo`` runs several ranks on one GPU.
+
+The model axis: ``+train.mesh.model=M`` splits the processes into data
+shards of M ranks that share their rows and shard the model (tensor
+parallelism); ``+train.mesh.pipeline_microbatches=P`` pipelines the
+DiffNet over those M ranks in P microbatches instead;
+``+train.mesh.model_spans_processes=true`` folds the model axis across the
+data shards, as JAX's mesh does (``train/trainer.py``).
 """
 
 from __future__ import annotations
@@ -78,12 +88,14 @@ def _spawned_processes(cfg) -> int:
             is not None:
         return 0
     n = select(cfg, "train.distributed.num_processes")
-    if n is not None:
-        return int(n) if int(n) > 1 else 0
-    if torch.device(cfg.get("device", "cuda")).type == "cuda" \
-            and torch.cuda.is_available() and torch.cuda.device_count() > 1:
-        return torch.cuda.device_count()
-    return 0
+    if n is None:
+        n = 1
+        if torch.device(cfg.get("device", "cuda")).type == "cuda" \
+                and torch.cuda.is_available():
+            n = torch.cuda.device_count()
+        model = select(cfg, "train.mesh.model") or 1
+        n = model * max(1, n // model)
+    return int(n) if int(n) > 1 else 0
 
 
 def _worker(rank: int, argv: List[str], world: int, address: str):

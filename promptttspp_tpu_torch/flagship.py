@@ -150,10 +150,11 @@ _FIXED = {
     ("style_mdn",): dict(dim_wise=True),
     # The fields of the JAX GaussianDiffusion (promptttspp_tpu/models/
     # diffusion.py) that a config can set, other than the ones
-    # _model_from_config reads, at JAX's defaults: no pipelined decode.
-    # GaussianDiffusion's in_dim is read by nothing in JAX.
-    ("decoder",): dict(pipeline_mesh=None, pipeline_microbatches=None,
-                       pipeline_batch_axis=None),
+    # _model_from_config reads, at JAX's defaults: no pipeline mesh (a
+    # trainer or Synthesizer sets the pipeline; the microbatch count and
+    # batch axis are read). GaussianDiffusion's in_dim is read by nothing
+    # in JAX.
+    ("decoder",): dict(pipeline_mesh=None),
 }
 
 
@@ -170,8 +171,7 @@ _JAX_DEFAULTS = {
         use_cnn_module=False, activation_type="swish", return_mask=False),
     ("variance_adaptor",): dict(energy_predictor=None, energy_emb=None),
     ("style_mdn",): dict(dim_wise=False),
-    ("decoder",): dict(pipeline_mesh=None, pipeline_microbatches=None,
-                       pipeline_batch_axis=None),
+    ("decoder",): dict(pipeline_mesh=None),
 }
 
 
@@ -250,7 +250,9 @@ def _model_from_config(cfg: Mapping, bert_config: BertConfig):
             schedule_type=dec.get("schedule_type", "linear"),
             a_min=dec.get("a_min", 0.0), a_max=dec.get("a_max", 20.0),
             pndm_speedup=dec.get("pndm_speedup"),
-            infer_io_dtype=dec.get("infer_io_dtype")),
+            infer_io_dtype=dec.get("infer_io_dtype"),
+            pipeline_microbatches=dec.get("pipeline_microbatches"),
+            pipeline_batch_axis=dec.get("pipeline_batch_axis")),
         style_mdn=MDNLayer(sm["in_dim"], sm["out_dim"], sm["num_gaussians"]),
     )
 

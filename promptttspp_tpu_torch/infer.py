@@ -26,7 +26,9 @@ the batch axis) or sharded (``vocoder_mode="sharded"``: the chunk batch
 split over a mesh's devices); ``synthesize_streaming`` yields the waveform
 chunk by chunk (``vocoders/streaming.py``). ``frame_sharded_decode`` spreads
 the diffusion decode's frames over the mesh's devices
-(``parallel/sp.py``), eagerly.
+(``parallel/sp.py``), eagerly; ``decode_pipelined`` runs every denoiser
+call of the decode as a GPipe pipeline over the devices of the mesh's
+model axis (``parallel/pp.py``), eagerly too.
 
 On the GPU every other path's diffusion decode runs as the CUDA graph of its
 (batch, frame bucket) (``models/decode_graph.py``), the counterpart of
@@ -48,8 +50,8 @@ import torch
 from promptttspp_tpu_torch.data.batching import bucket_shape
 from promptttspp_tpu_torch.models import decode_graph
 from promptttspp_tpu_torch.ops.filters import lowpass_filter
-from promptttspp_tpu_torch.parallel.mesh import (
-    MODEL_AXIS_UNPORTED, make_mesh, replicas)
+from promptttspp_tpu_torch.parallel.mesh import make_mesh, replicas
+from promptttspp_tpu_torch.parallel.pp import StageDevices
 from promptttspp_tpu_torch.parallel.sp import (
     FrameShardedDenoiser, decode_frames_sharded)
 from promptttspp_tpu_torch.platform import resolve_device
@@ -118,9 +120,15 @@ class Synthesizer:
         split over ``mesh``'s data axis by frames, with halos
         (``parallel/sp.py``); eager, also on the GPU. The frame bucket must
         divide by the axis. ``mesh``: a ``parallel/mesh.py::Mesh``
-        (default, for these two: ``make_mesh()``, every visible GPU).
-        ``decode_pipelined`` and ``pipeline_microbatches`` > 1 (GPipe over
-        a model axis) are not ported and raise.
+        (default, for these three: ``make_mesh()``, every visible GPU on
+        the data axis).
+
+        decode_pipelined: every denoiser call of the decode runs the
+        DiffNet's residual stack as a GPipe pipeline of one stage per
+        device of ``mesh``'s model axis (its first data row; a device may
+        repeat), in ``pipeline_microbatches`` microbatches
+        (``parallel/pp.py``); eager, also on the GPU. The batch must divide
+        into the microbatches, the DiffNet's layers into the stages.
 
         speculative: predict the frame bucket on the host instead of running
         the duration pre-pass (see the module docstring); counters
@@ -147,9 +155,9 @@ class Synthesizer:
         if vocoder_mode not in ("batched", "chunked", "sharded"):
             raise ValueError(f"vocoder_mode {vocoder_mode!r}: 'batched', "
                              "'chunked' or 'sharded'")
-        if decode_pipelined or pipeline_microbatches != 1:
-            raise ValueError("decode_pipelined / pipeline_microbatches: "
-                             f"{MODEL_AXIS_UNPORTED}")
+        if decode_pipelined and frame_sharded_decode:
+            raise ValueError("decode_pipelined and frame_sharded_decode "
+                             "exclude each other")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self._decoder = (model.decoder if decode_param_dtype is None
@@ -184,10 +192,15 @@ class Synthesizer:
         self.spec_requests = 0
         self.spec_mispredicts = 0
         self.frame_sharded_decode = frame_sharded_decode
-        if (vocoder_mode == "sharded" or frame_sharded_decode) \
-                and mesh is None:
+        self.decode_pipelined = decode_pipelined
+        if (vocoder_mode == "sharded" or frame_sharded_decode
+                or decode_pipelined) and mesh is None:
             mesh = make_mesh()
         self.mesh = mesh
+        if decode_pipelined:
+            self._decoder = self._decoder.clone(
+                pipeline=StageDevices(mesh.model_devices(0)),
+                pipeline_microbatches=pipeline_microbatches)
         self._sharded_denoiser = None if not frame_sharded_decode else \
             FrameShardedDenoiser(self._decoder.denoise_fn, mesh.data_devices)
         self._voc_replicas = None
@@ -303,14 +316,18 @@ class Synthesizer:
     def _acoustic(self, req, max_frames: int, x_T=None,
                   zero_noise: bool = False):
         """``model.infer`` with the decode as a graph (``decode_graph``),
-        or frame-sharded + F0 post + mel denormalization -> (mel_denorm,
-        f0, frame_lengths, raw_frame_lengths), all on the device."""
+        or frame-sharded or pipelined (eager), + F0 post + mel
+        denormalization -> (mel_denorm, f0, frame_lengths,
+        raw_frame_lengths), all on the device."""
         cond, flens, fmask, log_cf0, vuv, raw = self.model.infer_cond(
             req["phoneme"], req["plens"], max_frames, req["prompt_ids"],
             req["prompt_mask"], req["ref_mel"], req["ref_lens"],
             use_max=req["use_max"], noise_scale=req["noise_scale"],
             style_generator=self._generator(req["seed"]))
-        if self.frame_sharded_decode:
+        if self.decode_pipelined:
+            mel = self._decoder.inference(cond, x_T, zero_noise,
+                                          self._generator(req["seed"] + 1))
+        elif self.frame_sharded_decode:
             mel = decode_frames_sharded(
                 self.mesh, self._decoder, cond, x_T, zero_noise,
                 self._generator(req["seed"] + 1),

@@ -71,7 +71,7 @@ class BertSelfAttention(nn.Module):
         self.dropout = Dropout(cfg.attention_dropout)
 
     def forward(self, hidden, bias):
-        B, T, C = hidden.shape
+        B, T, _ = hidden.shape
         split = lambda x: x.reshape(B, T, self.h, self.d).transpose(1, 2)
         q = split(self.query(hidden))
         k = split(self.key(hidden))
@@ -82,7 +82,7 @@ class BertSelfAttention(nn.Module):
         if bias is not None:
             scores = scores + bias
         probs, v = promoted(self.dropout(torch.softmax(scores, dim=-1)), v)
-        return (probs @ v).transpose(1, 2).reshape(B, T, C)
+        return (probs @ v).transpose(1, 2).reshape(B, T, -1)
 
 
 class BertSelfOutput(nn.Module):

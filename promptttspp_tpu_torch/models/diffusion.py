@@ -83,6 +83,7 @@ class DiffNet(nn.Module):
                  scale: float = 1.0):
         super().__init__()
         self.residual_channels = residual_channels
+        self.dilation_cycle_length = dilation_cycle_length
         self.scale = float(scale)
         # the dtype whose values the floating parameters hold, when they
         # were rounded to one (Synthesizer(decode_param_dtype=...))
@@ -143,18 +144,21 @@ def cosine_beta_schedule(timesteps: int, s=0.008):
 
 @contextlib.contextmanager
 def float32_math():
-    """Convolutions and matrix products in full float32, not TF32, whatever
-    the process-wide flags say; the caller's flags are restored after. The
-    decode runs under it, so its numerics do not depend on the flags and a
-    captured graph does not freeze whichever setting was on."""
-    conv = torch.backends.cudnn.conv
-    matmul = torch.backends.cuda.matmul
-    saved = conv.fp32_precision, matmul.fp32_precision
-    conv.fp32_precision = matmul.fp32_precision = "ieee"
+    """Convolutions, recurrent layers (cuDNN's GRU) and matrix products in
+    full float32, not TF32, whatever the process-wide flags say; the
+    caller's flags are restored after. The decode and the training step run
+    under it, so their numerics do not depend on the flags and a captured
+    graph does not freeze whichever setting was on."""
+    flags = (torch.backends.cudnn.conv, torch.backends.cudnn.rnn,
+             torch.backends.cuda.matmul)
+    saved = [f.fp32_precision for f in flags]
+    for f in flags:
+        f.fp32_precision = "ieee"
     try:
         yield
     finally:
-        conv.fp32_precision, matmul.fp32_precision = saved
+        for f, value in zip(flags, saved):
+            f.fp32_precision = value
 
 
 _SCHEDULES = {"linear": linear_beta_schedule, "cosine": cosine_beta_schedule}
@@ -199,13 +203,25 @@ class GaussianDiffusion(nn.Module):
     (two at the first), instead of K ancestral steps. infer_io_dtype
     (e.g. "bfloat16"): the conditioning and the hoisted
     conditioner projections are rounded to it (``DiffNet.precompute_cond``);
-    the x carry and the epsilon math stay float32, as in JAX."""
+    the x carry and the epsilon math stay float32, as in JAX.
+
+    pipeline (a ``Mesh``, a ``parallel/distributed.py::ModelGroup`` or a
+    ``parallel/pp.py`` transport): every epsilon prediction, the training
+    forward's and each sampling step's, runs the DiffNet's residual stack
+    as the GPipe timetable over its model axis
+    (``parallel/pp.py::denoise_pipelined``) in ``pipeline_microbatches``
+    microbatches (default: one per stage), the batch split over
+    ``pipeline_batch_axis`` too when set (DP x PP). The conditioner
+    projections are then computed by each stage, not hoisted, as in JAX.
+    Without ``pipeline`` the other two do nothing, as in JAX."""
 
     def __init__(self, denoise_fn: DiffNet, out_dim: int,
                  norm_scale: Optional[float] = None, K_step: int = 100,
                  schedule_type: str = "linear", a_min: float = 0.0,
                  a_max: float = 20.0, pndm_speedup: Optional[int] = None,
-                 infer_io_dtype: Optional[str] = None):
+                 infer_io_dtype: Optional[str] = None, pipeline=None,
+                 pipeline_microbatches: Optional[int] = None,
+                 pipeline_batch_axis: Optional[str] = None):
         super().__init__()
         if schedule_type not in _SCHEDULES:
             raise ValueError(f"schedule_type {schedule_type!r}: one of "
@@ -213,8 +229,11 @@ class GaussianDiffusion(nn.Module):
         self.options = dict(
             out_dim=out_dim, norm_scale=norm_scale, K_step=K_step,
             schedule_type=schedule_type, a_min=a_min, a_max=a_max,
-            pndm_speedup=pndm_speedup, infer_io_dtype=infer_io_dtype)
+            pndm_speedup=pndm_speedup, infer_io_dtype=infer_io_dtype,
+            pipeline=pipeline, pipeline_microbatches=pipeline_microbatches,
+            pipeline_batch_axis=pipeline_batch_axis)
         self.denoise_fn = denoise_fn
+        self.pipeline = pipeline
         self.out_dim = out_dim
         self.K_step = K_step
         self.norm_scale = norm_scale
@@ -271,13 +290,35 @@ class GaussianDiffusion(nn.Module):
             noise = draw(torch.randn, x.shape, data, generator=generator,
                          dtype=x.dtype, device=x.device)
         x_noisy = self.q_sample(x, t, noise)
+        if self.pipeline is not None:
+            return noise, self._pipelined(x_noisy, t, cond, mask, data)
         eps = self.denoise_fn(x_noisy, t, self.denoise_fn.precompute_cond(
             cond), mask)
         return noise, eps
 
+    def _pipelined(self, x, t, cond, mask=None, data=None):
+        # parallel/pp.py imports this module
+        from promptttspp_tpu_torch.parallel.pp import denoise_pipelined
+
+        return denoise_pipelined(
+            self.pipeline, self.denoise_fn, x, t, cond, mask,
+            n_microbatches=self.options["pipeline_microbatches"],
+            batch_axis=self.options["pipeline_batch_axis"], data=data)
+
+    def _cond_input(self, cond):
+        """What every denoiser call of a decode reads: the hoisted
+        conditioner projections (``precompute_cond``), or, pipelined, cond
+        itself (rounded to ``infer_io_dtype`` when set), which each stage
+        projects for its own blocks."""
+        if self.pipeline is None:
+            return self.denoise_fn.precompute_cond(cond, self.io_dtype)
+        return cond if self.io_dtype is None else cond.to(self.io_dtype)
+
     def _eps(self, x, t: int, cond_projs):
         steps = torch.full((x.shape[0],), t, dtype=torch.int32,
                            device=x.device)
+        if self.pipeline is not None:
+            return self._pipelined(x, steps, cond_projs)
         return self.denoise_fn(x, steps, cond_projs)
 
     def p_sample(self, x, t: int, cond_projs, noise):
@@ -358,8 +399,7 @@ class GaussianDiffusion(nn.Module):
         """The decode loop: cond [B,T,H] and ``fill_draws``' draws -> mel
         [B,T,out_dim] (denormalized), in full float32 (``float32_math``)."""
         with float32_math():
-            cond_projs = self.denoise_fn.precompute_cond(cond,
-                                                         self.io_dtype)
+            cond_projs = self._cond_input(cond)
             if self.pndm_speedup:
                 return self._denorm(self._plms_loop(draws[0], cond_projs))
             x = draws[0]

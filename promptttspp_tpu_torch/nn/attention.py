@@ -100,6 +100,8 @@ class GSTCrossAttention(nn.Module):
                  dropout_rate: float = 0.0):
         super().__init__()
         self.h, self.d_k = n_head, n_feat // n_head
+        # over every head, also when a model group holds a share of them
+        self.scale = math.sqrt(self.d_k * n_head)
         self.linear_q = Linear(q_dim, n_feat)
         self.linear_k = Linear(kv_dim, n_feat)
         self.linear_v = Linear(kv_dim, n_feat)
@@ -116,7 +118,6 @@ class GSTCrossAttention(nn.Module):
         k = self._split(self.linear_k(gst_emb))
         v = self._split(self.linear_v(gst_emb))
         score = self.dropout(torch.softmax(q @ k.transpose(-1, -2)
-                                           / math.sqrt(self.d_k * self.h),
-                                           dim=-1))
+                                           / self.scale, dim=-1))
         o = (score @ v).transpose(1, 2).reshape(ref_emb.shape[0], 1, -1)
         return self.linear_out(o)

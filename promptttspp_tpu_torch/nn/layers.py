@@ -209,13 +209,19 @@ class Dropout(nn.Module):
     """Flax's ``Dropout``: in train mode keep each element with probability
     1 - p and scale it by 1 / (1 - p); the mask comes from the generator
     that ``dropout_generator`` lends. Eval mode, or p = 0, is the
-    identity."""
+    identity.
+
+    ``shard`` (set by ``parallel/tp.py::shard_module``): (dim, model
+    group) when x is this rank's slice along ``dim`` of an activation
+    split over a model group; the mask is then drawn at the whole width
+    and cut to the slice, so every rank draws what one process would."""
 
     def __init__(self, p: float = 0.0):
         super().__init__()
         self.p = float(p)
         self.generator = None
         self.data = None  # the DataGroup that data_parallel lends
+        self.shard = None
 
     def forward(self, x, batched: bool = True):
         """``batched`` False: x's leading axis is not the batch's (a table
@@ -228,8 +234,15 @@ class Dropout(nn.Module):
             raise RuntimeError("Dropout in train mode draws from a generator: "
                                "call the model inside dropout_generator()")
         keep_prob = 1.0 - self.p
-        keep = draw(torch.rand, x.shape, self.data if batched else None,
+        shape = list(x.shape)
+        if self.shard is not None:
+            dim, group = self.shard
+            shape[dim] *= group.world
+        keep = draw(torch.rand, shape, self.data if batched else None,
                     generator=self.generator, device=x.device) < keep_prob
+        if self.shard is not None:
+            n = x.shape[dim]
+            keep = keep.narrow(dim, group.rank * n, n)
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

@@ -24,6 +24,12 @@ one process would on the same (padded) batch; the sums only run in another
 order. Every rank collates its rows at the global batch's shape buckets
 (``host_batches``), because the padded length enters the BatchNorm
 statistics.
+
+A model axis (``process_groups``) folds the world into data shards of
+``model`` ranks each, which hold the same rows: the ``DataGroup``'s
+reductions then run over its data axis's subgroup, not the world, and the
+``ModelGroup`` carries the collectives of tensor and pipeline parallelism
+(``parallel/tp.py``, ``parallel/pp.py``).
 """
 
 from __future__ import annotations
@@ -105,58 +111,122 @@ def rank_device(device_type: str) -> torch.device:
     return torch.device("cuda", r % n)
 
 
+def _all_reduce(x: torch.Tensor, group=None):
+    dist.all_reduce(x, group=group)
+    return x
+
+
 class _AllReduceSum(torch.autograd.Function):
-    """SUM over the ranks, whose gradient is the SUM of the gradients: the
-    gradient of a global sum that every rank's loss reads."""
+    """SUM over a group's ranks, whose gradient is the SUM of the
+    gradients: the gradient of a global sum that every rank's loss
+    reads."""
 
     @staticmethod
-    def forward(ctx, x):
-        out = x.clone()
-        dist.all_reduce(out)
-        return out
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.clone(), group)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone()
-        dist.all_reduce(grad)
-        return grad
+        return _all_reduce(grad.clone(), ctx.group), None
 
 
-class DataGroup:
-    """The data axis of a step: this process is ``rank`` of ``world`` in
-    the default process group, each rank holding an equal block of the
-    global batch's rows."""
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's f: the identity, whose gradient is summed over the
+    group (a replicated activation read by every rank's slice of a
+    sharded product)."""
 
-    def __init__(self, rank: int, world: int):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad.clone(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's g: SUM over the group, whose gradient is the identity
+    (each rank's partial product made the replicated activation, whose
+    gradient every rank already holds whole)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _gather_dim(x: torch.Tensor, dim: int, rank: int, world: int, group,
+                interleave: int = 1) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in rank order, by one SUM of
+    zero-padded copies (exact: the other ranks add zeros), which every
+    backend takes for CUDA tensors. ``interleave`` k: ``x`` is k equal
+    blocks along ``dim`` (gated halves, k = 2), each joined over the
+    ranks on its own."""
+    n = x.shape[dim] // interleave
+    shape = list(x.shape)
+    shape[dim] = x.shape[dim] * world
+    out = x.new_zeros(shape)
+    for j in range(interleave):
+        out.narrow(dim, (j * world + rank) * n, n).copy_(
+            x.narrow(dim, j * n, n))
+    return _all_reduce(out, group)
+
+
+def shard_of(x: torch.Tensor, dim: int, rank: int, world: int,
+             interleave: int = 1) -> torch.Tensor:
+    """Rank ``rank``'s part of ``x`` along ``dim``: the ``rank``-th of
+    ``world`` equal blocks, or, with ``interleave`` k, that block of each
+    of x's k equal blocks (``_gather_dim``'s inverse)."""
+    size = x.shape[dim]
+    if size % (world * interleave):
+        raise ValueError(f"{size} not divisible into {world} shards"
+                         + (f" of {interleave} blocks" if interleave > 1
+                            else ""))
+    n = size // (world * interleave)
+    parts = [x.narrow(dim, (j * world + rank) * n, n)
+             for j in range(interleave)]
+    return parts[0] if interleave == 1 else torch.cat(parts, dim)
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """Every rank's slice joined along ``dim``; the gradient of the whole,
+    which every rank holds alike, is cut back to this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, dim, rank, world, group):
+        ctx.args = dim, rank, world
+        return _gather_dim(x, dim, rank, world, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return shard_of(grad, *ctx.args).contiguous(), None, None, None, None
+
+
+class _Group:
+    """Ranks ``0 .. world-1`` of one axis (this process is ``rank``):
+    ``group`` the process group of that axis (None: the default group) and
+    ``ranks`` its members' global ranks, in axis order. A deep copy of a
+    model that holds one shares it."""
+
+    def __init__(self, rank: int, world: int, group=None,
+                 ranks: Optional[Sequence[int]] = None):
         self.rank, self.world = int(rank), int(world)
+        self.group = group
+        self.ranks = list(range(self.world)) if ranks is None else \
+            [int(r) for r in ranks]
 
-    @classmethod
-    def current(cls) -> "DataGroup":
-        """The default process group's."""
-        return cls(dist.get_rank(), dist.get_world_size())
-
-    def rows(self, local: int) -> slice:
-        """This rank's rows of a global batch of ``local * world``."""
-        return slice(self.rank * local, (self.rank + 1) * local)
-
-    def draw(self, fn, shape: Sequence[int], **kwargs) -> torch.Tensor:
-        """``fn(shape, **kwargs)`` (``torch.rand``, ``randn``, ...) drawn
-        at the global batch's shape, [world * shape[0], ...], and cut to
-        this rank's rows: every rank draws what one process would."""
-        shape = tuple(shape)
-        full = fn((shape[0] * self.world,) + shape[1:], **kwargs)
-        return full[self.rows(shape[0])]
-
-    def sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the ranks, differentiable."""
-        return _AllReduceSum.apply(x)
+    def __deepcopy__(self, memo):
+        return self
 
     @torch.no_grad()
     def total(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the ranks, without gradient."""
-        out = x.detach().clone()
-        dist.all_reduce(out)
-        return out
+        return _all_reduce(x.detach().clone(), self.group)
 
     @torch.no_grad()
     def reduce_grads(self, grads: List[torch.Tensor]) -> int:
@@ -173,23 +243,136 @@ class DataGroup:
         nbytes = 0
         for bucket in filter(None, buckets):
             flat = torch.cat([g.reshape(-1) for g in bucket])
-            dist.all_reduce(flat)
+            _all_reduce(flat, self.group)
             torch._foreach_copy_(bucket, [v.view_as(g) for v, g in zip(
                 flat.split([g.numel() for g in bucket]), bucket)])
             nbytes += flat.numel() * flat.element_size()
         return nbytes
 
+    @torch.no_grad()
+    def broadcast_module(self, module: torch.nn.Module):
+        """Give every rank the parameters and buffers of the axis's first
+        rank."""
+        for t in list(module.parameters()) + list(module.buffers()):
+            dist.broadcast(t.data, self.ranks[0], group=self.group)
+
+
+class DataGroup(_Group):
+    """The data axis of a step: this process is ``rank`` of ``world`` data
+    shards, each holding an equal block of the global batch's rows. Its
+    reductions run over the data axis's group only: the ranks of one model
+    group hold the same rows, which would count ``model`` times over the
+    whole world."""
+
+    def rows(self, local: int) -> slice:
+        """This rank's rows of a global batch of ``local * world``."""
+        return slice(self.rank * local, (self.rank + 1) * local)
+
+    def draw(self, fn, shape: Sequence[int], **kwargs) -> torch.Tensor:
+        """``fn(shape, **kwargs)`` (``torch.rand``, ``randn``, ...) drawn
+        at the global batch's shape, [world * shape[0], ...], and cut to
+        this rank's rows: every rank draws what one process would."""
+        shape = tuple(shape)
+        full = fn((shape[0] * self.world,) + shape[1:], **kwargs)
+        return full[self.rows(shape[0])]
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the ranks, differentiable."""
+        return _AllReduceSum.apply(x, self.group)
+
     def broadcast_object(self, obj, device=None):
-        """Rank 0's ``obj`` (picklable) on every rank."""
+        """Global rank 0's ``obj`` (picklable) on every rank of the
+        world."""
         box = [obj]
         dist.broadcast_object_list(box, src=0, device=device)
         return box[0]
 
+
+class ModelGroup(_Group):
+    """The model axis of a step: the ``world`` ranks that hold the same
+    rows and split the model between them, by tensor parallelism
+    (``parallel/tp.py``: Megatron's conjugate functions ``copy`` and
+    ``reduce``, and ``gather``) or by pipeline stages (``parallel/pp.py``:
+    ``permute`` around the ring)."""
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """x, whose gradient is summed over the ranks."""
+        return _CopyToGroup.apply(x, self.group)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of x over the ranks, whose gradient passes unchanged."""
+        return _ReduceFromGroup.apply(x, self.group)
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every rank's x joined along ``dim``, with gradient."""
+        return _GatherFromGroup.apply(x, dim % x.ndim, self.rank,
+                                      self.world, self.group)
+
     @torch.no_grad()
-    def broadcast_module(self, module: torch.nn.Module):
-        """Give every rank rank 0's parameters and buffers."""
-        for t in list(module.parameters()) + list(module.buffers()):
-            dist.broadcast(t.data, 0)
+    def gather_dim(self, x: torch.Tensor, dim: int,
+                   interleave: int = 1) -> torch.Tensor:
+        """Every rank's x joined along ``dim``, without gradient
+        (``shard_of``'s inverse)."""
+        return _gather_dim(x.detach(), dim, self.rank, self.world,
+                           self.group, interleave)
+
+    @torch.no_grad()
+    def permute(self, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        """The x of rank ``rank - shift`` (around the ring): every rank
+        sends its x to rank ``rank + shift`` and receives one. NCCL sends
+        from the device; gloo stages through the host (its point-to-point
+        takes CPU tensors)."""
+        dst = self.ranks[(self.rank + shift) % self.world]
+        src = self.ranks[(self.rank - shift) % self.world]
+        staged = dist.get_backend(self.group) != "nccl" and x.is_cuda
+        send = (x.cpu() if staged else x).contiguous()
+        recv = torch.empty_like(send)
+        ops = [dist.P2POp(dist.isend, send, dst, self.group),
+               dist.P2POp(dist.irecv, recv, src, self.group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return recv.to(x.device) if staged else recv
+
+
+def fold(rank: int, data: int, model: int,
+         model_spans_processes: bool = False) -> Tuple[int, int]:
+    """(data index, model index) of global ``rank`` in a world of ``data *
+    model``: rank ``d * model + m`` (the model group on one host), or
+    ``m * data + d`` with ``model_spans_processes``, as JAX's
+    ``make_mesh`` folds its devices."""
+    if model_spans_processes:
+        return rank % data, rank // data
+    return rank // model, rank % model
+
+
+def process_groups(model: int = 1, model_spans_processes: bool = False
+                   ) -> Tuple[DataGroup, Optional[ModelGroup]]:
+    """This process's data and model groups in the default group's world of
+    ``data * model`` ranks (``fold``). At ``model`` 1 the data group is
+    the world and there is no model group; otherwise every rank creates
+    every subgroup, in the same order."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if model == 1:
+        return DataGroup(rank, world), None
+    if world % model:
+        raise ValueError(f"train.mesh.model={model} does not divide the "
+                         f"{world} processes")
+    data = world // model
+    at = {fold(r, data, model, model_spans_processes): r
+          for r in range(world)}
+    d, m = fold(rank, data, model, model_spans_processes)
+    mine = {}
+    for i in range(data):
+        ranks = [at[i, j] for j in range(model)]
+        group = dist.new_group(ranks)
+        if i == d:
+            mine["model"] = ModelGroup(m, model, group, ranks)
+    for j in range(model):
+        ranks = [at[i, j] for i in range(data)]
+        group = dist.new_group(ranks)
+        if j == m:
+            mine["data"] = DataGroup(d, data, group, ranks)
+    return mine["data"], mine["model"]
 
 
 def _rank_world(rank: Optional[int], world: Optional[int]):
@@ -248,10 +431,12 @@ def host_batches(sampler: Iterable[Sequence[int]], dataset, collator=None,
     weight 0) and ``_global`` (the global batch's indices, whose items
     every rank draws in order, so the prompt draws agree with one
     process's). ``prompt_pad_to`` None pads the prompts to the bucket of
-    the global batch's longest. At world size 1 it yields
-    ``(indices, {})``."""
+    the global batch's longest. At world size 1 without a
+    ``row_multiple`` above 1 it yields ``(indices, {})``. Every rank of a
+    model group passes its data shard's ``rank`` and the data axis's
+    ``world``, so they get the same rows."""
     rank, world = _rank_world(rank, world)
-    if world == 1:
+    if world == 1 and (row_multiple or 1) == 1:
         for idx in sampler:
             yield list(idx), {}
         return

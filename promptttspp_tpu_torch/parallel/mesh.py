@@ -5,8 +5,10 @@ Counterpart of ``promptttspp_tpu/parallel/mesh.py`` (``make_mesh``,
 [data, model] grid of ``torch.device``s for the serving paths that spread
 one request over devices (``parallel/sp.py``,
 ``vocoders/streaming.py::vocode_sharded``); training spreads its batch
-over processes instead (``parallel/distributed.py``). Only the data axis is
-ported: a model axis (tensor and pipeline parallelism) raises.
+over processes instead (``parallel/distributed.py``). The model axis holds
+the devices that one request's pipelined decode spreads its stages over
+(``parallel/pp.py``); in training, the model axis is a process group
+instead (``parallel/distributed.py::ModelGroup``).
 """
 
 from __future__ import annotations
@@ -17,10 +19,6 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
-
-MODEL_AXIS_UNPORTED = ("a model axis (tensor and pipeline parallelism, "
-                       "M6b) is not ported")
-
 
 class Mesh:
     """A [data, model] grid of devices; ``shape`` is {"data": D, "model":
@@ -40,17 +38,23 @@ class Mesh:
         """The device of each data shard, in order."""
         return [row[0] for row in self.devices]
 
+    def model_devices(self, d: int = 0) -> List[torch.device]:
+        """The devices of data row ``d`` along the model axis, in order."""
+        return list(self.devices[d])
+
     def __repr__(self):
         return f"Mesh({self.devices}, shape={self.shape})"
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1,
-              devices: Optional[Sequence] = None) -> Mesh:
+              devices: Optional[Sequence] = None,
+              model_spans_processes: bool = False) -> Mesh:
     """A (data, model) mesh over ``devices`` (default: every visible CUDA
-    device; none raises), all on the data axis unless ``data`` says how
-    many."""
-    if model != 1:
-        raise ValueError(f"model={model}: {MODEL_AXIS_UNPORTED}")
+    device; none raises), all on the data axis unless ``data`` or
+    ``model`` says how many. The devices fold row by row into [data,
+    model] (device ``d * model + m`` at (d, m)); ``model_spans_processes``
+    transposes the fold (device ``m * data + d``), as JAX's does, so that
+    with devices ordered by process the model axis crosses them."""
     if devices is None:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if n == 0:
@@ -62,19 +66,33 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
         data = len(devices) // model
     if data * model != len(devices):
         raise ValueError(f"{data}x{model} != {len(devices)} devices")
+    if model_spans_processes:
+        return Mesh([[devices[m * data + d] for m in range(model)]
+                     for d in range(data)])
     return Mesh([devices[i * model:(i + 1) * model] for i in range(data)])
+
+
+def canonical(device) -> torch.device:
+    """``device`` with its index: a device named without one ("cuda",
+    "cpu") is the current CUDA device, or the CPU's 0."""
+    d = torch.device(device)
+    if d.index is not None:
+        return d
+    return torch.device(d.type, torch.cuda.current_device()
+                        if d.type == "cuda" else 0)
 
 
 def replicas(module: nn.Module,
              devices: Sequence) -> Dict[torch.device, nn.Module]:
     """One copy of ``module`` per distinct device of ``devices`` (the
-    module itself on its own device), in eval mode: the per-device
-    replicas of the serving paths that spread over a mesh."""
-    home = next(module.parameters()).device
+    module itself on its own device, named with or without its index), in
+    eval mode: the per-device replicas of the serving paths that spread
+    over a mesh."""
+    home = canonical(next(module.parameters()).device)
     out = {}
     for d in map(torch.device, devices):
         if d not in out:
-            out[d] = module if d == home else \
+            out[d] = module if canonical(d) == home else \
                 copy.deepcopy(module).to(d).eval()
     return out
 

@@ -44,6 +44,18 @@ Counterpart of ``promptttspp_tpu/train/state.py`` (``bert_freeze_mask``,
   batch's gradient, so clip, AdamW and the norm agree on every rank; the
   reported losses are summed over the ranks too. The frozen BERT weights
   are not reduced.
+- ``model_group`` (a ``parallel/distributed.py::ModelGroup``): the model
+  axis. Under tensor parallelism (``parallel/tp.py::shard_module``, before
+  the state is made) each rank holds its slices of the sharded
+  parameters, and AdamW's moments follow them; the clip's global norm sums
+  the squares of the sharded gradients over the group and counts the
+  replicated ones once. Under pipeline parallelism over the group
+  (``parallel/pp.py``) every rank holds the whole DiffNet but computes the
+  gradients of its own stage's blocks only; those are summed over the
+  group before the data axis's sum. Every other gradient is the same on
+  each rank of the group but for the card's non-deterministic backward
+  (atomic sums), so it is averaged over the group, in the same
+  collective: the replicated parameters then stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -115,10 +127,12 @@ class TrainState:
                  warmup_steps: int = 4000,
                  betas: Tuple[float, float] = (0.9, 0.98),
                  weight_decay: float = 0.0, grad_clip: float = 1.0,
-                 seed: int = 42, bf16: bool = False, data=None):
+                 seed: int = 42, bf16: bool = False, data=None,
+                 model_group=None):
         self.model = model
         self.seed = seed
         self.data = data
+        self.model_group = model_group
         self.grad_clip = grad_clip
         self.schedule = noam_schedule(lr, warmup_steps)
         self.step = 0
@@ -128,6 +142,16 @@ class TrainState:
             p.requires_grad_(name in trainable)
         self.trainable = trainable
         self.params = [named[n] for n in trainable]
+        shards = getattr(model, "tp_shards", None) or {}
+        self._sharded = {i for i, n in enumerate(trainable) if n in shards}
+        pipeline = getattr(getattr(model, "decoder", None), "pipeline", None)
+        self._stage = []  # the gradients each pipeline stage holds its own of
+        if model_group is not None and pipeline is model_group:
+            self._stage = [i for i, n in enumerate(trainable) if n.startswith(
+                "decoder.denoise_fn.residual_layers.")]
+        self._replicated = [] if model_group is None else [
+            i for i in range(len(trainable))
+            if i not in self._sharded and i not in self._stage]
         self.optimizer = torch.optim.AdamW(
             self.params, lr=self.schedule(0), betas=tuple(betas), eps=1e-8,
             weight_decay=weight_decay)
@@ -195,10 +219,15 @@ class TrainState:
         step AdamW at this update's rate; under data parallelism the
         gradients and losses are summed over the ranks first."""
         grads = [p.grad for p in self.params]
+        if self.model_group is not None:
+            self.model_group.reduce_grads(
+                [grads[i] for i in self._stage + self._replicated])
+            torch._foreach_mul_([grads[i] for i in self._replicated],
+                                1.0 / self.model_group.world)
         if self.data is not None:
             self.data.reduce_grads(grads)
             losses = self._total(losses)
-        norm = global_norm(grads)
+        norm = self._global_norm(grads)
         scale = torch.where(norm < self.grad_clip, 1.0,
                             self.grad_clip / norm)
         torch._foreach_mul_(grads, scale)
@@ -210,6 +239,17 @@ class TrainState:
         out = {k: v.detach() for k, v in losses.items()}
         out["grad_norm"] = norm.detach()
         return out
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        """The global norm of the (whole) gradients: the sharded ones'
+        squares summed over the model group, the replicated ones once."""
+        if not self._sharded:
+            return global_norm(grads)
+        sq = [torch.stack(torch._foreach_norm(part)).square().sum()
+              for part in ([g for i, g in enumerate(grads)
+                            if i not in self._sharded],
+                           [grads[i] for i in sorted(self._sharded)])]
+        return torch.sqrt(sq[0] + self.model_group.total(sq[1]))
 
     def _total(self, losses: Dict) -> Dict[str, torch.Tensor]:
         """``losses`` summed over the ranks, in one collective."""

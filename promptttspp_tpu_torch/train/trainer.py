@@ -7,7 +7,8 @@ fixed ``train.batch_size``) shuffled per epoch as a function of (seed,
 epoch), validation on the running statistics, and the JAX trainer's
 records: ``logs/train.log``, ``logs/loss.csv`` (one row per epoch), the
 config snapshot ``config.yaml`` (JSON, which YAML reads), TensorBoard
-scalars when ``torch.utils.tensorboard`` is installed, checkpoints
+scalars when ``torch.utils.tensorboard`` is installed (unless
+``train.tensorboard=false``; its import takes seconds), checkpoints
 ``ckpt/last`` every epoch and ``ckpt/epoch-NNNN`` every
 ``train.save_interval``, ``ckpt/crash`` on a failure, resume
 (``ckpt_path``) and warm start (``pretrained``). ``train.profile_steps=N``
@@ -40,9 +41,21 @@ barrier after each checkpoint; every rank restores the same checkpoint,
 and rank 0's parameters are broadcast before the first update. At world
 size 1 the step is the single-process one, bit for bit.
 
-The port raises, naming the key, on what it does not implement: a
-model-parallel or pipelined mesh (M6b), the XLA compilation cache and the
-per-epoch scheduler.
+The model axis (``train.mesh.model=M``): the W processes fold into W / M
+data shards of M ranks each (``parallel/distributed.py::process_groups``:
+rank ``d * M + m``, or ``m * D + d`` with
+``train.mesh.model_spans_processes``), the M ranks of a data shard holding
+the same rows. They split the model by tensor parallelism
+(``parallel/tp.py``: Megatron's column and row sharding of the layers
+JAX's ``param_partition_spec`` names), or, with
+``train.mesh.pipeline_microbatches=P``, they run the DiffNet as a GPipe
+pipeline of M stages in P microbatches (``parallel/pp.py``), its
+parameters kept out of TP, the batch multiple then ``D * max(1, P)``. A
+model axis across processes (``model_spans_processes``) turns TP off, as
+in JAX. The checkpoints are whole (``train/checkpoint.py``).
+
+The port raises, naming the key, on what it does not implement: the XLA
+compilation cache and the per-epoch scheduler.
 """
 
 from __future__ import annotations
@@ -69,7 +82,9 @@ from promptttspp_tpu_torch.data.dataset import AllWithSpkPromptNormDataset
 from promptttspp_tpu_torch.data.prefetch import (
     _collate_native, entry_metas, finish, host_tensors, prefetch_batches)
 from promptttspp_tpu_torch.parallel.distributed import (
-    DataGroup, host_batches, init_distributed, rank_device)
+    host_batches, init_distributed, process_groups, rank_device)
+from promptttspp_tpu_torch.parallel.pp import StageDevices
+from promptttspp_tpu_torch.parallel.tp import shard_module
 from promptttspp_tpu_torch.platform import resolve_device
 from promptttspp_tpu_torch.train import checkpoint as ckpt_lib
 from promptttspp_tpu_torch.train.state import TrainState
@@ -97,10 +112,6 @@ def check_supported(cfg: Mapping):
     """Raise, naming the key, where ``cfg`` asks for what the port's
     trainer does not implement."""
     refused = {
-        "train.mesh.pipeline_microbatches": "pipeline parallelism (M6b) is "
-                                            "not ported",
-        "train.mesh.model_spans_processes": "a model axis across processes "
-                                            "(M6b) is not ported",
         "train.compilation_cache_dir": "the XLA compilation cache has no "
                                        "counterpart in the port",
         "train.per_epoch_scheduler": "the per-epoch scheduler is not ported",
@@ -108,9 +119,10 @@ def check_supported(cfg: Mapping):
     for key, why in refused.items():
         if select(cfg, key):
             raise ValueError(f"{key}={select(cfg, key)!r}: {why}")
-    if (select(cfg, "train.mesh.model") or 1) > 1:
-        raise ValueError("train.mesh.model > 1: model parallelism (M6b) is "
-                         "not ported")
+    for key in ("train.mesh.model", "train.mesh.pipeline_microbatches"):
+        value = select(cfg, key)
+        if value is not None and (not isinstance(value, int) or value < 0):
+            raise ValueError(f"{key}={value!r}: a count")
     backend = select(cfg, "train.distributed.backend")
     if backend not in (None, "nccl", "gloo"):
         raise ValueError(f"train.distributed.backend={backend!r}: 'nccl' or "
@@ -154,18 +166,32 @@ class TTSTrainer:
         self.tokenizer = tokenizer
         self.device = resolve_device(cfg.get("device", "cuda"))
         # a process group: torchrun's environment or train.distributed.*
-        self.data = None
+        self.data = self.model_group = None
+        n_model = select(cfg, "train.mesh.model") or 1
+        self.microbatches = select(cfg, "train.mesh.pipeline_microbatches") \
+            or 0
+        self.model_spans = bool(select(cfg,
+                                       "train.mesh.model_spans_processes"))
         if init_distributed(
                 select(cfg, "train.distributed.coordinator_address"),
                 select(cfg, "train.distributed.num_processes"),
                 select(cfg, "train.distributed.process_id"),
                 select(cfg, "train.distributed.backend"), self.device.type):
-            self.data = DataGroup.current()
+            self.data, self.model_group = process_groups(n_model,
+                                                         self.model_spans)
             self.device = rank_device(self.device.type)
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
-        self.rank = self.data.rank if self.data else 0
-        self.world = self.data.world if self.data else 1
+        elif n_model > 1:
+            raise ValueError(
+                f"train.mesh.model={n_model}: the model axis is a group of "
+                f"{n_model} processes per data shard; set "
+                "train.distributed.num_processes to a multiple of it")
+        self.rank = dist.get_rank() if self.data else 0
+        self.world = dist.get_world_size() if self.data else 1
+        self.n_data = self.data.world if self.data else 1
+        # the rows of a global batch are a multiple of this
+        self.batch_multiple = self.n_data * max(1, self.microbatches)
         self.is_main = self.rank == 0
         self.output_dir = Path(cfg.get("output_dir", "./out"))
         self.log_dir = self.output_dir / "logs"
@@ -222,18 +248,29 @@ class TTSTrainer:
                    for h in logger.handlers):
             logger.addHandler(logging.StreamHandler())
         self.logger = logger
+        if select(self.cfg, "train.tensorboard") is False:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:  # tensorboard is optional, as in JAX
-            self.writer = None
-        else:
-            self.writer = SummaryWriter(str(self.log_dir))
+            return
+        self.writer = SummaryWriter(str(self.log_dir))
 
     def build_state(self) -> TrainState:
-        """The model of ``cfg``, seeded from ``train.seed``, with its
+        """The model of ``cfg``, seeded from ``train.seed``, pipelined or
+        sharded over the model axis as ``train.mesh`` says, with its
         optimizer."""
         model = flagship.build_model(self.cfg["model"], self.device,
                                      seed=self.seed)
+        group = self.model_group
+        if self.microbatches:
+            model.decoder = model.decoder.clone(
+                pipeline=group or StageDevices([self.device]),
+                pipeline_microbatches=self.microbatches,
+                pipeline_batch_axis="data")
+        if group is not None and not self.model_spans:
+            shard_module(model, group, skip=("decoder.denoise_fn",)
+                         if self.microbatches else ())
         return TrainState(
             model, lr=select(self.cfg, "optimizer.lr", 1e-3),
             warmup_steps=select(self.cfg, "train.lr_scheduler.warmup_steps",
@@ -242,20 +279,20 @@ class TTSTrainer:
             weight_decay=select(self.cfg, "optimizer.weight_decay", 0.0),
             seed=self.seed, bf16=bool(select(self.cfg, "train.bf16")
                                       or select(self.cfg, "train.fp16")),
-            data=self.data)
+            data=self.data, model_group=group)
 
     def batches(self, ds, shuffle: bool) -> ShuffleBatchSampler:
         """The batch sampler of ``ds`` (``dataset.dynamic_batch``: token
-        buckets of ``dataset.max_tokens`` in multiples of the world size,
-        only the divisible ones kept where any is; else
+        buckets of ``dataset.max_tokens`` in multiples of the batch
+        multiple, only the divisible ones kept where any is; else
         ``train.batch_size``)."""
+        mult = self.batch_multiple
         if select(self.cfg, "dataset.dynamic_batch", True):
             batches = batch_by_size(
                 ds.ordered_indices(), ds.num_tokens,
                 max_tokens=select(self.cfg, "dataset.max_tokens", 10000),
-                required_batch_size_multiple=self.world)
-            batches = [b for b in batches
-                       if len(b) % self.world == 0] or batches
+                required_batch_size_multiple=mult)
+            batches = [b for b in batches if len(b) % mult == 0] or batches
         else:
             bs = select(self.cfg, "train.batch_size", 32)
             idx = list(range(len(ds)))
@@ -265,15 +302,18 @@ class TTSTrainer:
     def _rank_batches(self, sampler, ds):
         """This rank's entries of ``sampler`` (``host_batches``: the
         global batch's buckets, the prompts padded to its longest's, rows
-        padded to a multiple of the world size), or ``sampler`` itself at
-        world size 1."""
-        if self.world == 1:
+        padded to a multiple of the batch multiple, the same rows on every
+        rank of a model group), or ``sampler`` itself in one process
+        without microbatches."""
+        if self.batch_multiple == 1:
             return sampler
         if not hasattr(ds, "item_meta"):
-            raise ValueError("data parallelism needs a dataset with "
-                             "item_meta and load_item_features")
-        return host_batches(sampler, ds, rank=self.rank, world=self.world,
-                            prompt_pad_to=None, row_multiple=self.world)
+            raise ValueError("data parallelism and pipeline microbatches "
+                             "need a dataset with item_meta and "
+                             "load_item_features")
+        return host_batches(sampler, ds, rank=self.data.rank if self.data
+                            else 0, world=self.n_data, prompt_pad_to=None,
+                            row_multiple=self.batch_multiple)
 
     def _barrier(self):
         if self.data is not None:
@@ -281,9 +321,11 @@ class TTSTrainer:
                          if self.device.type == "cuda" else None)
 
     def _save(self, name: str, state: TrainState, epoch: int):
-        """Rank 0 writes ``ckpt/<name>``; every rank waits for it."""
-        if self.is_main:
-            ckpt_lib.save_checkpoint(self.ckpt_dir / name, state, epoch)
+        """Rank 0 writes ``ckpt/<name>`` (a sharded model's ranks all join
+        its tensors); every rank waits for it."""
+        if self.is_main or ckpt_lib.is_sharded(state):
+            ckpt_lib.save_checkpoint(self.ckpt_dir / name, state, epoch,
+                                     write=self.is_main)
         self._barrier()
 
     # --------------------------------------------------------------- run
@@ -297,7 +339,11 @@ class TTSTrainer:
                          f" M on {self.device}"
                          + (", bf16" if state.shadow is not None else "")
                          + (f", rank {self.rank} of {self.world}"
-                            if self.data is not None else ""))
+                            if self.data is not None else "")
+                         + (f", model axis {self.model_group.world}"
+                            if self.model_group is not None else "")
+                         + (f", {self.microbatches} pipeline microbatches"
+                            if self.microbatches else ""))
         start_epoch = 1
         if cfg.get("ckpt_path"):
             last = ckpt_lib.restore_checkpoint(cfg["ckpt_path"], state)
@@ -314,6 +360,11 @@ class TTSTrainer:
             self._train_loop(state, start_epoch, num_epochs)
         except Exception:
             if not self.is_main:
+                raise
+            if ckpt_lib.is_sharded(state):
+                # the whole tensors need every rank of the model group
+                self.logger.exception("training failed; no emergency "
+                                      "checkpoint of a sharded model")
                 raise
             try:
                 ckpt_lib.save_checkpoint(self.ckpt_dir / "crash", state,

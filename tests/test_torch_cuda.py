@@ -1206,3 +1206,186 @@ def test_sharded_vocoder_on_one_card_equals_chunked(dev):
     assert k1.antialias_snake.launches - before[0] == 2 and n_layers > 0
     assert out.shape == ref.shape
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------ model axis
+def _model_axis_rank(rank, port, out_dir):
+    """One of two gloo ranks on cuda:0: the ring permute of a CUDA tensor
+    (forward and back) and a TP=2 step of the tiny model."""
+    import torch.distributed as dist
+
+    from promptttspp_tpu_torch.parallel.distributed import process_groups
+    from promptttspp_tpu_torch.parallel.tp import (
+        gather_state_dict, shard_module)
+    from promptttspp_tpu_torch.train.state import TrainState
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        dev = torch.device("cuda", 0)
+        _, group = process_groups(2)
+        x = torch.full((3, 5), float(rank + 1), device=dev)
+        ahead, back = group.permute(x, 1), group.permute(x, -1)
+        model = flagship.build_model(zero_dropout_config(), dev, 0,
+                                     ZERO_BERT)
+        shard_module(model, group)
+        state = TrainState(model, seed=0, model_group=group, **OPT)
+        out = {k: v.item() for k, v in state.train_step(
+            torch_batch(train_batch(), dev)).items()}
+        sd = {k: v.cpu() for k, v in model.state_dict().items()}
+        sd.update({k: v.cpu() for k, v in gather_state_dict(model).items()})
+        grads = {n: p.grad for n, p in zip(state.trainable, state.params)}
+        grads.update({n: group.gather_dim(grads[n], spec.dim,
+                                          spec.interleave)
+                      for n, spec in model.tp_shards.items() if n in grads})
+        torch.save(dict(permuted=(ahead.cpu(), back.cpu(),
+                                  str(ahead.device)), out=out, sd=sd,
+                        grads={n: g.cpu() for n, g in grads.items()}),
+                   f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def model_axis_ranks(tmp_path_factory):
+    """Two gloo ranks spawned on cuda:0 (``_model_axis_rank``) -> their
+    results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import socket
+
+    import torch.multiprocessing as mp
+
+    out = tmp_path_factory.mktemp("model_axis")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(_model_axis_rank, args=(port, str(out)), nprocs=2,
+                       join=True, start_method="spawn")
+    return [torch.load(out / f"rank{r}.pt") for r in range(2)]
+
+
+def test_ring_permute_on_the_card(dev, model_axis_ranks):
+    """``ModelGroup.permute`` of a CUDA tensor between two gloo ranks on
+    cuda:0 (staged through the host): each rank receives the other's,
+    around the ring both ways, on the card."""
+    for rank, res in enumerate(model_axis_ranks):
+        ahead, back, device = res["permuted"]
+        assert device == "cuda:0"
+        other = float(2 - rank)
+        assert torch.equal(ahead, torch.full((3, 5), other))
+        assert torch.equal(back, torch.full((3, 5), other))
+
+
+def test_tp_step_on_the_card(dev, model_axis_ranks):
+    """A TP=2 step of the tiny model (dropout 0, draws given) on two gloo
+    ranks on cuda:0 against one process on the card: the losses within
+    1e-5 relative (grad_norm 1e-4: the squares summed in another order),
+    the whole gradient (clipped, as AdamW took it) within 1e-4 relative in
+    L2 and every tensor within 1e-2 (chip_smoke.py's phase 12 explains why
+    a tensor cannot be held tighter: rounding on the card moves elements
+    near 0), and the whole parameters, alike on both ranks, within a tenth
+    of the update in L2 (AdamW's first step is about lr whatever a
+    gradient element's size, so an element near 0 that rounding moves
+    across 0 steps the other way)."""
+    from promptttspp_tpu_torch.train.state import TrainState
+
+    model = flagship.build_model(zero_dropout_config(), dev, 0, ZERO_BERT)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    state = TrainState(model, seed=0, **OPT)
+    out = state.train_step(torch_batch(train_batch(), dev))
+    ref = model.state_dict()
+    ref_grads = {n: p.grad for n, p in zip(state.trainable, state.params)}
+    r0, r1 = model_axis_ranks
+    assert r0["out"] == r1["out"]
+    for k, v in out.items():
+        np.testing.assert_allclose(r0["out"][k], v.item(),
+                                   rtol=1e-4 if k == "grad_norm" else 1e-5,
+                                   err_msg=k)
+    norm = lambda ts: float(torch.stack([t.norm() for t in ts]).norm())
+    whole = norm(g for g in ref_grads.values())
+    diffs = {n: float((r0["grads"][n] - g.cpu()).norm())
+             for n, g in ref_grads.items()}
+    assert norm(torch.tensor(d) for d in diffs.values()) <= 1e-4 * whole
+    for n, g in ref_grads.items():
+        assert diffs[n] <= 1e-2 * float(g.norm()) + 1e-6 * whole, n
+    for k, v in r0["sd"].items():
+        assert torch.equal(r1["sd"][k], v), k
+    gap = norm((r0["sd"][k] - v.cpu()) for k, v in ref.items()
+               if v.is_floating_point())
+    moved = norm((v - init[k]).cpu() for k, v in ref.items()
+                 if v.is_floating_point())
+    assert gap <= 0.1 * moved, (gap, moved)
+
+
+def test_pipelined_decode_on_the_card(dev):
+    """``Synthesizer(decode_pipelined=True)`` over the mesh [[cuda:0,
+    cuda:0]] with a 4-block DiffNet in 2 stages and 2 microbatches: a batch
+    of two requests' mels within 1e-5 of the unpipelined eager decode's,
+    and the vocoder's K1 and K2-bf16 launches those of the plain request."""
+    from promptttspp_tpu_torch.models import decode_graph
+    from promptttspp_tpu_torch.parallel.mesh import Mesh
+
+    cfg = tiny_model_config()
+    cfg["decoder"]["denoise_fn"].update(residual_layers=4,
+                                        dilation_cycle_length=2)
+    model = flagship.build_model(cfg, dev, 3, TINY_BERT)
+    kw = dict(tokenizer=Tok(), device=dev, frame_quantum=64)
+    vocoder = _tiny_synth(dev).vocoder
+    piped = Synthesizer(model, vocoder, decode_pipelined=True,
+                        pipeline_microbatches=2, mesh=Mesh([[dev, dev]]),
+                        **kw)
+    plain = Synthesizer(model, vocoder, **kw)
+    seqs = [[5, 17, 33, 45, 8, 61, 29], [12, 88, 41, 23]]
+    req = dict(prompts=["a calm voice", "bright"], use_max=False,
+               noise_scale=0.5, seed=3)
+
+    def eager(decoder, cond, x_T=None, zero_noise=False, generator=None):
+        return decoder.inference(cond, x_T, zero_noise, generator)
+
+    counts = []
+    k1.antialias_snake.launches = k2.amp_layer.launches_bf16 = 0
+    with mock.patch.object(decode_graph, "decode", eager):
+        _, ref = plain.synthesize(seqs, **req)
+    counts.append((k1.antialias_snake.launches, k2.amp_layer.launches_bf16))
+    k1.antialias_snake.launches = k2.amp_layer.launches_bf16 = 0
+    wavs, mels = piped.synthesize(seqs, **req)
+    counts.append((k1.antialias_snake.launches, k2.amp_layer.launches_bf16))
+    assert counts[1] == counts[0] and counts[0][0] == 1 and counts[0][1] > 0
+    for m, r in zip(mels, ref):
+        np.testing.assert_allclose(m, r, rtol=0, atol=1e-5)
+    assert all(np.isfinite(w).all() for w in wavs)
+
+
+def test_one_process_pipelined_training_on_the_card(dev):
+    """The trainer's one-process pipeline, ``StageDevices([cuda])`` with
+    the device named without its index, on a DiffNet whose parameters lie
+    on cuda:0: its blocks take the gradients of the unpipelined step (a
+    replica took them before, F9), within 1e-4 relative in every tensor
+    (float32, the card's atomics summing in another order)."""
+    from promptttspp_tpu_torch.models.diffusion import float32_math
+    from promptttspp_tpu_torch.parallel.pp import (
+        StageDevices, denoise_pipelined)
+
+    cfg = tiny_model_config()
+    cfg["decoder"]["denoise_fn"].update(residual_layers=4,
+                                        dilation_cycle_length=2)
+    model = flagship.build_model(cfg, dev, 3, TINY_BERT)
+    diffnet = model.decoder.denoise_fn.requires_grad_(True)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 32, MEL, generator=g).to(dev)
+    cond = torch.randn(4, 32, C, generator=g).to(dev)
+    t = torch.tensor([3, 7, 1, 9], device=dev)
+    grads = []
+    with float32_math():
+        for pipeline in (None, StageDevices([torch.device("cuda")])):
+            diffnet.zero_grad()
+            eps = diffnet(x, t, diffnet.precompute_cond(cond)) \
+                if pipeline is None else denoise_pipelined(
+                    pipeline, diffnet, x, t, cond, n_microbatches=2)
+            eps.square().sum().backward()
+            grads.append({n: p.grad.clone()
+                          for n, p in diffnet.named_parameters()})
+    for n, v in grads[0].items():
+        assert float((grads[1][n] - v).norm()) <= 1e-4 * float(v.norm()), n

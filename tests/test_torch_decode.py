@@ -341,18 +341,20 @@ def test_plms_synthesizer_matches_jax(synths):  # noqa: F811
 
 
 def test_float32_math_restores_the_callers_flags():
-    """The decode's scope turns TF32 off for cuDNN and cuBLAS and gives the
-    caller's settings back after it."""
+    """The decode's and the training step's scope turns TF32 off for
+    cuDNN's convolutions and recurrent layers (the style encoder's GRU) and
+    for cuBLAS, and gives the caller's settings back after it."""
     from promptttspp_tpu_torch.models.diffusion import float32_math
 
-    conv, matmul = torch.backends.cudnn.conv, torch.backends.cuda.matmul
-    saved = conv.fp32_precision, matmul.fp32_precision
-    conv.fp32_precision = matmul.fp32_precision = "tf32"
+    flags = (torch.backends.cudnn.conv, torch.backends.cudnn.rnn,
+             torch.backends.cuda.matmul)
+    saved = [f.fp32_precision for f in flags]
+    for f in flags:
+        f.fp32_precision = "tf32"
     try:
         with float32_math():
-            assert (conv.fp32_precision, matmul.fp32_precision) == (
-                "ieee", "ieee")
-        assert (conv.fp32_precision, matmul.fp32_precision) == (
-            "tf32", "tf32")
+            assert [f.fp32_precision for f in flags] == ["ieee"] * 3
+        assert [f.fp32_precision for f in flags] == ["tf32"] * 3
     finally:
-        conv.fp32_precision, matmul.fp32_precision = saved
+        for f, value in zip(flags, saved):
+            f.fp32_precision = value

@@ -183,7 +183,8 @@ def test_build_model_at_reduced_depth():
 # but JAX's default.
 _READ = {"decoder": {"in_dim", "out_dim", "norm_scale", "K_step", "a_min",
                      "a_max", "denoise_fn", "schedule_type", "pndm_speedup",
-                     "infer_io_dtype"},
+                     "infer_io_dtype", "pipeline_microbatches",
+                     "pipeline_batch_axis"},
          "denoise_fn": {"in_dim", "encoder_hidden_dim", "residual_layers",
                         "residual_channels", "kernel_size",
                         "dilation_cycle_length", "scale"}}
@@ -217,13 +218,12 @@ def test_decoder_switches_cover_the_jax_fields():
 
 
 @pytest.mark.parametrize("path,value", [
-    (("decoder", "pipeline_microbatches"), 4),
-    (("decoder", "pipeline_batch_axis"), "data"),
+    (("decoder", "pipeline_mesh"), "model"),
 ], ids=lambda v: ".".join(v) if isinstance(v, tuple) else repr(v))
 def test_unported_decoder_switch_raises(path, value):
-    """A decoder switch that the JAX model honours and the port does not
-    implement (the pipelined decode) raises at build, naming the key, where
-    the port used to drop it."""
+    """A decoder switch that a config cannot give the port (a pipeline
+    mesh: the trainer or the Synthesizer sets the pipeline) raises at
+    build, naming the key, where the port used to drop it."""
     import copy
 
     from promptttspp_tpu_torch import flagship
@@ -236,6 +236,31 @@ def test_unported_decoder_switch_raises(path, value):
     section[path[-1]] = value
     with pytest.raises(ValueError, match=".".join(path)):
         flagship.build_model(cfg, "cpu", 0, TINY_BERT)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("pipeline_microbatches", 4), ("pipeline_batch_axis", "data")])
+def test_decoder_pipeline_switches_are_read(key, value):
+    """The decoder's pipeline microbatches and batch axis, which JAX's
+    GaussianDiffusion carries, are read into the port's sampler; without a
+    pipeline (set by the trainer or the Synthesizer) they change no
+    decode, as in JAX."""
+    import copy
+
+    from promptttspp_tpu_torch import flagship
+    from tests.test_torch_cuda import TINY_BERT, tiny_model_config
+
+    cfg = copy.deepcopy(tiny_model_config())
+    cfg["decoder"][key] = value
+    model = flagship.build_model(cfg, "cpu", 0, TINY_BERT)
+    assert model.decoder.options[key] == value
+    assert model.decoder.pipeline is None
+    plain = flagship.build_model(tiny_model_config(), "cpu", 0, TINY_BERT)
+    cond = torch.randn(2, 16, cfg["decoder"]["in_dim"])
+    x_T = torch.randn(2, 16, cfg["decoder"]["out_dim"])
+    assert torch.equal(
+        model.decoder.inference(cond, x_T=x_T, zero_noise=True),
+        plain.decoder.inference(cond, x_T=x_T, zero_noise=True))
 
 
 # The JAX module behind each section of flagship._FIXED

@@ -346,17 +346,37 @@ def test_pipelines_give_the_same_rank_batches(corpus, world):  # noqa: F811
 
 # --------------------------------------------------------- refusals
 def test_mesh_and_model_axis_refusals(tiny_synth_parts):
+    """The [data, model] fold of ``make_mesh`` (JAX's, transposed with
+    ``model_spans_processes``), and the refusals that hold: a fold that
+    does not cover the devices, no CUDA device, a pipelined decode that is
+    frame-sharded too, and a pipeline whose stages break the DiffNet's
+    dilation cycle (JAX's ValueError)."""
     model, vocoder, kw = tiny_synth_parts
     mesh = make_mesh(devices=["cpu", "cpu", "cpu"])
     assert mesh.shape == {"data": 3, "model": 1}
     assert mesh.data_devices == [torch.device("cpu")] * 3
-    with pytest.raises(ValueError, match="M6b"):
-        make_mesh(model=2, devices=["cpu", "cpu"])
+    devs = [torch.device("cpu", i) for i in range(4)]
+    mesh = make_mesh(model=2, devices=devs)
+    assert mesh.shape == {"data": 2, "model": 2}
+    assert mesh.model_devices(1) == devs[2:]
+    assert make_mesh(model=2, devices=devs, model_spans_processes=True
+                     ).model_devices(1) == [devs[1], devs[3]]
     with pytest.raises(ValueError):
         make_mesh(data=3, devices=["cpu", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_mesh()
-    for bad in (dict(decode_pipelined=True), dict(pipeline_microbatches=2)):
-        with pytest.raises(ValueError, match="M6b"):
-            Synthesizer(model, vocoder, **bad, **kw)
+    with pytest.raises(ValueError, match="frame_sharded_decode"):
+        Synthesizer(model, vocoder, decode_pipelined=True,
+                    frame_sharded_decode=True,
+                    mesh=make_mesh(devices=["cpu"]), **kw)
+    # the tiny DiffNet: 2 layers of dilation cycle 2 make one stage only
+    synth = Synthesizer(model, vocoder, decode_pipelined=True,
+                        mesh=make_mesh(model=2, devices=["cpu", "cpu"]), **kw)
+    with pytest.raises(ValueError, match="multiple of the dilation cycle"):
+        synth._decoder.inference(torch.zeros(1, 8, model.decoder.denoise_fn
+                                             .residual_layers[0]
+                                             .conditioner_projection
+                                             .in_channels),
+                                 zero_noise=True,
+                                 x_T=torch.zeros(1, 8, 20))

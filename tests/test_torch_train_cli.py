@@ -80,7 +80,7 @@ def _rows(path):
 
 @pytest.mark.parametrize("override,key", [
     ("+train.mesh.model=2", "train.mesh.model"),
-    ("+train.mesh.pipeline_microbatches=2",
+    ("+train.mesh.pipeline_microbatches=-1",
      "train.mesh.pipeline_microbatches"),
     ("+train.distributed.num_processes=2",
      "train.distributed.num_processes"),
