@@ -7,7 +7,7 @@ Run from the repository root, with no arguments:
 
 ``python3 chip_smoke.py --phase12`` builds the kernels and runs phase 12
 alone (on every visible GPU where it uses more than one), with no result
-line; ``--phase13`` does the same for phase 13.
+line; ``--phase13`` and ``--phase14`` do the same for phases 13 and 14.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -203,7 +203,33 @@ Phases (any failure exits non-zero and prints no result line):
     after), the pipelined decode's time beside the graph decode's. (d)
     ``tools/dryrun_multichip.py``'s three checks (DP x TP, SP, DP x PP on
     four ranks: gloo on ``cuda:0``, or NCCL over four GPUs).
-14. Print the ``kernels`` JSON line, the GPU line and the result line.
+14. The model's remaining config switches and the ESPnet transformer
+    suite, about 50 s: (a) the variant of ``variant_config`` (each switch
+    the flagship sets away from JAX's default at JAX's default, and the
+    energy branch) at the flagship's widths, its duration head biased to
+    10 frames per phone, serving three two-phase requests of 64 phones and
+    a 32-token prompt (640 frames): the walls, RTF and a device-time
+    profile, K1 once and K2-bf16 72 times per request (counts set to 0
+    just before and read just after), the graph decode against the eager
+    decode bit for bit, and its ``infer_cond`` on the card against the
+    CPU's within 1e-4 of the largest magnitude; (b) one update of the
+    variant (dropout rates 0, the diffusion steps and noise given, the
+    learning rate at its peak from the first update) on the largest
+    ``max_tokens=10000`` batch of a synthetic training corpus under
+    ``build/chip_smoke/variant/``, on the card and on the CPU from the same
+    weights: the losses, ``energy`` included, and grad_norm at phase 10
+    (a)'s bars, the parameters after it within a tenth of what the update
+    moved them (L2, as phase 12 holds them), the card's update time; (c)
+    the ESPnet suite at its modules' default widths (attention_dim 256, 4
+    heads, linear_units 2048, 6 blocks), batch 8:
+    ``TransformerEncoder`` (conv2d) on 80-dim features of 1,000 frames,
+    ``Decoder`` with each of ``selfattn``, ``lightconv``, ``lightconv2d``,
+    ``dynamicconv`` and ``dynamicconv2d`` over its output on 101 target
+    tokens, and 20 steps of ``forward_one_step`` each, every output on the
+    card against the CPU's within 1e-4 of the largest magnitude, and each
+    module's time. None of these modules holds a hand-written kernel; the
+    requests of (a) launch K1 and K2-bf16 through the vocoder.
+15. Print the ``kernels`` JSON line, the GPU line and the result line.
 
 TF32 is switched off for cuDNN convolutions and cuBLAS matrix products, so
 the plain versions are full float32 references; the bf16 plain version
@@ -339,6 +365,62 @@ TP_RANKS, PP_STAGES, PP_MICRO, PP_BATCH, PP_UPDATES = 2, 5, 5, 30, 10
 # query and k|v, 20 dilated_conv and one cond for every conditioner
 # projection, adaptor.0, the last BERT layer's intermediate.dense: 37)
 TP_ALLREDUCES = 96
+# phase 14: the variant (``variant_config``) against the CPU, relative to
+# the largest magnitude; the ESPnet suite at its modules' default widths
+# (ESPnet's: attention_dim 256, 4 heads, linear_units 2048, 6 blocks):
+# the batch, the encoder's input frames and features, the decoder's
+# target tokens and its one-step decoding steps, and the decoders'
+# self-attention types. The variant's update runs at the peak rate from
+# the first step, so AdamW moves every parameter with a gradient by about
+# lr = 1e-3 and the update is held as phase 12's are (PARALLEL_PARAM_RTOL
+# of its L2 norm): an update that skipped the optimizer or stepped the
+# wrong way misses by 1 or 2 of it
+VARIANT_RTOL = 1e-4
+ESP_BATCH, ESP_FRAMES, ESP_FEATS, ESP_TOKENS, ESP_STEPS = 8, 1000, 80, 100, 20
+ESP_VOCAB = 500
+ESP_DECODERS = ("selfattn", "lightconv", "lightconv2d", "dynamicconv",
+                "dynamicconv2d")
+# the convolutions' kernel per decoder block (ESPnet reads one size per
+# block from the string, so its one-entry default fits one block only)
+ESP_CONV_KERNELS = "11_13_15_17_19_21"
+# the corpus of the variant's update: enough rows for one max_tokens batch
+VARIANT_UTTS = 80
+
+
+def energy_branch(va):
+    """The energy predictor and embedding of a variance adaptor config
+    ``va``, as JAX's aliases build them (``Predictor``; ``torch.nn.Conv1d``
+    -> ``PitchEmb``): the pitch predictor's widths with one output, and a
+    1x1 Conv1d 1 -> C like the pitch embedding."""
+    return dict(energy_predictor=dict(va["pitch_predictor"], out_channels=1),
+                energy_emb=dict(va["pitch_emb"]))
+
+
+def variant_config(model_cfg):
+    """``model_cfg`` with each switch the flagship sets away from JAX's
+    default at JAX's default, and the energy branch: style vectors not
+    normalized, both MDN heads in the training dtype (``mdn_disable_amp``
+    false, as the YAML's interpolation gives the duration head), the
+    phoneme embedding scaled by sqrt(C), the conformer at JAX's
+    ``ConformerEncoder`` defaults at the config's widths (its switch keys
+    left out: Linear FFN, absolute positions, plain attention, no macaron,
+    no conv module), one GMM of diagonal components in the style MDN, and
+    ``energy_branch``."""
+    import copy
+
+    cfg = copy.deepcopy(model_cfg)
+    cfg.update(norm_style_emb=False, mdn_disable_amp=False)
+    cfg["phoneme_embedding"]["do_scale"] = True
+    for key in ("positionwise_layer_type", "positionwise_conv_kernel_size",
+                "pos_enc_layer_type", "selfattention_layer_type",
+                "macaron_style", "use_cnn_module", "cnn_module_kernel",
+                "rel_pos_type"):
+        cfg["encoder"].pop(key, None)
+    cfg["style_mdn"]["dim_wise"] = False
+    va = cfg["variance_adaptor"]
+    va["duration_predictor"]["disable_amp"] = False
+    va.update(energy_branch(va))
+    return cfg
 
 
 def gpu_line() -> str:
@@ -750,6 +832,13 @@ def main() -> int:
     piped = phase_model_axis(k1, k2, model, vocoder, seqs, prompts, dev,
                              gpu, failures)
 
+    # -- phase 14: the model's remaining switches, the ESPnet suite ---------
+    print(f"phase 14 starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    variant = phase_variant(k1, k2, vocoder, dev, gpu, failures)
+
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -760,6 +849,7 @@ def main() -> int:
              replaces="promptttspp_tpu/ops/pallas/snake.py:248",
              launches=launches["antialias_snake"], max_abs_err=k1_err,
              launches_pipelined_request=piped["antialias_snake"],
+             launches_variant_requests=variant["antialias_snake"],
              ms=k1_row["ms"], plain_ms=k1_row["plain_ms"],
              bound_ms=k1_row["bound_ms"], bound_by=k1_row["bound_by"],
              library_ms=None, shape=k1_row["shape"]),
@@ -768,6 +858,7 @@ def main() -> int:
              replaces="promptttspp_tpu/ops/pallas/amp.py:332",
              launches=launches["amp_layer_bf16"],
              launches_pipelined_request=piped["amp_layer_bf16"],
+             launches_variant_requests=variant["amp_layer_bf16"],
              max_abs_err=k2bf_row["err"], ms=k2bf_row["ms"],
              plain_ms=k2bf_row["plain_ms"], bound_ms=k2bf_row["bound_ms"],
              bound_by=k2bf_row["bound_by"], library_ms=None,
@@ -1686,8 +1777,10 @@ def _no_dropout(model_cfg, bert_config):
     cfg0 = copy.deepcopy(model_cfg)
     cfg0["encoder"].update(dropout_rate=0.0, positional_dropout_rate=0.0)
     va = cfg0["variance_adaptor"]
-    va["duration_predictor"]["dropout"] = 0.0
-    va["pitch_predictor"]["dropout"] = 0.0
+    for name in ("duration_predictor", "pitch_predictor",
+                 "energy_predictor"):
+        if va.get(name) is not None:
+            va[name]["dropout"] = 0.0
     va["frame_prior_network"].update(p_dropout=0.0, pos_enc_p_dropout=0.0)
     return cfg0, dataclasses.replace(bert_config, hidden_dropout=0.0,
                                      attention_dropout=0.0)
@@ -3145,6 +3238,271 @@ def phase_model_axis(k1, k2, model, vocoder, seqs, prompts, dev, gpu,
     return single_launches
 
 
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want| (float tensors on any device)."""
+    want = want.detach().float().cpu()
+    got = got.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def phase_variant(k1, k2, vocoder, dev, gpu, failures):
+    """The model's remaining switches and the ESPnet suite (phase 14 of the
+    module docstring): ``variant_config`` of the flagship, and the ESPnet
+    modules at their own default widths. Returns the launch counts of the
+    variant's requests."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from promptttspp_tpu_torch import flagship
+    from promptttspp_tpu_torch.bin import conf
+    from promptttspp_tpu_torch.data.batching import batch_by_size
+    from promptttspp_tpu_torch.data.collate import PromptTTSCollator
+    from promptttspp_tpu_torch.data.dataset import (
+        AllWithSpkPromptNormDataset, read_prompt_candidate,
+        read_spk_prompt_candidate)
+    from promptttspp_tpu_torch.infer import Synthesizer
+    from promptttspp_tpu_torch.models import decode_graph
+    from promptttspp_tpu_torch.models.bert import WordPieceTokenizer
+    from promptttspp_tpu_torch.nn.decoder import Decoder
+    from promptttspp_tpu_torch.nn.transformer_encoder import (
+        TransformerEncoder)
+    from promptttspp_tpu_torch.ops.masks import (
+        add_sos_eos, subsequent_mask, target_mask)
+    from promptttspp_tpu_torch.tools.synthetic_corpus import (
+        training_rows, write_training_corpus)
+    from promptttspp_tpu_torch.train.state import TrainState
+    from promptttspp_tpu_torch.train.trainer import model_batch_keys
+
+    t_phase = time.perf_counter()
+    cfg = variant_config(flagship.MODEL)
+    bert_config = flagship.bert_config_of(cfg["prompt_encoder"])
+    mel_dim = cfg["decoder"]["out_dim"]
+
+    # (a) the variant at full width, served
+    model = flagship.bias_duration_head(
+        flagship.build_model(cfg, dev, 0, bert_config), 10.0)
+    n_params = sum(p.numel() for p in model.parameters()) / 1e6
+    synth = Synthesizer(model, vocoder, tokenizer=FixedTokenizer(PROMPT_LEN),
+                        device=dev)
+    seqs, prompts = request_inputs()
+    samples = FRAMES * 240
+    audio_s = samples / flagship.VOCODER["sampling_rate"]
+    kw = dict(use_max=True, noise_scale=0.0)
+    _zero_counts(k1, k2)
+    walls = []
+    for i in range(N_REQUESTS):
+        t0 = time.perf_counter()
+        wavs, _ = synth.synthesize(seqs, prompts, seed=i, **kw)
+        walls.append(time.perf_counter() - t0)
+        w = wavs[0]
+        if w.shape != (samples,) or not np.isfinite(w).all():
+            failures.append(f"variant request {i}: wav shape {w.shape}, "
+                            f"finite {bool(np.isfinite(w).all())}")
+    launches = _counts(k1, k2)
+    expect = {"antialias_snake": N_REQUESTS,
+              "amp_layer_bf16": 72 * N_REQUESTS, "amp_layer": 0,
+              "amp_block": 0}
+    if launches != expect:
+        failures.append(f"variant requests: launch counts {launches} != "
+                        f"{expect}")
+    steady = float(np.median(walls[1:]))
+    print(f"[{gpu}] phase 14 (a): the variant ({n_params:.1f} M params: "
+          "norm_style_emb and mdn_disable_amp false, scaled phoneme "
+          "embedding, the conformer at JAX's defaults, one style GMM, the "
+          f"energy branch): {N_REQUESTS} two-phase requests, walls "
+          f"{[round(x * 1e3, 1) for x in walls]} ms for {audio_s:.1f} s of "
+          f"audio (RTF {steady / audio_s:.5f} at the median of the last "
+          f"{N_REQUESTS - 1}); launches {launches} (expected {expect}: K1 1 "
+          "and K2-bf16 72 per request)", flush=True)
+    prof = profile_request(synth, seqs, prompts, gpu, steady, "variant")
+    if prof is not None:
+        print(f"[{gpu}] phase 14 (a): device {prof['device_ms']:.1f} ms of "
+              f"the {steady * 1e3:.1f} ms median wall", flush=True)
+    got = synth.synthesize(seqs, prompts, seed=5, **kw)
+    with mock.patch.object(decode_graph, "decode", _eager_decode):
+        want = synth.synthesize(seqs, prompts, seed=5, **kw)
+    same = all(np.array_equal(x, y) for x, y in zip(got[0] + got[1],
+                                                    want[0] + want[1]))
+    if not same:
+        failures.append("variant: graph decode differs from eager")
+    cpu = flagship.build_model(cfg, "cpu", 0, bert_config)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    _, _, req = synth._request(seqs, prompts, None, None, True, 0.0, 0)
+    args = (req["phoneme"], req["plens"], FRAMES, req["prompt_ids"],
+            req["prompt_mask"])
+    with torch.inference_mode():
+        on_card = model.infer_cond(*args, **kw)
+        on_cpu = cpu.infer_cond(*(a.cpu() if torch.is_tensor(a) else a
+                                  for a in args), **kw)
+    errs = {name: _rel_err(a, b) for name, a, b in zip(
+        ("cond", "log_cf0", "vuv"), (on_card[0], on_card[3], on_card[4]),
+        (on_cpu[0], on_cpu[3], on_cpu[4]))}
+    lengths_equal = bool(torch.equal(on_card[1].cpu(), on_cpu[1]))
+    print(f"[{gpu}] phase 14 (a): graph decode vs eager decode "
+          f"{'equal bit for bit' if same else 'DIFFER'} (mel and wav); "
+          f"infer_cond on the card vs the CPU: max error relative to the "
+          f"largest magnitude {errs} (tol {VARIANT_RTOL}), frame lengths "
+          f"equal: {lengths_equal}", flush=True)
+    if max(errs.values()) > VARIANT_RTOL or not lengths_equal:
+        failures.append(f"variant infer_cond card vs CPU: {errs}, lengths "
+                        f"equal {lengths_equal}")
+    del synth, model, cpu, on_card, on_cpu, req
+    torch.cuda.empty_cache()
+
+    # (b) one training update of the variant against the CPU's
+    root = OUT_DIR / "variant"
+    shutil.rmtree(root, ignore_errors=True)
+    meta = ROOT / "metadata"
+    cands = read_prompt_candidate(meta / "style_prompt_candidates.csv")
+    spk = read_spk_prompt_candidate(meta / "speaker_prompt_candidates.csv")
+    write_training_corpus(root, training_rows(
+        VARIANT_UTTS, cands, spk, TRAIN_PHONES, TRAIN_FPP, valid_every=20,
+        seed=5), cands, spk, n_mels=mel_dim, mel_mean=-5.0, mel_std=2.0,
+        seed=6)
+    tcfg = conf.compose("train", [f"path.root={root}",
+                                  f"dataset.max_tokens={MAX_TOKENS}"])
+    ds = AllWithSpkPromptNormDataset(**tcfg["dataset"]["train"])
+    idx = max(batch_by_size(ds.ordered_indices(), ds.num_tokens,
+                            max_tokens=MAX_TOKENS), key=len)
+    batch = PromptTTSCollator(WordPieceTokenizer.from_vocab_file(
+        tcfg["path"]["bert_vocab_file"]))([ds[i] for i in idx])
+    cfg0, bert0 = _no_dropout(cfg, bert_config)
+    cpu = flagship.build_model(cfg0, "cpu", seed=3, bert_config=bert0)
+    batch = {k: batch[k] for k in model_batch_keys(cpu) if k in batch}
+    rng = np.random.RandomState(12)
+    B, Tf = batch["mel"].shape[:2]
+    batch["diffusion_t"] = rng.randint(0, cfg["decoder"].get("K_step", 100),
+                                       B)
+    batch["diffusion_noise"] = rng.randn(B, Tf, mel_dim).astype(np.float32)
+    card = copy.deepcopy(cpu).to(dev)
+    init = {k: v.clone() for k, v in cpu.state_dict().items()}
+    outs, states = [], []
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        states.append(TrainState(m, warmup_steps=1, seed=0))
+        tb = {k: torch.from_numpy(np.asarray(v).astype(np.int64)
+                                  if np.asarray(v).dtype.kind in "iu"
+                                  else np.asarray(v)).to(d)
+              for k, v in batch.items()}
+        t0 = time.perf_counter()
+        outs.append({k: v.item() for k, v in states[-1].train_step(
+            tb).items()})
+        if d == "cpu":
+            cpu_s = time.perf_counter() - t0
+    gap = _param_gap({k: v.cpu() for k, v in card.state_dict().items()},
+                     cpu.state_dict(), init)
+    param_ok = gap["l2"] <= PARALLEL_PARAM_RTOL * gap["update_l2"]
+    loss_ok = set(outs[0]) == set(outs[1]) and "energy" in outs[0] and all(
+        np.isclose(outs[1][k], v, **TRAIN_LOSS_TOL)
+        for k, v in outs[0].items())
+    step_ms = []
+    for _ in range(2):  # the same batch again: the update's steady time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[1].train_step(tb)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[{gpu}] phase 14 (b): one update of the variant "
+          f"({sum(p.numel() for p in cpu.parameters()) / 1e6:.1f} M params) "
+          f"on a max_tokens={MAX_TOKENS} batch {list(batch['mel'].shape)} "
+          f"({int(np.sum(batch['frame_lengths']))} frames) of a synthetic "
+          "corpus: card " + ", ".join(f"{k} {v:.6g}"
+                                      for k, v in outs[1].items())
+          + "; CPU " + ", ".join(f"{k} {v:.6g}" for k, v in outs[0].items())
+          + f" (tol {TRAIN_LOSS_TOL}); parameters and BatchNorm statistics "
+          f"after the update at the peak rate: difference L2 "
+          f"{gap['l2']:.4g} of the update's {gap['update_l2']:.4g} (tol "
+          f"{PARALLEL_PARAM_RTOL} of it), largest difference "
+          f"{gap['diff']:.3g}, largest move {gap['moved']:.3g}, other "
+          f"tensors equal: {gap['exact']}; update time on the card "
+          f"{[round(x, 1) for x in step_ms]} ms (synchronized, after the "
+          f"first), CPU {cpu_s:.1f} s", flush=True)
+    if not (loss_ok and param_ok and gap["exact"]):
+        failures.append(f"variant update card vs CPU: losses {outs}, params "
+                        f"{gap}")
+    del cpu, card, states, init
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) the ESPnet suite at its modules' default widths
+    rng = np.random.RandomState(13)
+    B, T, F, L = ESP_BATCH, ESP_FRAMES, ESP_FEATS, ESP_TOKENS
+    lens = np.concatenate([[T], rng.randint(T // 2, T + 1, B - 1)])
+    x = torch.from_numpy(rng.randn(B, T, F).astype(np.float32))
+    x_mask = torch.from_numpy(np.arange(T)[None, None] < lens[:, None, None])
+    torch.manual_seed(14)
+    enc = TransformerEncoder(F, input_layer="conv2d").eval()
+    enc_card = copy.deepcopy(enc).to(dev)
+    with torch.inference_mode():
+        memory, mem_mask = enc(x, x_mask)
+        out, out_mask = enc_card(x.to(dev), x_mask.to(dev))
+        enc_ms = cuda_ms(lambda: enc_card(x.to(dev), x_mask.to(dev)),
+                         iters=3, kernel=False)
+    valid = mem_mask[:, 0]
+    errs = {"encoder": _rel_err(out[valid.to(dev)], memory[valid])}
+    masks_equal = bool(torch.equal(out_mask.cpu(), mem_mask))
+    times = {"encoder": enc_ms}
+    V = ESP_VOCAB
+    ylens = np.concatenate([[L], rng.randint(L // 2, L + 1, B - 1)])
+    ys = rng.randint(1, V - 1, (B, L))
+    ys[np.arange(L)[None] >= ylens[:, None]] = -1
+    ys_in, _ = add_sos_eos(torch.from_numpy(ys), V - 1, V - 1, -1)
+    tgt_mask = target_mask(ys_in, -1)
+    rows = (np.arange(L + 1)[None] <= ylens[:, None])
+    card_args = (ys_in.to(dev), tgt_mask.to(dev), memory.to(dev),
+                 mem_mask.to(dev))
+    for kind in ESP_DECODERS:
+        torch.manual_seed(15)
+        dec = Decoder(V, selfattention_layer_type=kind,
+                      conv_kernel_length=ESP_CONV_KERNELS).eval()
+        dec_card = copy.deepcopy(dec).to(dev)
+        with torch.inference_mode():
+            want, _ = dec(ys_in, tgt_mask, memory, mem_mask)
+            got, _ = dec_card(*card_args)
+            times[kind] = cuda_ms(lambda: dec_card(*card_args), iters=3,
+                                  kernel=False)
+            errs[kind] = _rel_err(got[torch.from_numpy(rows).to(dev)],
+                                  want[torch.from_numpy(rows)])
+            steps = {}
+            for d, m in ((dev, dec_card), ("cpu", dec)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cache, mem, steps[d] = None, memory.to(d), []
+                for t in range(1, ESP_STEPS + 1):
+                    lp, cache = m.forward_one_step(
+                        ys_in[:, :t].to(d), subsequent_mask(t)[None].to(d),
+                        mem, None, cache=cache)
+                    steps[d].append(lp)
+                torch.cuda.synchronize()
+                if d == dev:
+                    times[f"{kind} {ESP_STEPS} steps"] = (
+                        time.perf_counter() - t0) * 1e3
+            errs[f"{kind} one-step"] = max(
+                _rel_err(a, b) for a, b in zip(steps[dev], steps["cpu"]))
+        del dec, dec_card
+    print(f"[{gpu}] phase 14 (c): the ESPnet suite at batch {B} "
+          "(ESPnet's default widths): TransformerEncoder "
+          f"(conv2d) on [{B}, {T}, {F}] -> {list(out.shape)}, Decoder over "
+          f"it on {L + 1} target tokens (vocabulary {V}, kernels "
+          f"{ESP_CONV_KERNELS}) for each of {list(ESP_DECODERS)}, and "
+          f"{ESP_STEPS} steps of forward_one_step each; card vs CPU, max "
+          f"error relative to the largest magnitude: "
+          f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol "
+          f"{VARIANT_RTOL}), masks equal: {masks_equal}; time per call "
+          "(CUDA events; the one-step loops synchronized wall): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items()),
+          flush=True)
+    if max(errs.values()) > VARIANT_RTOL or not masks_equal:
+        failures.append(f"ESPnet suite card vs CPU: {errs}, masks equal "
+                        f"{masks_equal}")
+    torch.cuda.empty_cache()
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s in all",
+          flush=True)
+    return launches
+
+
 def profile_busy(prof, wall_s) -> str:
     """The device-busy share of a torch.profiler window: the sum of its
     kernels' device times over its wall time."""
@@ -3238,7 +3596,7 @@ def request_inputs():
 
 
 def phase_only(phase: int) -> int:
-    """Build the kernels and run phase 12 or 13 alone."""
+    """Build the kernels and run phase 12, 13 or 14 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3256,12 +3614,16 @@ def phase_only(phase: int) -> int:
     _build.build(_build.KERNELS)
     for name in _build.KERNELS:
         _build.load(name)
-    model = flagship.build_flagship_model(dev, seed=0, frames_per_phone=10.0)
     vocoder = flagship.build_vocoder(dev, seed=1)
-    seqs, prompts = request_inputs()
     failures = []
-    run = phase_parallel if phase == 12 else phase_model_axis
-    run(k1, k2, model, vocoder, seqs, prompts, dev, gpu_line(), failures)
+    if phase == 14:
+        phase_variant(k1, k2, vocoder, dev, gpu_line(), failures)
+    else:
+        model = flagship.build_flagship_model(dev, seed=0,
+                                              frames_per_phone=10.0)
+        seqs, prompts = request_inputs()
+        run = phase_parallel if phase == 12 else phase_model_axis
+        run(k1, k2, model, vocoder, seqs, prompts, dev, gpu_line(), failures)
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -3269,6 +3631,6 @@ def phase_only(phase: int) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["--phase12"], ["--phase13"]):
+    if sys.argv[1:] in (["--phase12"], ["--phase13"], ["--phase14"]):
         sys.exit(phase_only(int(sys.argv[1][-2:])))
     sys.exit(main())

@@ -13,7 +13,8 @@ for the keys it reads (defaults of ``conf/synthesize.yaml``,
         [noise_scale=0.5] [seed=1234] [+speculative=true] \\
         [+spec_duration_table=<npz>] [+spec_margin=3] \\
         [+spec_rate_margin=0.2] [+decode_param_dtype=bfloat16] \\
-        [+vocoder_mode=batched|chunked] [device=cpu]
+        [+vocoder_mode=batched|chunked|sharded] \\
+        [+frame_sharded_decode=true] [device=cpu]
 
 It runs on ``cuda``; ``device=cpu`` runs it on the CPU. Checkpoints are the
 reference's torch files (or ``.npz`` state dicts), read by
@@ -22,10 +23,10 @@ eval_filtered.csv`` (``spk_id``, ``item_name``, ``seq``,
 ``style_prompt_key``), ``path.prompt_candidate_file``,
 ``<path.mel_dir>/stats.yaml``, ``path.bert_vocab_file`` and the corpus
 wavs under ``path.data_root`` (the mel63 npys where a wav is absent). As in
-JAX, the working directory becomes ``hydra.run.dir`` first. Sharded
-vocoding and the frame-sharded decode need several GPUs and are not
-ported: ``+vocoder_mode=sharded`` and ``+frame_sharded_decode=true``
-raise.
+JAX, the working directory becomes ``hydra.run.dir`` first.
+``+vocoder_mode=sharded`` and ``+frame_sharded_decode=true`` spread a
+request over a mesh of every visible GPU, as JAX's over every device of
+its platform; with ``device=cpu`` the mesh is the one CPU device.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ from promptttspp_tpu_torch.data.dataset import (
 from promptttspp_tpu_torch.infer import Synthesizer, write_wav
 from promptttspp_tpu_torch.models.bert import WordPieceTokenizer
 from promptttspp_tpu_torch.ops.mel import MelSpectrogramTransform
+from promptttspp_tpu_torch.parallel.mesh import make_mesh
+from promptttspp_tpu_torch.platform import resolve_device
 
 
 def load_checkpoint(module, path, kind: str):
@@ -73,13 +76,9 @@ def build_synthesizer(cfg: Dict, mel_stats_file=None) -> Synthesizer:
     ``cfg["model_ckpt"]`` / ``cfg["vocoder_ckpt"]``, the mel statistics of
     ``mel_stats_file`` (default ``<path.mel_dir>/stats.yaml``), the
     WordPiece tokenizer of ``path.bert_vocab_file`` and the serving knobs
-    of ``cfg``, on ``cfg["device"]``."""
-    if cfg.get("vocoder_mode", "batched") == "sharded":
-        raise ValueError("vocoder_mode=sharded needs several GPUs and is "
-                         "not ported")
-    if cfg.get("frame_sharded_decode", False):
-        raise ValueError("frame_sharded_decode needs several GPUs and is "
-                         "not ported")
+    of ``cfg``, on ``cfg["device"]``. A sharded vocoder or decode runs
+    over every visible GPU (the ``Synthesizer``'s own mesh), or over the
+    one CPU device with ``device=cpu``."""
     for key in ("model_ckpt", "vocoder_ckpt"):
         if not cfg.get(key):
             raise ValueError(f"{key}=<checkpoint file> is required")
@@ -96,13 +95,19 @@ def build_synthesizer(cfg: Dict, mel_stats_file=None) -> Synthesizer:
         with np.load(cfg["spec_duration_table"]) as t:
             spec_kw = dict(spec_duration_table=t["mean"],
                            spec_duration_std=t["std"])
+    vocoder_mode = cfg.get("vocoder_mode", "batched")
+    frame_sharded = cfg.get("frame_sharded_decode", False)
+    mesh = None
+    if (vocoder_mode == "sharded" or frame_sharded) \
+            and resolve_device(device).type == "cpu":
+        mesh = make_mesh(devices=[device])
     return Synthesizer(
         model, vocoder, mel_stats=read_mel_stats(mel_stats_file),
         tokenizer=WordPieceTokenizer.from_vocab_file(
             cfg["path"]["bert_vocab_file"]),
         to_mel=mel_transform(cfg["transforms"]),
-        vocoder_mode=cfg.get("vocoder_mode", "batched"),
-        decode_param_dtype=cfg.get("decode_param_dtype", None),
+        vocoder_mode=vocoder_mode, frame_sharded_decode=frame_sharded,
+        mesh=mesh, decode_param_dtype=cfg.get("decode_param_dtype", None),
         speculative=cfg.get("speculative", False),
         spec_margin=cfg.get("spec_margin", 3.0),
         spec_rate_margin=cfg.get("spec_rate_margin", 0.2),

@@ -7,9 +7,12 @@ written out here (the port imports nothing of the JAX package). Input is
 names to tensors.
 
 Path rules: flax list modules ``name_N`` become ``name.N`` for the
-reference's ModuleList names; the flagship's two renamed subtrees are the
-phoneme embedding (``phoneme_embedding`` -> ``phoneme_emb``) and BERT
-(flat flax names -> Hugging Face ``bert.model.*`` names). Leaf rules:
+reference's ModuleList and Sequential names (the ESPnet suite's
+``decoders``, ``embed``, ``conv`` and ``out`` among them); the flagship's
+two renamed subtrees are the phoneme embedding (``phoneme_embedding`` ->
+``phoneme_emb``) and BERT (flat flax names -> Hugging Face
+``bert.model.*`` names, under a prompt encoder or either half of
+``SepPromptEncoder``). Leaf rules:
 
 - Dense ``kernel [in, out]`` -> ``weight [out, in]``
 - Conv1d ``kernel [K, in/g, out]`` -> ``weight [out, in/g, K]``
@@ -31,7 +34,11 @@ import torch
 
 # the reference's ModuleList names among the ported modules
 _LIST_MODULES = {"encoders", "layers", "convs", "norms", "upsamples", "mrfs",
-                 "noise_convs", "mlp", "adaptor", "residual_layers"}
+                 "noise_convs", "mlp", "adaptor", "residual_layers",
+                 "decoders", "embed", "conv", "out"}
+# the modules that hold a BERT as ``bert`` (the prompt encoder, and the two
+# halves of ``SepPromptEncoder``)
+_BERT_OWNERS = {"prompt_encoder", "style_enc", "spk_enc"}
 # subtrees of the JAX model that the port does not have: none
 NOT_PORTED = ()
 
@@ -70,7 +77,7 @@ def torch_module_key(path: Tuple[str, ...]) -> str:
     if parts[:1] == ["phoneme_embedding"]:
         parts[0] = "phoneme_emb"
     for i in range(len(parts) - 1):
-        if parts[i] == "prompt_encoder" and parts[i + 1] == "bert":
+        if parts[i] in _BERT_OWNERS and parts[i + 1] == "bert":
             return ".".join([_part(p) for p in parts[:i + 2]]
                             + _bert_parts(parts[i + 2:]))
     return ".".join(_part(p) for p in parts)

@@ -8,7 +8,9 @@ legacy relative positions, as the published demo checkpoint was trained)
 and ``conf/vocoder/bigvgan_f0.yaml`` (``VOCODER``), because the machine with
 the GPU reads no YAML; a CPU test holds them equal to the YAML files.
 ``build_model`` builds the port's modules from a config of that shape (the
-flagship's or a smaller one) with seeded random weights; trained weights
+flagship's, a smaller one, or one with any of the model's switches at
+another value JAX builds; an absent key is JAX's default) with seeded
+random weights; trained weights
 load through ``compat/torch_ckpt.py`` (the reference's torch checkpoints)
 or ``compat/from_jax.py`` (a JAX parameter tree).
 """
@@ -136,105 +138,135 @@ def _seeded(device: torch.device, seed: int, build):
     return module.eval().requires_grad_(False)
 
 
-# Switches of the model config that the port implements at one value only
-# (the flagship's). The init options (phoneme_embedding.init_normal) are not
-# read: the port's weights are torch's seeded defaults or a checkpoint's.
-_FIXED = {
-    (): dict(norm_style_emb=True, mdn_disable_amp=True),
-    ("phoneme_embedding",): dict(do_scale=False),
-    ("encoder",): dict(
-        positionwise_layer_type="conv1d", pos_enc_layer_type="rel_pos",
-        selfattention_layer_type="rel_selfattn", macaron_style=True,
-        use_cnn_module=True, activation_type="swish", return_mask=False),
-    ("variance_adaptor",): dict(energy_predictor=None, energy_emb=None),
-    ("style_mdn",): dict(dim_wise=True),
-    # The fields of the JAX GaussianDiffusion (promptttspp_tpu/models/
-    # diffusion.py) that a config can set, other than the ones
-    # _model_from_config reads, at JAX's defaults: no pipeline mesh (a
-    # trainer or Synthesizer sets the pipeline; the microbatch count and
-    # batch axis are read). GaussianDiffusion's in_dim is read by nothing
-    # in JAX.
-    ("decoder",): dict(pipeline_mesh=None),
-}
+# Switches of the model config that a config cannot give the port: the
+# pipeline mesh of JAX's GaussianDiffusion (a trainer or Synthesizer sets
+# the pipeline; the microbatch count and batch axis are read). The init
+# options (phoneme_embedding.init_normal) are not read: the port's weights
+# are torch's seeded defaults or a checkpoint's.
+_FIXED = {("decoder",): dict(pipeline_mesh=None)}
 
 
-# The defaults of the JAX dataclass fields behind the _FIXED keys (JAX's
-# PromptTTSMDNDurCFG, PhonemeEmbedding, ConformerEncoder, VarianceAdaptor,
-# MDNLayer, GaussianDiffusion): a config that omits a key builds the JAX
-# model with these, so the port reads an absent key the same way.
+# The defaults of the JAX dataclass fields that the port reads from a
+# config (JAX's PromptTTSMDNDurCFG, PhonemeEmbedding, ConformerEncoder,
+# VarianceAdaptor, MDNPredictor, Predictor, FramePriorNetwork, MDNLayer,
+# StyleEncoder, GaussianDiffusion, DiffNet): a config that omits a key
+# builds the JAX model with these, so the port reads an absent key the
+# same way.
 _JAX_DEFAULTS = {
-    (): dict(norm_style_emb=False, mdn_disable_amp=False),
+    (): dict(norm_style_emb=False, mdn_disable_amp=False, style_mdn=None),
     ("phoneme_embedding",): dict(do_scale=True),
     ("encoder",): dict(
-        positionwise_layer_type="linear", pos_enc_layer_type="abs_pos",
-        selfattention_layer_type="selfattn", macaron_style=False,
-        use_cnn_module=False, activation_type="swish", return_mask=False),
-    ("variance_adaptor",): dict(energy_predictor=None, energy_emb=None),
-    ("style_mdn",): dict(dim_wise=False),
-    ("decoder",): dict(pipeline_mesh=None),
+        attention_heads=4, linear_units=2048, num_blocks=6,
+        dropout_rate=0.1, positional_dropout_rate=0.1,
+        attention_dropout_rate=0.0, normalize_before=True,
+        positionwise_layer_type="linear", positionwise_conv_kernel_size=1,
+        macaron_style=False, pos_enc_layer_type="abs_pos",
+        selfattention_layer_type="selfattn", activation_type="swish",
+        use_cnn_module=False, cnn_module_kernel=31, return_mask=False,
+        rel_pos_type=None),
+    ("variance_adaptor",): dict(energy_predictor=None, energy_emb=None,
+                                frame_prior_network=None),
+    ("variance_adaptor", "duration_predictor"): dict(
+        num_gaussians=4, dim_wise=True, detach=False, disable_amp=False),
+    ("variance_adaptor", "pitch_predictor"): dict(detach=False),
+    ("variance_adaptor", "energy_predictor"): dict(detach=False),
+    ("variance_adaptor", "frame_prior_network"): dict(pos_enc_p_dropout=0.1),
+    ("style_mdn",): dict(num_gaussians=30, dim_wise=False),
+    ("reference_encoder",): dict(gst_token_dim=256),
+    ("decoder",): dict(
+        K_step=100, schedule_type="linear", norm_scale=None, a_min=0.0,
+        a_max=20.0, pndm_speedup=None, infer_io_dtype=None,
+        pipeline_mesh=None, pipeline_microbatches=None,
+        pipeline_batch_axis=None),
+    ("decoder", "denoise_fn"): dict(scale=1.0),
 }
+
+
+def _get(section: Mapping, path: tuple, key: str):
+    """``section[key]``, or JAX's default where the config omits it."""
+    return section.get(key, _JAX_DEFAULTS[path][key])
 
 
 def _check_fixed(cfg: Mapping, bert_config: BertConfig):
-    """Raise, naming the key, where ``cfg`` (or JAX's default for a key it
-    omits) asks for a switch value that the port does not implement."""
+    """Raise, naming the key, where ``cfg`` asks for a value that the port
+    cannot build: a ``_FIXED`` switch at another value, or an encoder whose
+    output JAX's model cannot read. (The modules raise on a layer type JAX
+    does not know, naming its key.)"""
     for path, fixed in _FIXED.items():
         section = cfg
         for key in path:
             section = section[key]
         for key, value in fixed.items():
-            name = ".".join(path + (key,))
-            if key in section:
-                if section[key] != value:
-                    raise ValueError(f"model config {name}={section[key]!r} "
-                                     "is not ported")
-            elif _JAX_DEFAULTS[path][key] != value:
-                raise ValueError(
-                    f"model config {name} is absent: JAX builds its default "
-                    f"{_JAX_DEFAULTS[path][key]!r}, which is not ported")
-    enc = cfg["encoder"]
-    if enc["idim"] != enc["attention_dim"]:
-        raise ValueError("encoder idim != attention_dim is not ported")
+            if key in section and section[key] != value:
+                name = ".".join(path + (key,))
+                raise ValueError(f"model config {name}={section[key]!r} "
+                                 "is not ported")
+    if _get(cfg["encoder"], ("encoder",), "return_mask"):
+        raise ValueError("model config encoder.return_mask=True: the model "
+                         "adds the encoder's output to the style vector, "
+                         "and JAX's fails on the (output, mask) pair too")
     if cfg["prompt_encoder"]["in_channels"] != bert_config.hidden_size:
         raise ValueError("prompt_encoder.in_channels != BERT hidden size")
 
 
+def _predictor(cfg: Mapping, path: tuple) -> Predictor:
+    return Predictor(cfg["channels"], cfg["out_channels"],
+                     cfg["kernel_size"], cfg["num_layers"], cfg["dropout"],
+                     _get(cfg, path, "detach"))
+
+
+def _variance_adaptor(va: Mapping) -> VarianceAdaptor:
+    path = ("variance_adaptor",)
+    dp, fp = va["duration_predictor"], _get(va, path, "frame_prior_network")
+    ep, ee = _get(va, path, "energy_predictor"), _get(va, path, "energy_emb")
+    dget = lambda key: _get(dp, path + ("duration_predictor",), key)  # noqa
+    conv = lambda c: Conv1d(c["in_channels"], c["out_channels"],  # noqa
+                            c.get("kernel_size", 1))
+    return VarianceAdaptor(
+        duration_predictor=MDNPredictor(
+            dp["channels"], dp["out_channels"], dp["kernel_size"],
+            dp["num_layers"], dget("num_gaussians"), dp["dropout"],
+            dget("detach"), dget("dim_wise"), dget("disable_amp")),
+        pitch_predictor=_predictor(va["pitch_predictor"],
+                                   path + ("pitch_predictor",)),
+        pitch_emb=conv(va["pitch_emb"]),
+        frame_prior_network=None if fp is None else FramePriorNetwork(
+            fp["hidden_channels"], fp["n_layers"], fp["kernel_size"],
+            fp["p_dropout"],
+            _get(fp, path + ("frame_prior_network",), "pos_enc_p_dropout")),
+        energy_predictor=None if ep is None else _predictor(
+            ep, path + ("energy_predictor",)),
+        energy_emb=None if ee is None else conv(ee))
+
+
 def _model_from_config(cfg: Mapping, bert_config: BertConfig):
-    """The port's model of ``cfg``; an absent dropout rate or ``detach``
-    is the default of JAX's dataclass field."""
+    """The port's model of ``cfg``; an absent key means the default of
+    JAX's dataclass field (``_JAX_DEFAULTS``)."""
     _check_fixed(cfg, bert_config)
-    pe, enc, va = (cfg["phoneme_embedding"], cfg["encoder"],
-                   cfg["variance_adaptor"])
-    dp, pp, fp = (va["duration_predictor"], va["pitch_predictor"],
-                  va["frame_prior_network"])
+    pe, enc = cfg["phoneme_embedding"], cfg["encoder"]
     dec, dn = cfg["decoder"], cfg["decoder"]["denoise_fn"]
-    pr, sm, ref = (cfg["prompt_encoder"], cfg["style_mdn"],
-                   cfg["reference_encoder"])
+    pr, ref = cfg["prompt_encoder"], cfg["reference_encoder"]
+    sm = _get(cfg, (), "style_mdn")
+    eget = lambda key: _get(enc, ("encoder",), key)  # noqa: E731
+    dget = lambda key: _get(dec, ("decoder",), key)  # noqa: E731
     return PromptTTSMDNDurCFG(
-        phoneme_emb=PhonemeEmbedding(pe["num_vocab"], pe["channels"]),
+        phoneme_emb=PhonemeEmbedding(
+            pe["num_vocab"], pe["channels"],
+            _get(pe, ("phoneme_embedding",), "do_scale")),
         encoder=ConformerEncoder(
-            enc["attention_dim"], enc["attention_heads"],
-            enc["linear_units"], enc["num_blocks"],
-            enc["positionwise_conv_kernel_size"], enc["cnn_module_kernel"],
-            enc.get("rel_pos_type"), enc.get("dropout_rate", 0.1),
-            enc.get("positional_dropout_rate", 0.1),
-            enc.get("attention_dropout_rate", 0.0)),
-        variance_adaptor=VarianceAdaptor(
-            duration_predictor=MDNPredictor(
-                dp["channels"], dp["out_channels"], dp["kernel_size"],
-                dp["num_layers"], dp["num_gaussians"], dp["dropout"],
-                dp.get("detach", False)),
-            pitch_predictor=Predictor(pp["channels"], pp["out_channels"],
-                                      pp["kernel_size"], pp["num_layers"],
-                                      pp["dropout"], pp.get("detach", False)),
-            pitch_emb=Conv1d(va["pitch_emb"]["in_channels"],
-                             va["pitch_emb"]["out_channels"],
-                             va["pitch_emb"]["kernel_size"]),
-            frame_prior_network=FramePriorNetwork(
-                fp["hidden_channels"], fp["n_layers"], fp["kernel_size"],
-                fp["p_dropout"], fp.get("pos_enc_p_dropout", 0.1))),
+            enc["idim"], enc["attention_dim"], eget("attention_heads"),
+            eget("linear_units"), eget("num_blocks"), eget("dropout_rate"),
+            eget("positional_dropout_rate"), eget("attention_dropout_rate"),
+            eget("normalize_before"), eget("positionwise_layer_type"),
+            eget("positionwise_conv_kernel_size"), eget("macaron_style"),
+            eget("pos_enc_layer_type"), eget("selfattention_layer_type"),
+            eget("activation_type"), eget("use_cnn_module"),
+            eget("cnn_module_kernel"), eget("return_mask"),
+            eget("rel_pos_type")),
+        variance_adaptor=_variance_adaptor(cfg["variance_adaptor"]),
         reference_encoder=StyleEncoder(
-            ref["idim"], ref["gst_tokens"], ref.get("gst_token_dim", 256),
+            ref["idim"], ref["gst_tokens"],
+            _get(ref, ("reference_encoder",), "gst_token_dim"),
             ref["gst_heads"], ref["conv_layers"], ref["conv_chans_list"],
             ref["conv_kernel_size"], ref["conv_stride"], ref["gru_layers"],
             ref["gru_units"]),
@@ -244,16 +276,20 @@ def _model_from_config(cfg: Mapping, bert_config: BertConfig):
             DiffNet(dn["in_dim"], dn["encoder_hidden_dim"],
                     dn["residual_layers"], dn["residual_channels"],
                     dn["kernel_size"], dn["dilation_cycle_length"],
-                    dn.get("scale", 1.0)),
-            out_dim=dec["out_dim"], norm_scale=dec.get("norm_scale"),
-            K_step=dec.get("K_step", 100),
-            schedule_type=dec.get("schedule_type", "linear"),
-            a_min=dec.get("a_min", 0.0), a_max=dec.get("a_max", 20.0),
-            pndm_speedup=dec.get("pndm_speedup"),
-            infer_io_dtype=dec.get("infer_io_dtype"),
-            pipeline_microbatches=dec.get("pipeline_microbatches"),
-            pipeline_batch_axis=dec.get("pipeline_batch_axis")),
-        style_mdn=MDNLayer(sm["in_dim"], sm["out_dim"], sm["num_gaussians"]),
+                    _get(dn, ("decoder", "denoise_fn"), "scale")),
+            out_dim=dec["out_dim"], norm_scale=dget("norm_scale"),
+            K_step=dget("K_step"), schedule_type=dget("schedule_type"),
+            a_min=dget("a_min"), a_max=dget("a_max"),
+            pndm_speedup=dget("pndm_speedup"),
+            infer_io_dtype=dget("infer_io_dtype"),
+            pipeline_microbatches=dget("pipeline_microbatches"),
+            pipeline_batch_axis=dget("pipeline_batch_axis")),
+        style_mdn=None if sm is None else MDNLayer(
+            sm["in_dim"], sm["out_dim"],
+            _get(sm, ("style_mdn",), "num_gaussians"),
+            _get(sm, ("style_mdn",), "dim_wise")),
+        norm_style_emb=_get(cfg, (), "norm_style_emb"),
+        mdn_disable_amp=_get(cfg, (), "mdn_disable_amp"),
     )
 
 

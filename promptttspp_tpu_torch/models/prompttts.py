@@ -2,14 +2,22 @@
 
 Counterpart of ``promptttspp_tpu/models/prompttts.py::PromptTTSMDNDurCFG``
 (``__call__``, ``infer``, ``infer_cond``, ``infer_frame_lengths``,
-``_style_from_prompt_dist``): phoneme embedding -> conformer; a style vector
-from exactly one of two branches -> variance adaptor -> diffusion decoder.
+``generate_style_emb``, ``_style_from_prompt_dist``): phoneme embedding ->
+conformer; a style vector from exactly one of two branches -> variance
+adaptor -> diffusion decoder.
 
-- Prompt branch: BERT prompt encoder -> L2 normalize -> style MDN -> style
-  vector (most probable or sampled component, plus ``noise_scale`` x sigma
-  x eps) -> L2 normalize.
+- Prompt branch: BERT prompt encoder -> [L2 normalize] -> style MDN (where
+  the config has one) -> style vector (most probable or sampled component,
+  plus ``noise_scale`` x sigma x eps) -> [L2 normalize].
 - Reference branch: reference mel [B, Tf, 80] + lengths -> GST style
-  encoder (``models/style_encoder.py``) -> L2 normalize.
+  encoder (``models/style_encoder.py``) -> [L2 normalize].
+
+The bracketed normalizations are ``norm_style_emb`` (the flagship's true;
+JAX's default false). ``mdn_disable_amp`` casts the style MDN's input to
+float32 (the flagship's true); otherwise the head computes in the
+prompt embedding's dtype, bf16 under bf16 training, as JAX casts it.
+With an energy branch in the variance adaptor the losses gain ``energy``,
+the L1 distance of the predicted energy on the valid frames.
 
 ``forward(batch)`` is the training loss, in the mode the module is in:
 ``model.train()`` turns on the BatchNorm batch statistics and dropout
@@ -19,6 +27,8 @@ as ``Synthesizer`` keeps it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -37,8 +47,10 @@ def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
 
 
 class PromptTTSMDNDurCFG(nn.Module):
-    """The flagship's switches are fixed: style MDN present,
-    ``norm_style_emb: true``, MDN heads in float32, no energy predictor."""
+    """The switches are JAX's fields: ``style_mdn`` (None: the prompt
+    embedding is the style vector and learns the GST embedding by mean
+    squared error), ``norm_style_emb`` and ``mdn_disable_amp``, each
+    false by default; the flagship sets all three."""
 
     # the reference divides the decoder's L1 loss by 8 (``loss_dec_scale``)
     loss_dec_scale = 8.0
@@ -46,7 +58,9 @@ class PromptTTSMDNDurCFG(nn.Module):
     def __init__(self, phoneme_emb: nn.Module, encoder: nn.Module,
                  variance_adaptor: nn.Module, reference_encoder: nn.Module,
                  prompt_encoder: nn.Module, decoder: nn.Module,
-                 style_mdn: nn.Module):
+                 style_mdn: Optional[nn.Module] = None,
+                 norm_style_emb: bool = False,
+                 mdn_disable_amp: bool = False):
         super().__init__()
         self.phoneme_emb = phoneme_emb
         self.encoder = encoder
@@ -55,6 +69,17 @@ class PromptTTSMDNDurCFG(nn.Module):
         self.prompt_encoder = prompt_encoder
         self.decoder = decoder
         self.style_mdn = style_mdn
+        self.norm_style_emb = norm_style_emb
+        self.mdn_disable_amp = mdn_disable_amp
+
+    def _norm(self, x):
+        """``l2_normalize`` where ``norm_style_emb`` says so."""
+        return l2_normalize(x) if self.norm_style_emb else x
+
+    def _style_mdn(self, prompt_emb):
+        """The style MDN's (log_pi, log_sigma, mu) of ``prompt_emb``."""
+        return self.style_mdn(prompt_emb.float() if self.mdn_disable_amp
+                              else prompt_emb)
 
     def _encode_phones(self, phoneme, phone_lengths, row_weight=None):
         phone_mask = sequence_mask(phone_lengths, phoneme.shape[1])
@@ -64,9 +89,11 @@ class PromptTTSMDNDurCFG(nn.Module):
 
     def forward(self, batch, generator=None, data=None):
         """The training losses of one batch -> {"loss", "dec", "dur", "cf0",
-        "vuv", "style"}, scalars. ``batch``: phoneme, duration (int
-        [B, Tp]), phone_lengths, mel [B, Tf, 80], log_cf0 and vuv
-        [B, Tf, 1], frame_lengths, prompt_ids and prompt_mask [B, L];
+        "vuv", "style"} (and "energy" with an energy branch), scalars.
+        ``batch``: phoneme, duration (int [B, Tp]), phone_lengths, mel
+        [B, Tf, 80], log_cf0 and vuv [B, Tf, 1] (and energy [B, Tf, 1]
+        with an energy branch), frame_lengths, prompt_ids and prompt_mask
+        [B, L];
         optionally batch_weight [B] (rows of weight 0 count in no
         reduction and in no BatchNorm statistic), diffusion_t [B] and
         diffusion_noise [B, Tf, 80] (else drawn from ``generator``, which
@@ -96,14 +123,16 @@ class PromptTTSMDNDurCFG(nn.Module):
         frame_mask = sequence_mask(batch["frame_lengths"], mel.shape[1])
         fmask = frame_mask[:, :, None].to(torch.float32) * w_b11
 
-        style_emb = l2_normalize(self.reference_encoder(
+        style_emb = self._norm(self.reference_encoder(
             mel, batch["frame_lengths"], row_weight=w))
-        prompt_emb = l2_normalize(self.prompt_encoder(batch["prompt_ids"],
-                                                      batch["prompt_mask"]))
-        style_mdn_out = self.style_mdn(prompt_emb.float())
+        prompt_emb = self._norm(self.prompt_encoder(batch["prompt_ids"],
+                                                    batch["prompt_mask"]))
+        style_mdn_out = (None if self.style_mdn is None
+                         else self._style_mdn(prompt_emb))
 
-        x, mdn_out, log_cf0_pred, vuv_pred = self.variance_adaptor(
-            x + style_emb, phone_mask, frame_mask, duration, log_cf0)
+        x, mdn_out, log_cf0_pred, vuv_pred, energy_pred = \
+            self.variance_adaptor(x + style_emb, phone_mask, frame_mask,
+                                  duration, log_cf0, batch.get("energy"))
 
         noise, eps_pred = self.decoder(
             x, mel, fmask, t=batch.get("diffusion_t"),
@@ -127,15 +156,30 @@ class PromptTTSMDNDurCFG(nn.Module):
             / n_frames
         loss_vuv = (torch.abs(vuv_pred - vuv) * fmask).sum() / n_frames
 
-        # the style MDN learns the GST embedding; no gradient flows back
-        # into the reference encoder through it
-        style_nll = mdn_loss(*style_mdn_out, style_emb.detach().float())
-        loss_style = ((style_nll * w[:, None]).sum()
-                      / (n_rows * style_nll.shape[1]))
+        # the style MDN (or the prompt embedding) learns the GST
+        # embedding; no gradient flows back into the reference encoder
+        # through it
+        target = style_emb.detach()
+        if style_mdn_out is not None:
+            style_nll = mdn_loss(*style_mdn_out,
+                                 target.to(style_mdn_out[0].dtype))
+            w_rows = w.reshape((-1,) + (1,) * (style_nll.ndim - 1))
+            loss_style = ((style_nll * w_rows).sum()
+                          / (n_rows * (style_nll.numel()
+                                       // style_nll.shape[0])))
+        else:
+            sq = torch.square(target - prompt_emb)
+            loss_style = ((sq * w_b11).sum()
+                          / (n_rows * sq.shape[1] * sq.shape[2]))
 
         loss = loss_dec + loss_dur + loss_cf0 + loss_vuv + loss_style
-        return dict(loss=loss, dec=loss_dec, dur=loss_dur, cf0=loss_cf0,
-                    vuv=loss_vuv, style=loss_style)
+        losses = dict(loss=loss, dec=loss_dec, dur=loss_dur, cf0=loss_cf0,
+                      vuv=loss_vuv, style=loss_style)
+        if energy_pred is not None:
+            losses["energy"] = (torch.abs(energy_pred - batch["energy"])
+                                * fmask).sum() / n_frames
+            losses["loss"] = loss + losses["energy"]
+        return losses
 
     def _style_from_prompt_dist(self, log_pi, log_sigma, mu, use_max: bool,
                                 noise_scale: float, generator=None):
@@ -151,7 +195,7 @@ class PromptTTSMDNDurCFG(nn.Module):
             eps = torch.randn(sigma.shape, generator=generator,
                               dtype=sigma.dtype, device=sigma.device)
             style = mu_sel + sigma * eps * noise_scale
-        return l2_normalize(style)
+        return self._norm(style)
 
     def _style(self, prompt_ids, prompt_mask, reference_mel, ref_lengths,
                use_max, noise_scale, generator):
@@ -161,11 +205,12 @@ class PromptTTSMDNDurCFG(nn.Module):
             raise ValueError("exactly one of prompt_ids / reference_mel "
                              "must be given")
         if reference_mel is not None:
-            return l2_normalize(self.reference_encoder(reference_mel,
-                                                       ref_lengths))
-        style = l2_normalize(self.prompt_encoder(prompt_ids, prompt_mask))
-        log_pi, log_sigma, mu = self.style_mdn(style.float())
-        return self._style_from_prompt_dist(log_pi, log_sigma, mu, use_max,
+            return self._norm(self.reference_encoder(reference_mel,
+                                                     ref_lengths))
+        style = self._norm(self.prompt_encoder(prompt_ids, prompt_mask))
+        if self.style_mdn is None:
+            return style
+        return self._style_from_prompt_dist(*self._style_mdn(style), use_max,
                                             noise_scale, generator)
 
     def generate_style_emb(self, prompt_ids, prompt_mask, reference_mel,
@@ -173,15 +218,13 @@ class PromptTTSMDNDurCFG(nn.Module):
                            noise_scale: float = 1.0, generator=None):
         """Both branches' style vectors -> (prompt_emb, ref_emb), each
         [B, 1, C]. The prompt's is drawn from the style MDN with
-        ``generator`` and normalized once more after the draw, as JAX
-        does."""
-        prompt_emb = l2_normalize(self.prompt_encoder(prompt_ids,
-                                                      prompt_mask))
-        log_pi, log_sigma, mu = self.style_mdn(prompt_emb.float())
-        prompt_emb = l2_normalize(self._style_from_prompt_dist(
-            log_pi, log_sigma, mu, use_max, noise_scale, generator))
-        ref_emb = l2_normalize(self.reference_encoder(reference_mel,
-                                                      ref_lengths))
+        ``generator`` and, under ``norm_style_emb``, normalized once more
+        after the draw, as JAX does."""
+        prompt_emb = self._style(prompt_ids, prompt_mask, None, None,
+                                 use_max, noise_scale, generator)
+        prompt_emb = self._norm(prompt_emb)
+        ref_emb = self._style(None, None, reference_mel, ref_lengths,
+                              use_max, noise_scale, generator)
         return prompt_emb, ref_emb
 
     def infer_cond(self, phoneme, phone_lengths, max_frames: int,

@@ -1,13 +1,16 @@
-"""Relative-position multi-head attention ('new' 2T-1 variant and the
-legacy T variant) and the GST token cross-attention, with dropout on the
-attention weights in train mode.
+"""Multi-head attention: the plain scaled dot-product attention, the
+relative-position variants ('new' 2T-1 and legacy T) and the GST token
+cross-attention, with dropout on the attention weights in train mode.
 
 Counterpart of ``promptttspp_tpu/nn/attention.py``
-(``RelPositionMultiHeadedAttention``,
+(``MultiHeadedAttention``, ``RelPositionMultiHeadedAttention``,
 ``LegacyRelPositionMultiHeadedAttention``, ``GSTCrossAttention``). The
-relative-position attention takes Transformer-XL scores
-``(q + u) k^T + rel_shift((q + v) p^T)`` over sqrt(d_k), masked with the
-dtype's minimum and re-zeroed so fully padded rows give zeros, not NaNs. Masks are boolean [B, Tq, Tk] (True = attend).
+plain attention scores ``q k^T`` over sqrt(d_k); the relative-position
+attention takes Transformer-XL scores ``(q + u) k^T + rel_shift((q + v)
+p^T)`` over sqrt(d_k). Both mask with the dtype's minimum and re-zero, so
+fully padded rows give zeros, not NaNs. Masks are boolean [B, Tq|1, Tk]
+(True = attend). The query may be shorter than the keys (a streaming
+step's last frame).
 """
 
 from __future__ import annotations
@@ -45,10 +48,9 @@ def rel_shift_legacy(x):
     return x[:, :, 1:].reshape(B, H, T1, T2)
 
 
-class RelPositionMultiHeadedAttention(nn.Module):
-    """'New' variant: ``pos_emb`` [1, 2T-1, C], ``rel_shift``."""
-
-    shift = staticmethod(rel_shift)
+class MultiHeadedAttention(nn.Module):
+    """Scaled dot-product attention over ``n_head`` heads, with the
+    reference's ``linear_q/k/v/out``."""
 
     def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
         super().__init__()
@@ -58,29 +60,50 @@ class RelPositionMultiHeadedAttention(nn.Module):
         self.linear_k = Linear(n_feat, n_feat)
         self.linear_v = Linear(n_feat, n_feat)
         self.linear_out = Linear(n_feat, n_feat)
-        self.linear_pos = Linear(n_feat, n_feat, bias=False)
-        self.pos_bias_u = nn.Parameter(torch.empty(n_head, self.d_k))
-        self.pos_bias_v = nn.Parameter(torch.empty(n_head, self.d_k))
-        nn.init.xavier_uniform_(self.pos_bias_u)
-        nn.init.xavier_uniform_(self.pos_bias_v)
         self.attn_dropout = Dropout(dropout_rate)
 
     def _split(self, x):
         return x.reshape(x.shape[0], -1, self.h, self.d_k).transpose(1, 2)
 
+    def _qkv(self, query, key, value):
+        return (self._split(self.linear_q(query)),
+                self._split(self.linear_k(key)),
+                self._split(self.linear_v(value)))
+
+    def _attend(self, v, scores, mask):
+        x = self.attn_dropout(masked_softmax(scores, mask)) @ v
+        x = x.transpose(1, 2).reshape(x.shape[0], -1, self.h * self.d_k)
+        return self.linear_out(x)
+
+    def forward(self, query, key, value, mask=None):
+        """query [B, Tq, C]; key, value [B, Tk, C] -> [B, Tq, C]."""
+        q, k, v = self._qkv(query, key, value)
+        return self._attend(v, (q @ k.transpose(-1, -2))
+                            / math.sqrt(self.d_k), mask)
+
+
+class RelPositionMultiHeadedAttention(MultiHeadedAttention):
+    """'New' variant: ``pos_emb`` [1, 2T-1, C], ``rel_shift``."""
+
+    shift = staticmethod(rel_shift)
+
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
+        super().__init__(n_head, n_feat, dropout_rate)
+        self.linear_pos = Linear(n_feat, n_feat, bias=False)
+        self.pos_bias_u = nn.Parameter(torch.empty(n_head, self.d_k))
+        self.pos_bias_v = nn.Parameter(torch.empty(n_head, self.d_k))
+        nn.init.xavier_uniform_(self.pos_bias_u)
+        nn.init.xavier_uniform_(self.pos_bias_v)
+
     def forward(self, query, key, value, pos_emb, mask=None):
-        q = self._split(self.linear_q(query))  # [B, H, T, d_k]
-        k = self._split(self.linear_k(key))
-        v = self._split(self.linear_v(value))
+        q, k, v = self._qkv(query, key, value)  # [B, H, T, d_k]
         p = self._split(self.linear_pos(pos_emb))  # [1, H, 2T-1 or T, d_k]
         q_u = q + self.pos_bias_u[None, :, None, :]
         q_v = q + self.pos_bias_v[None, :, None, :]
         matrix_ac = q_u @ k.transpose(-1, -2)
         matrix_bd = self.shift(q_v @ p.transpose(-1, -2))
-        scores = (matrix_ac + matrix_bd) / math.sqrt(self.d_k)
-        x = self.attn_dropout(masked_softmax(scores, mask)) @ v
-        x = x.transpose(1, 2).reshape(x.shape[0], -1, self.h * self.d_k)
-        return self.linear_out(x)
+        return self._attend(v, (matrix_ac + matrix_bd) / math.sqrt(self.d_k),
+                            mask)
 
 
 class LegacyRelPositionMultiHeadedAttention(RelPositionMultiHeadedAttention):

@@ -1,8 +1,10 @@
 """Sinusoidal positional encodings, with dropout in train mode.
 
 Counterpart of ``promptttspp_tpu/nn/embedding.py``: the absolute encoding
-the frame prior uses and the 'new' and legacy relative encodings of the
-conformer. Tables are numpy float32 constants, as in the JAX package,
+(the frame prior's, the conformer's ``abs_pos`` and the ESPnet suite's),
+its scaled variant (a learned ``alpha``), the streaming variant (a start
+offset), and the 'new' and legacy relative encodings of the conformer.
+Tables are numpy float32 constants, as in the JAX package,
 copied to each device once per length (the legacy table once per device):
 a copy from host memory waits for the device's queue, so a request must not
 make one on every call.
@@ -55,9 +57,10 @@ def rel_sinusoid_table(length: int, d_model: int) -> np.ndarray:
     return np.concatenate([pos[::-1], neg[1:]], axis=0)
 
 
-def legacy_rel_table(length: int, d_model: int) -> np.ndarray:
-    """[length, d_model]: positions length-1 .. 0 (the legacy encoding's
-    table before it is sliced)."""
+def reversed_table(length: int, d_model: int) -> np.ndarray:
+    """[length, d_model]: positions length-1 .. 0 (the reversed absolute
+    encoding's, and the legacy relative encoding's before it is
+    sliced)."""
     return sinusoid_table(length, d_model, reverse=True)
 
 
@@ -70,17 +73,51 @@ def _device_table(table, length: int, d_model: int, device: torch.device):
 
 
 class PositionalEncoding(nn.Module):
-    """dropout(x * sqrt(d) + PE)."""
+    """dropout(x * sqrt(d) + PE); ``reverse``: positions T-1 .. 0."""
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.0,
+                 reverse: bool = False):
+        super().__init__()
+        self.d_model, self.reverse = d_model, reverse
+        self.dropout = Dropout(dropout_rate)
+
+    def forward(self, x):
+        table = reversed_table if self.reverse else sinusoid_table
+        pe = _device_table(table, x.shape[1], self.d_model, x.device)
+        return self.dropout(x * math.sqrt(self.d_model) + pe[None])
+
+
+class ScaledPositionalEncoding(nn.Module):
+    """dropout(x + alpha * PE), ``alpha`` a learned scalar (1 at init);
+    x is not scaled."""
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.0):
+        super().__init__()
+        self.d_model = d_model
+        self.alpha = nn.Parameter(torch.ones(1))
+        self.dropout = Dropout(dropout_rate)
+
+    def forward(self, x):
+        pe = _device_table(sinusoid_table, x.shape[1], self.d_model,
+                           x.device)
+        return self.dropout(x + self.alpha * pe[None])
+
+
+class StreamPositionalEncoding(nn.Module):
+    """dropout(x * sqrt(d) + PE[start_idx : start_idx + T]): a chunk of a
+    stream encoded at its offset."""
 
     def __init__(self, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x):
-        pe = _device_table(sinusoid_table, x.shape[1], self.d_model,
+    def forward(self, x, start_idx: int = 0):
+        T = x.shape[1]
+        pe = _device_table(sinusoid_table, start_idx + T, self.d_model,
                            x.device)
-        return self.dropout(x * math.sqrt(self.d_model) + pe[None])
+        return self.dropout(x * math.sqrt(self.d_model)
+                            + pe[None, start_idx:start_idx + T])
 
 
 class RelPositionalEncoding(nn.Module):
@@ -115,7 +152,7 @@ class LegacyRelPositionalEncoding(nn.Module):
 
     def forward(self, x):
         T = x.shape[1]
-        table = _device_table(legacy_rel_table, max(self.max_len, T),
+        table = _device_table(reversed_table, max(self.max_len, T),
                               self.d_model, x.device)
         return (self.dropout(x * math.sqrt(self.d_model)),
                 self.dropout(table[None, :T], batched=False))

@@ -1,8 +1,10 @@
 """Mixture density network head, its negative log-likelihood, and the
 most-probable selection and sampling.
 
-Counterpart of ``promptttspp_tpu/nn/mdn.py``. The flagship's two heads are
-dim-wise 1-D GMMs: log_pi, log_sigma and mu are [B, T, G, D].
+Counterpart of ``promptttspp_tpu/nn/mdn.py``. A dim-wise head (the
+flagship's two) is D 1-D GMMs: log_pi, log_sigma and mu are [B, T, G, D].
+Otherwise (JAX's default) it is one GMM of G diagonal D-dimensional
+components: log_pi is [B, T, G], log_sigma and mu [B, T, G, D].
 """
 
 from __future__ import annotations
@@ -17,17 +19,21 @@ from promptttspp_tpu_torch.nn.layers import Linear
 
 
 class MDNLayer(nn.Module):
-    def __init__(self, in_dim: int, out_dim: int, num_gaussians: int):
+    def __init__(self, in_dim: int, out_dim: int, num_gaussians: int = 30,
+                 dim_wise: bool = False):
         super().__init__()
-        self.G, self.D = num_gaussians, out_dim
-        self.log_pi = Linear(in_dim, num_gaussians * out_dim)
+        self.G, self.D, self.dim_wise = num_gaussians, out_dim, dim_wise
+        self.log_pi = Linear(in_dim, num_gaussians * out_dim if dim_wise
+                             else num_gaussians)
         self.log_sigma = Linear(in_dim, num_gaussians * out_dim)
         self.mu = Linear(in_dim, num_gaussians * out_dim)
 
     def forward(self, x):
         B, T = x.shape[0], x.shape[1]
-        log_pi = torch.log_softmax(
-            self.log_pi(x).reshape(B, T, self.G, self.D), dim=2)
+        log_pi = self.log_pi(x)
+        if self.dim_wise:
+            log_pi = log_pi.reshape(B, T, self.G, self.D)
+        log_pi = torch.log_softmax(log_pi, dim=2)
         log_sigma = self.log_sigma(x).reshape(B, T, self.G, self.D)
         mu = self.mu(x).reshape(B, T, self.G, self.D)
         return log_pi, log_sigma, mu
@@ -68,15 +74,26 @@ def _take(x, idx):
     return torch.gather(x, 2, idx[:, :, None, :])[:, :, 0, :]
 
 
+def _per_dim(idx, log_pi, mu):
+    """The component index per (B, T, D): a [B, T] index (one GMM) is the
+    same for every dim."""
+    if log_pi.ndim == 4:
+        return idx
+    return idx[..., None].expand(*idx.shape, mu.shape[-1])
+
+
 def mdn_get_most_probable_sigma_and_mu(log_pi, log_sigma, mu):
-    """argmax-pi component -> (sigma, mu), each [B, T, D]."""
-    idx = torch.argmax(log_pi, dim=2)
+    """argmax-pi component -> (sigma, mu), each [B, T, D]; log_pi
+    [B, T, G, D] (dim-wise) or [B, T, G]."""
+    idx = _per_dim(torch.argmax(log_pi, dim=2), log_pi, mu)
     return torch.exp(_take(log_sigma, idx)), _take(mu, idx)
 
 
 def mdn_sample_sigma_and_mu(log_pi, log_sigma, mu, generator=None):
-    """Categorical draw of the component per (B, T, D) -> (sigma, mu)."""
+    """Categorical draw of the component, per (B, T, D) dim-wise, else per
+    (B, T) -> (sigma, mu), each [B, T, D]."""
     probs = torch.softmax(log_pi.movedim(2, -1), dim=-1)
     idx = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
                             generator=generator).reshape(probs.shape[:-1])
+    idx = _per_dim(idx, log_pi, mu)
     return torch.exp(_take(log_sigma, idx)), _take(mu, idx)

@@ -1,8 +1,9 @@
 """Mask and duration-alignment primitives.
 
-Counterpart of ``promptttspp_tpu/ops/masks.py`` (the parts the serving path
-uses): boolean [B, T] masks, the duration -> frame band matrix, and the
-expansion of phone features to frames as one batched product.
+Counterpart of ``promptttspp_tpu/ops/masks.py``: boolean [B, T] masks, the
+duration -> frame band matrix, the expansion of phone features to frames
+as one batched product, and the ESPnet decoder's causal masks and
+<sos>/<eos> framing.
 """
 
 from __future__ import annotations
@@ -41,3 +42,33 @@ def to_log_scale(x):
     nz = x != 0
     return torch.where(nz, torch.log(torch.where(nz, x, torch.ones_like(x))),
                        x)
+
+
+def subsequent_mask(size: int, device=None) -> torch.Tensor:
+    """Causal bool [size, size]: True at (t, s) iff s <= t."""
+    idx = torch.arange(size, device=device)
+    return idx[None, :] <= idx[:, None]
+
+
+def target_mask(ys_in_pad, ignore_id: int) -> torch.Tensor:
+    """The decoder's self-attention mask [B, L, L]: the key is not padding
+    and not in the future."""
+    ys_mask = ys_in_pad != ignore_id
+    return ys_mask[:, None, :] & subsequent_mask(ys_in_pad.shape[-1],
+                                                 ys_in_pad.device)[None]
+
+
+def add_sos_eos(ys_pad, sos: int, eos: int, ignore_id: int):
+    """Targets padded with ``ignore_id`` at the end, int [B, L] ->
+    (ys_in [B, L+1]: <sos> + ys, padded with <eos>; ys_out [B, L+1]: ys +
+    <eos>, padded with ``ignore_id``), at static shapes."""
+    B, L = ys_pad.shape
+    lengths = (ys_pad != ignore_id).sum(dim=1)[:, None]
+    pos = torch.arange(L + 1, device=ys_pad.device)[None, :]
+    ys_ext = F.pad(ys_pad, (0, 1), value=ignore_id)
+    ys_in = torch.cat([torch.full((B, 1), sos, dtype=ys_pad.dtype,
+                                  device=ys_pad.device), ys_pad], dim=1)
+    ys_in = torch.where(pos <= lengths, ys_in, eos)
+    ys_out = torch.where(pos == lengths, eos, ys_ext)
+    ys_out = torch.where(pos > lengths, ignore_id, ys_out)
+    return ys_in, ys_out

@@ -9,14 +9,16 @@ flax names map to them by ``compat/from_jax.py``), and places the
 collectives by hand with the two conjugate functions of
 ``parallel/distributed.py::ModelGroup``:
 
-- column (the product's outputs split; ``w_1``, ``linear_q/k/v/pos``,
+- column (the product's outputs split; ``w_1`` of the three FFNs,
+  ``linear_q/k/v/pos`` of the plain and relative attentions,
   BERT's ``query/key/value`` and ``intermediate.dense``, the DiffNet's
   ``mlp.0``, ``dilated_conv`` and ``conditioner_projection``, the prompt
   adaptor's ``adaptor.0``): the rank keeps its rows of the weight and the
   bias, and its input passes ``copy`` (identity; gradient summed), once
   for all the products that read it (an attention module's q, k and v;
   every DiffNet block's conditioner projection of ``cond``);
-- row (the contraction split; ``w_2``, ``linear_out``, BERT's
+- row (the contraction split; ``w_2`` (a ``Conv1d`` or a ``Linear``),
+  ``linear_out``, BERT's
   ``attention.output.dense`` and ``output.dense``, the DiffNet's
   ``mlp.2`` and its blocks' ``output_projection``): the rank keeps its
   columns of the weight, and its partial product passes ``reduce`` (sum;
@@ -40,7 +42,10 @@ attention keeps its scale, which counts every head), and the dropouts of
 sharded activations (the FFN hidden, the attention weights) draw their
 masks at the whole width and cut them, so a model group draws what one
 process draws. A width or head count that does not divide raises, naming
-it. ``shard_module`` keeps the names of the ``state_dict``;
+it, and so does a product JAX's spec shards by its name that is not a
+``Linear`` or ``Conv1d`` of a module ``shard_module`` knows (``_OWNERS``):
+a model group never replicates what JAX shards. ``shard_module`` keeps
+the names of the ``state_dict``;
 ``gather_state_dict`` and ``local_state_dict`` convert between the
 sharded model's tensors and the whole ones of a checkpoint.
 """
@@ -54,11 +59,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from promptttspp_tpu_torch.models.bert import BertSelfAttention
-from promptttspp_tpu_torch.models.diffusion import DiffNet
+from promptttspp_tpu_torch.models.bert import (
+    BertIntermediate, BertOutput, BertSelfAttention, BertSelfOutput)
+from promptttspp_tpu_torch.models.diffusion import DiffNet, ResidualBlock
 from promptttspp_tpu_torch.nn.attention import (
-    GSTCrossAttention, RelPositionMultiHeadedAttention)
-from promptttspp_tpu_torch.nn.conformer import MultiLayeredConv1d
+    GSTCrossAttention, MultiHeadedAttention)
+from promptttspp_tpu_torch.nn.conformer import (
+    MultiLayeredConv1d, PositionwiseFeedForward)
 from promptttspp_tpu_torch.nn.layers import (
     Conv1d, Linear, conv1d_btc, conv1d_same, promoted)
 from promptttspp_tpu_torch.parallel.distributed import shard_of
@@ -198,8 +205,9 @@ def _set_class(mod, kind, group):
     mod.tp_group = group
 
 
-# the model config key of each attention module's head count
-_HEADS_KEY = ((RelPositionMultiHeadedAttention, "model.encoder.attention_heads"),
+# the model config key of each attention module's head count (the plain
+# attention and its relative-position subclasses)
+_HEADS_KEY = ((MultiHeadedAttention, "model.encoder.attention_heads"),
               (GSTCrossAttention, "model.reference_encoder.gst_heads"),
               (BertSelfAttention, "model.prompt_encoder.bert_num_heads"))
 
@@ -209,6 +217,28 @@ def _heads_key(mod) -> Optional[str]:
         if isinstance(mod, cls):
             return key
     return None
+
+
+# the modules whose sharded products ``shard_module`` knows how to run:
+# the attentions (heads split), the FFNs (hidden width split), BERT's
+# blocks, the DiffNet's blocks, and the Sequentials of the DiffNet's step
+# MLP and the prompt adaptor
+_OWNERS = (MultiHeadedAttention, GSTCrossAttention, BertSelfAttention,
+           BertIntermediate, BertOutput, BertSelfOutput, MultiLayeredConv1d,
+           PositionwiseFeedForward, ResidualBlock, nn.Sequential)
+
+
+def _check_known(mname: str, mod: nn.Module, owner: nn.Module):
+    """Raise, naming the layer, where JAX's spec shards a product (by its
+    name) that the port could only replicate or would run wrong: not a
+    ``Linear`` or ``Conv1d``, or held by a module ``shard_module`` does
+    not know."""
+    if not isinstance(mod, (Linear, Conv1d)) or not isinstance(owner,
+                                                               _OWNERS):
+        raise ValueError(
+            f"tensor parallelism does not know the layer {mname} "
+            f"({type(mod).__name__} in {type(owner).__name__}), which JAX's "
+            "param_partition_spec shards")
 
 
 def _check_divides(n: int, world: int, what: str):
@@ -233,7 +263,10 @@ def shard_module(model: nn.Module, group, skip: Sequence[str] = ()
     mods = [(n, m) for n, m in model.named_modules()
             if not (n and (n + ".").startswith(skip))]
     shards = {}
+    owners = dict(mods)
     for mname, mod in mods:
+        if mname and module_kind(mname) is not None:
+            _check_known(mname, mod, owners[mname.rpartition(".")[0]])
         key = _heads_key(mod)
         if key is not None:
             _check_divides(mod.h, M, f"{key} (the heads of {mname})")
@@ -262,10 +295,10 @@ def shard_module(model: nn.Module, group, skip: Sequence[str] = ()
                     child.tp_copied = True
             mod.h //= M
             drop = (mod.attn_dropout
-                    if isinstance(mod, RelPositionMultiHeadedAttention)
+                    if isinstance(mod, MultiHeadedAttention)
                     else mod.dropout)
             drop.shard = (1, group)
-        elif isinstance(mod, MultiLayeredConv1d):
+        elif isinstance(mod, (MultiLayeredConv1d, PositionwiseFeedForward)):
             mod.dropout.shard = (-1, group)
         elif isinstance(mod, DiffNet):
             # one copy of cond for the blocks' conditioner projections

@@ -82,7 +82,7 @@ def main(argv=None) -> int:
     from promptttspp_tpu_torch.tools.synthetic_corpus import (
         training_rows, write_training_corpus)
     from promptttspp_tpu_torch.train.trainer import (
-        MODEL_BATCH_KEYS, TTSTrainer, to_device)
+        TTSTrainer, model_batch_keys, to_device)
 
     torch.backends.cudnn.benchmark = args.cudnn_benchmark
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -108,6 +108,7 @@ def main(argv=None) -> int:
     sampler.set_epoch(1)
     batches = list(sampler)
     dev = state.device
+    keys = model_batch_keys(state.model)
 
     def assembled():
         """-> (batch, device batch, assembly s, copy s) for every update
@@ -115,7 +116,7 @@ def main(argv=None) -> int:
         order = [batches[i % len(batches)] for i in range(args.updates + 4)]
         if args.input_pipeline == "prefetch":
             it = prefetch_batches(ds, order, collator,
-                                  model_keys=MODEL_BATCH_KEYS, device=dev)
+                                  model_keys=keys, device=dev)
             while True:
                 t0 = time.perf_counter()
                 nxt = next(it, None)
@@ -130,7 +131,7 @@ def main(argv=None) -> int:
             else:
                 batch = collator([ds[i] for i in idx])
             t1 = time.perf_counter()
-            tb = to_device(batch, dev)
+            tb = to_device(batch, dev, keys)
             yield batch, tb, t1 - t0, time.perf_counter() - t1
 
     feed = assembled()

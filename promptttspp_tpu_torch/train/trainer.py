@@ -67,7 +67,7 @@ import os
 import random
 import time
 from pathlib import Path
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,6 +96,19 @@ MODEL_BATCH_KEYS = (
     "frame_lengths", "prompt_ids", "prompt_mask", "batch_weight",
     "diffusion_t", "diffusion_noise",
 )
+
+
+def model_batch_keys(model) -> Tuple[str, ...]:
+    """The keys of a collated batch that ``model`` reads:
+    ``MODEL_BATCH_KEYS``, and the energy target where its variance adaptor
+    has an energy branch. Only those reach the device: the C++ loader sums
+    the energy in another order than numpy, so a model without the branch
+    gets the same device batches from every input pipeline, bit for
+    bit."""
+    va = getattr(model, "variance_adaptor", None)
+    if getattr(va, "energy_predictor", None) is None:
+        return MODEL_BATCH_KEYS
+    return MODEL_BATCH_KEYS + ("energy",)
 
 
 def select(cfg: Mapping, dotted: str, default=None):
@@ -146,11 +159,12 @@ def auto_input_pipeline(ds) -> str:
     return "sync_native" if _has_meta(ds) else "sync"
 
 
-def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """The model's keys of a collated batch as tensors on ``device``
+def to_device(batch: Dict, device,
+              keys: Sequence[str] = MODEL_BATCH_KEYS
+              ) -> Dict[str, torch.Tensor]:
+    """The model's ``keys`` of a collated batch as tensors on ``device``
     (integers as int64)."""
-    return {k: t.to(device)
-            for k, t in host_tensors(batch, MODEL_BATCH_KEYS).items()}
+    return {k: t.to(device) for k, t in host_tensors(batch, keys).items()}
 
 
 class TTSTrainer:
@@ -198,6 +212,7 @@ class TTSTrainer:
         self.ckpt_dir = self.output_dir / "ckpt"
         self.seed = select(cfg, "train.seed", 42)
         self.state: Optional[TrainState] = None
+        self.model_keys = MODEL_BATCH_KEYS  # model_batch_keys of the model
         self.profile = None  # the torch.profiler of train.profile_steps
 
     # ------------------------------------------------------------- setup
@@ -334,6 +349,7 @@ class TTSTrainer:
         self._setup_logging()
         self._build_datasets()
         self.state = state = self.build_state()
+        self.model_keys = model_batch_keys(state.model)
         n_params = sum(p.numel() for p in state.params)
         self.logger.info(f"number of trainable params: {n_params / 1e6:.3f}"
                          f" M on {self.device}"
@@ -452,7 +468,7 @@ class TTSTrainer:
                 batch = finish(batch, padding)
             else:
                 batch = collator([ds[i] for i in entry])
-            yield batch, to_device(batch, self.device)
+            yield batch, to_device(batch, self.device, self.model_keys)
 
     def _train_loop(self, state: TrainState, start_epoch: int,
                     num_epochs: int):
@@ -477,7 +493,7 @@ class TTSTrainer:
             if pipeline == "prefetch":
                 loader = prefetch_batches(
                     self.train_ds, epoch_sampler, collator,
-                    model_keys=MODEL_BATCH_KEYS, device=self.device,
+                    model_keys=self.model_keys, device=self.device,
                     num_workers=select(cfg, "train.num_workers", 8),
                     prefetch_depth=select(cfg, "train.prefetch_depth", 3))
             else:

@@ -8,6 +8,8 @@ BatchNorm statistic is perturbed from its init with seeded numpy noise
 first, so no bias, alpha or running statistic is a trivial zero or one.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,8 +39,53 @@ def perturbed(variables, seed=0, scale=0.05):
             "batch_stats": rec(variables.get("batch_stats", {}), True)}
 
 
-def init_jax_twins(seed=0):
-    """-> (jax model, perturbed numpy variables, port model on the CPU)."""
+def jax_variables_from(shapes, state_dict, root=()):
+    """The flax variables of ``shapes`` (``jax.eval_shape`` of an init, at
+    ``root`` in the model's tree) holding the port's ``state_dict``, each
+    leaf in the layout ``compat/from_jax.py`` reads back: the inverse of
+    ``jax_params_to_state_dict``, found by sending each leaf's flat
+    indices through its ``_param``. Twins made so need no JAX init to
+    compile."""
+    from promptttspp_tpu_torch.compat.from_jax import _param, torch_module_key
+
+    stats = {"mean": "running_mean", "var": "running_var"}
+
+    def rec(node, path, is_stats):
+        if hasattr(node, "items"):
+            return {k: rec(v, path + (k,), is_stats) for k, v in node.items()}
+        base = torch_module_key(root + path[:-1])
+        index = np.arange(int(np.prod(node.shape))).reshape(node.shape)
+        name, moved = (stats[path[-1]], index) if is_stats \
+            else _param(path[-1], index)
+        out = np.empty(index.size, np.float32)
+        out[np.asarray(moved).ravel()] = \
+            state_dict[f"{base}.{name}".lstrip(".")].numpy().ravel()
+        return out.reshape(node.shape)
+
+    return {"params": rec(shapes.get("params", {}), (), False),
+            "batch_stats": rec(shapes.get("batch_stats", {}), (), True)}
+
+
+def jit_apply(model, variables, method, *args, **kw):
+    """``model.apply(variables, *args, method=method, **kw)`` under one
+    jit (one compile instead of one per operation): the arrays among the
+    arguments are traced, every other argument is fixed."""
+    arrays = {i: a for i, a in enumerate(args) if hasattr(a, "shape")}
+    kw_arrays = {k: v for k, v in kw.items() if hasattr(v, "shape")}
+
+    def run(variables, arrays, kw_arrays):
+        full = [arrays.get(i, a) for i, a in enumerate(args)]
+        return model.apply(variables, *full, method=method,
+                           **{**kw, **kw_arrays})
+
+    return jax.jit(run)(variables, arrays, kw_arrays)
+
+
+def init_jax_twins(seed=0, port_init=False):
+    """-> (jax model, perturbed numpy variables, port model on the CPU).
+    The weights are the JAX model's init, or with ``port_init`` the
+    port's, laid out in JAX's tree (``jax_variables_from``: no JAX init
+    compiles)."""
     import tests.test_train as tt
     from promptttspp_tpu.flagship import example_batch
 
@@ -48,9 +95,15 @@ def init_jax_twins(seed=0):
         1, 60, batch["prompt_ids"].shape).astype(np.int32)
     rngs = {k: jax.random.PRNGKey(i) for i, k in
             enumerate(("params", "dropout", "diffusion", "style"))}
-    variables = jax.jit(model.init, static_argnames=("train",))(
-        rngs, batch, train=True)
-    variables = perturbed(jax.device_get(variables), seed)
+    port = flagship.build_model(tiny_model_config(), "cpu", seed, TINY_BERT)
+    if port_init:
+        variables = jax_variables_from(jax.eval_shape(
+            functools.partial(model.init, train=True), rngs, batch),
+            port.state_dict())
+    else:
+        variables = jax.device_get(jax.jit(
+            model.init, static_argnames=("train",))(rngs, batch, train=True))
+    variables = perturbed(variables, seed)
     # a duration head that gives 2-4 frames per phone, varying by phone
     head = variables["params"]["variance_adaptor"]["duration_predictor"][
         "out_layer"]
@@ -58,7 +111,6 @@ def init_jax_twins(seed=0):
     head["mu"]["bias"] += np.log(3.0)
     head["log_sigma"]["kernel"] *= 0.1
     head["log_sigma"]["bias"] -= 2.0
-    port = flagship.build_model(tiny_model_config(), "cpu", seed, TINY_BERT)
     load_jax_variables(port, variables)
     return model, variables, port
 

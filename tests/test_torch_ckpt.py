@@ -49,7 +49,11 @@ def _golden(name, io_keys):
 
 
 def _golden_conformer(rel_pos_type="legacy"):
-    enc = ConformerEncoder(64, 2, 128, 2, 9, 7, rel_pos_type)
+    enc = ConformerEncoder(
+        64, 64, 2, 128, 2, 0.0, 0.0, 0.0, positionwise_layer_type="conv1d",
+        positionwise_conv_kernel_size=9, macaron_style=True,
+        pos_enc_layer_type="rel_pos", selfattention_layer_type="rel_selfattn",
+        use_cnn_module=True, cnn_module_kernel=7, rel_pos_type=rel_pos_type)
     return enc.eval().requires_grad_(False)
 
 

@@ -154,13 +154,40 @@ def test_override_rules(setup):
 
 def test_cli_refuses_unported_options(setup):
     root, argv = setup
-    for extra, match in ((["+vocoder_mode=sharded"], "sharded"),
-                         (["+frame_sharded_decode=true"],
-                          "frame_sharded_decode"),
-                         (["~model_ckpt"], "model_ckpt")):
+    for extra, match in ((["~model_ckpt"], "model_ckpt"),):
         cfg = conf.compose("synthesize", argv + ["device=cpu"] + extra)
         with pytest.raises(ValueError, match=match):
             cli.build_synthesizer(cfg)
+
+
+def test_cli_serves_sharded_modes_on_a_cpu_mesh(setup):
+    """``+vocoder_mode=sharded +frame_sharded_decode=true device=cpu``
+    builds a ``Synthesizer`` with both modes over a mesh of the one CPU
+    device (JAX's CLI passes both modes on; on the GPU the mesh is every
+    visible GPU). One request gives the mel of the unsharded decode and
+    the wav of the chunked vocoder the sharded one splits (the CLI's
+    ``+vocoder_mode=chunked``, whose decode is the batched mode's), at
+    tests/test_torch_parallel.py's bars for the sharded paths."""
+    from tests.test_torch_parallel import SHARDED_ATOL
+
+    root, argv = setup
+    base = argv + ["device=cpu"]
+    synth = cli.build_synthesizer(conf.compose("synthesize", base + [
+        "+vocoder_mode=sharded", "+frame_sharded_decode=true"]))
+    assert synth.vocoder_mode == "sharded" and synth.frame_sharded_decode
+    assert [[d.type for d in row] for row in synth.mesh.devices] == [["cpu"]]
+    ref = cli.build_synthesizer(conf.compose(
+        "synthesize", base + ["+vocoder_mode=chunked"]))
+    assert ref.mesh is None and not ref.frame_sharded_decode
+    req = dict(prompts=["a calm voice."], use_max=True, noise_scale=0.0,
+               seed=3)
+    seq = [list(CLI_ROWS[0]["seq"])]
+    wavs, mels = synth.synthesize(seq, **req)
+    ref_wavs, ref_mels = ref.synthesize(seq, **req)
+    np.testing.assert_allclose(mels[0], ref_mels[0], rtol=0,
+                               atol=SHARDED_ATOL * synth.mel_stats["std"])
+    assert wavs[0].shape == ref_wavs[0].shape
+    np.testing.assert_allclose(wavs[0], ref_wavs[0], rtol=0, atol=1e-5)
 
 
 def _tree(out: Path):

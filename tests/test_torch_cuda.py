@@ -13,6 +13,7 @@ package, so it runs on a machine without them; from the repository root:
 import copy
 import dataclasses
 import math
+import os
 from unittest import mock
 
 import numpy as np
@@ -37,6 +38,16 @@ K2_BF16_TOL = dict(atol=1e-2, rtol=1e-3)
 K2_BF16_F32_TOL = dict(atol=3e-2, rtol=1e-2)  # tests/test_pallas_amp.py:70
 
 pytestmark = pytest.mark.cuda
+
+# Under pytest-xdist the workers share the machine's cores, but torch's
+# intra-op pool takes all of them in every worker, and the pools' threads
+# then starve one another: a train-CLI test of two epochs took 78.7 s
+# beside seven busy processes on 8 cores, 11.7 s with one thread. Every
+# worker collects (imports) this module before it runs a test, so each
+# takes its share of the cores for the whole session.
+_XDIST_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+if _XDIST_WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _XDIST_WORKERS))
 
 C, MEL = 32, 20  # tests/test_train.py widths
 TINY_BERT = BertConfig(vocab_size=64, hidden_size=32, num_hidden_layers=1,

@@ -263,7 +263,7 @@ def test_decoder_pipeline_switches_are_read(key, value):
         plain.decoder.inference(cond, x_T=x_T, zero_noise=True))
 
 
-# The JAX module behind each section of flagship._FIXED
+# The JAX module behind each section of flagship._JAX_DEFAULTS
 _JAX_CLASSES = {
     (): "promptttspp_tpu.models.prompttts.PromptTTSMDNDurCFG",
     ("phoneme_embedding",):
@@ -271,8 +271,19 @@ _JAX_CLASSES = {
     ("encoder",): "promptttspp_tpu.nn.conformer.ConformerEncoder",
     ("variance_adaptor",):
         "promptttspp_tpu.models.variance_adaptor.VarianceAdaptor",
+    ("variance_adaptor", "duration_predictor"):
+        "promptttspp_tpu.models.variance_adaptor.MDNPredictor",
+    ("variance_adaptor", "pitch_predictor"):
+        "promptttspp_tpu.models.variance_adaptor.Predictor",
+    ("variance_adaptor", "energy_predictor"):
+        "promptttspp_tpu.models.variance_adaptor.Predictor",
+    ("variance_adaptor", "frame_prior_network"):
+        "promptttspp_tpu.models.frame_prior.FramePriorNetwork",
     ("style_mdn",): "promptttspp_tpu.nn.mdn.MDNLayer",
+    ("reference_encoder",):
+        "promptttspp_tpu.models.style_encoder.StyleEncoder",
     ("decoder",): "promptttspp_tpu.models.diffusion.GaussianDiffusion",
+    ("decoder", "denoise_fn"): "promptttspp_tpu.models.diffusion.DiffNet",
 }
 
 
@@ -284,39 +295,180 @@ def _jax_class(path):
 
 
 def test_jax_defaults_are_the_jax_fields():
-    """``flagship._JAX_DEFAULTS`` (what an absent fixed key means) equals
-    the defaults of the JAX dataclass fields, so a changed JAX default
-    fails here; the conformer's ``rel_pos_type`` defaults to None."""
+    """``flagship._JAX_DEFAULTS`` (what ``build_model`` reads for an absent
+    key) equals the defaults of the JAX dataclass fields, so a changed
+    JAX default fails here; ``_FIXED`` pins only the decoder's pipeline
+    mesh, at JAX's default."""
     from promptttspp_tpu_torch import flagship
 
-    assert set(flagship._JAX_DEFAULTS) == set(flagship._FIXED) \
-        == set(_JAX_CLASSES)
-    for path, fixed in flagship._FIXED.items():
+    assert set(flagship._JAX_DEFAULTS) == set(_JAX_CLASSES)
+    for path, defaults in flagship._JAX_DEFAULTS.items():
         fields = _jax_fields(_jax_class(path))
-        assert flagship._JAX_DEFAULTS[path] == {k: fields[k] for k in fixed}
+        assert defaults == {k: fields[k] for k in defaults}, path
+    assert flagship._FIXED == {("decoder",): dict(pipeline_mesh=None)}
     assert _jax_fields(_jax_class(("encoder",)))["rel_pos_type"] is None
 
 
-_ABSENT_KEYS = [(path, key) for path, fixed in flagship._FIXED.items()
-                for key in fixed] + [(("encoder",), "rel_pos_type")]
+ABSENT = object()  # the config omits the key: JAX's default
+
+
+def _c():
+    from tests.test_torch_cuda import C
+
+    return C
+
+
+# Every switch of the model config the port used to refuse, at each value
+# JAX builds (ABSENT: the key left out, JAX's dataclass default), as
+# {section path: {key: value}}; "energy" adds JAX's energy branch with the
+# pitch predictor's widths.
+SWITCHES = {
+    "norm_style_emb=false": {(): dict(norm_style_emb=False)},
+    "mdn_disable_amp=false": {(): dict(mdn_disable_amp=False)},
+    "style_mdn=absent": {(): dict(style_mdn=ABSENT)},
+    "phoneme_embedding.do_scale=absent": {
+        ("phoneme_embedding",): dict(do_scale=ABSENT)},
+    "encoder.positionwise_layer_type=conv1d-linear": {
+        ("encoder",): dict(positionwise_layer_type="conv1d-linear")},
+    "encoder.scaled_abs_pos_selfattn": {
+        ("encoder",): dict(pos_enc_layer_type="scaled_abs_pos",
+                           selfattention_layer_type="selfattn")},
+    "encoder.rel_pos_type=absent": {("encoder",): dict(rel_pos_type=ABSENT)},
+    "encoder.macaron_style=false": {("encoder",): dict(macaron_style=False)},
+    "encoder.use_cnn_module=false": {("encoder",): dict(use_cnn_module=False)},
+    "encoder.normalize_before=false": {
+        ("encoder",): dict(normalize_before=False)},
+    "encoder.activation_type=relu": {
+        ("encoder",): dict(activation_type="relu")},
+    # JAX's ConformerEncoder defaults: Linear FFN, absolute positions,
+    # plain attention, no macaron, no conv module
+    "encoder.every_switch_absent": {("encoder",): dict(
+        positionwise_layer_type=ABSENT, positionwise_conv_kernel_size=ABSENT,
+        pos_enc_layer_type=ABSENT, selfattention_layer_type=ABSENT,
+        macaron_style=ABSENT, use_cnn_module=ABSENT, cnn_module_kernel=ABSENT,
+        rel_pos_type=ABSENT)},
+    "encoder.idim!=attention_dim": {("phoneme_embedding",): dict(channels=24),
+                                    ("encoder",): dict(idim=24)},
+    "style_mdn.dim_wise=false": {("style_mdn",): dict(dim_wise=False)},
+    "variance_adaptor.energy": {("variance_adaptor",): "energy"},
+    "variance_adaptor.frame_prior_network=absent": {
+        ("variance_adaptor",): dict(frame_prior_network=ABSENT)},
+    "duration_predictor.dim_wise=false": {
+        ("variance_adaptor", "duration_predictor"): dict(dim_wise=False)},
+    "duration_predictor.disable_amp=absent": {
+        ("variance_adaptor", "duration_predictor"): dict(disable_amp=ABSENT)},
+}
+
+
+def _apply_switch(cfg, spec):
+    """The port's config with ``spec`` applied (ABSENT pops the key)."""
+    from chip_smoke import energy_branch
+
+    for path, values in spec.items():
+        section = cfg
+        for key in path:
+            section = section[key]
+        if values == "energy":
+            values = energy_branch(section)
+        for key, value in values.items():
+            if value is ABSENT:
+                section.pop(key, None)
+            else:
+                section[key] = value
+    return cfg
+
+
+def _jax_switched(model, variables, spec, port_sd, seed):
+    """JAX's twin with ``spec`` applied (ABSENT: the field's default), each
+    changed section in ``variables`` replaced by the port's init of it
+    (``port_sd``, laid out in JAX's tree of the section: no JAX init
+    compiles), perturbed; the other sections keep their weights."""
+    import copy
+
+    import jax
+    import jax.numpy as jnp
+
+    from promptttspp_tpu.models.variance_adaptor import PitchEmb, Predictor
+    from tests.test_torch_acoustic import jax_variables_from, perturbed
+
+    def resolve(cls, values):
+        fields = _jax_fields(cls)
+        return {k: fields[k] if v is ABSENT else v for k, v in values.items()}
+
+    C = _c()
+    variables = copy.deepcopy(variables)
+    top, changed = {}, set()
+    for path, values in spec.items():
+        if not path:
+            top.update(resolve(type(model), values))
+            continue
+        sub = getattr(model, path[0])
+        if len(path) == 2:
+            inner = getattr(sub, path[1])
+            sub = sub.clone(**{path[1]: inner.clone(
+                **resolve(type(inner), values))})
+        elif values == "energy":  # the tiny pitch predictor's widths
+            sub = sub.clone(
+                energy_predictor=Predictor(channels=C, out_channels=1,
+                                           kernel_size=5, dropout=0.0,
+                                           num_layers=2),
+                energy_emb=PitchEmb(1, C, 1))
+        else:
+            sub = sub.clone(**resolve(type(sub), values))
+        top[path[0]] = sub
+        changed.add(path[0])
+    if top.get("style_mdn", "") is None:
+        variables["params"].pop("style_mdn")
+    model = model.clone(**top)
+    rng = np.random.RandomState(seed)
+    B, Tp, Tf = 2, 6, 12
+    emb_c = model.encoder.idim
+    example = {
+        "phoneme_embedding": (jnp.asarray(rng.randint(1, 90, (B, Tp))),
+                              jnp.ones((B, Tp, 1))),
+        "encoder": (jnp.asarray(rng.randn(B, Tp, emb_c), jnp.float32),
+                    jnp.array([Tp, Tp - 2])),
+        "style_mdn": (jnp.asarray(rng.randn(B, 1, C), jnp.float32),),
+        "variance_adaptor": (
+            jnp.asarray(rng.randn(B, Tp, C), jnp.float32),
+            jnp.ones((B, Tp), bool), jnp.ones((B, Tf), bool),
+            jnp.full((B, Tp), 2, jnp.int32), jnp.zeros((B, Tf, 1)),
+            jnp.zeros((B, Tf, 1)), jnp.zeros((B, Tf, 1))),
+    }
+    for name in sorted(changed):
+        shapes = jax.eval_shape(getattr(model, name).init,
+                                jax.random.PRNGKey(seed), *example[name])
+        fresh = perturbed(jax_variables_from(shapes, port_sd, (name,)), seed)
+        for coll in ("params", "batch_stats"):
+            variables[coll].pop(name, None)
+            if fresh.get(coll):
+                variables[coll][name] = fresh[coll]
+        if name == "variance_adaptor":
+            # init_jax_twins' duration head: 2-4 frames per phone
+            head = variables["params"][name]["duration_predictor"][
+                "out_layer"]
+            head["mu"]["kernel"] *= 0.3
+            head["mu"]["bias"] += np.log(3.0)
+            head["log_sigma"]["kernel"] *= 0.1
+            head["log_sigma"]["bias"] -= 2.0
+    return model, variables
 
 
 @pytest.fixture(scope="module")
 def jax_twins():
     from tests.test_torch_acoustic import init_jax_twins
 
-    return init_jax_twins(seed=5)
+    return init_jax_twins(seed=5, port_init=True)
 
 
-@pytest.mark.parametrize("path,key", _ABSENT_KEYS,
-                         ids=[".".join(p + (k,)) for p, k in _ABSENT_KEYS])
-def test_absent_fixed_key_raises_or_builds_the_jax_model(jax_twins, path,
-                                                         key):
-    """A config without one of the fixed switches: the port either raises,
-    naming the key (and then JAX's default is a value the port does not
-    implement), or builds the model JAX builds with its default, which
-    gives JAX's frame lengths and decoder conditioning on the same weights
-    (none of the keys reaches the decoder's arithmetic)."""
+@pytest.mark.parametrize("case", list(SWITCHES))
+def test_switch_builds_the_jax_model(jax_twins, case):
+    """A config with one of the model's switches flipped (or left out,
+    meaning JAX's default) builds the model JAX builds from it: on the
+    same weights (the switched sections re-initialized in JAX, loaded by
+    name with none missing or left over), the frame lengths and the
+    decoder's conditioning (the variance adaptor's output, frame mask,
+    log-F0 and V/UV) equal JAX's."""
     import copy
 
     from promptttspp_tpu_torch import flagship
@@ -324,24 +476,12 @@ def test_absent_fixed_key_raises_or_builds_the_jax_model(jax_twins, path,
     from tests.test_torch_acoustic import _inputs, _t
     from tests.test_torch_cuda import TINY_BERT, tiny_model_config
 
-    default = _jax_fields(_jax_class(path))[key]
-    cfg = copy.deepcopy(tiny_model_config())
-    section = cfg
-    for k in path:
-        section = section[k]
-    section.pop(key, None)
-    try:
-        port = flagship.build_model(cfg, "cpu", 0, TINY_BERT)
-    except ValueError as e:
-        assert ".".join(path + (key,)) in str(e)
-        assert default != flagship._FIXED[path][key]
-        return
-    model, variables, _ = jax_twins
-    if path:
-        sub = getattr(model, path[0]).clone(**{key: default})
-        model = model.clone(**{path[0]: sub})
-    else:
-        model = model.clone(**{key: default})
+    spec = SWITCHES[case]
+    seed = list(SWITCHES).index(case)
+    cfg = _apply_switch(copy.deepcopy(tiny_model_config()), spec)
+    port = flagship.build_model(cfg, "cpu", seed, TINY_BERT)
+    model, variables = _jax_switched(*jax_twins[:2], spec, port.state_dict(),
+                                     seed)
     load_jax_variables(port, variables)
     phoneme, plens, ids, mask = _inputs()
     kw = dict(prompt_ids=jnp.asarray(ids), prompt_mask=jnp.asarray(mask),
@@ -349,13 +489,13 @@ def test_absent_fixed_key_raises_or_builds_the_jax_model(jax_twins, path,
     jflens = np.asarray(model.apply(
         variables, jnp.asarray(phoneme), jnp.asarray(plens),
         method=type(model).infer_frame_lengths, **kw))
-    max_frames = 64 * int(np.ceil(int(jflens.max()) / 64))
+    assert 16 <= jflens.min() and jflens.max() <= 64, jflens
     ref = model.apply(variables, jnp.asarray(phoneme), jnp.asarray(plens),
-                      max_frames, method=type(model).infer_cond, **kw)
+                      64, method=type(model).infer_cond, **kw)
     with torch.no_grad():
         flens = port.infer_frame_lengths(_t(phoneme), _t(plens), _t(ids),
                                          _t(mask))
-        out = port.infer_cond(_t(phoneme), _t(plens), max_frames, _t(ids),
+        out = port.infer_cond(_t(phoneme), _t(plens), 64, _t(ids),
                               _t(mask), use_max=True, noise_scale=0.0)
     np.testing.assert_array_equal(flens.numpy(), jflens)
     # tests/test_torch_acoustic.py::TOL
@@ -363,3 +503,28 @@ def test_absent_fixed_key_raises_or_builds_the_jax_model(jax_twins, path,
                            "raw"), out, ref):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), err_msg=name,
                                    atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("path,key,value,match", [
+    (("encoder",), "positionwise_layer_type", "conv2d",
+     "positionwise_layer_type 'conv2d'"),
+    (("encoder",), "pos_enc_layer_type", "rope", "pos_enc_layer_type 'rope'"),
+    (("encoder",), "selfattention_layer_type", "lightconv",
+     "selfattention_layer_type 'lightconv'"),
+    (("encoder",), "return_mask", True, "encoder.return_mask"),
+    (("encoder",), "selfattention_layer_type", "selfattn",
+     "pos_enc_layer_type 'rel_pos' needs selfattention_layer_type"),
+])
+def test_switch_jax_rejects_raises(path, key, value, match):
+    """A value JAX's model does not build or cannot run (an unknown layer
+    type, a relative encoding without its attention, the encoder's
+    (output, mask) pair) raises at build, naming the key."""
+    import copy
+
+    from promptttspp_tpu_torch import flagship
+    from tests.test_torch_cuda import TINY_BERT, tiny_model_config
+
+    cfg = _apply_switch(copy.deepcopy(tiny_model_config()),
+                        {path: {key: value}})
+    with pytest.raises(ValueError, match=match):
+        flagship.build_model(cfg, "cpu", 0, TINY_BERT)

@@ -263,6 +263,83 @@ def test_one_collective_per_product_and_shared_input():
     assert group.counts == {"copy": 10, "reduce": 9, "gather": 1}
 
 
+def test_variant_encoder_is_sharded_as_jax_shards_it():
+    """The plain attention's q/k/v (column) and out (row) and the Linear
+    FFN's w_1 (column) and w_2 (row) of the variant's conformer
+    (``chip_smoke.py::variant_config``: JAX's ConformerEncoder defaults)
+    are sharded on the axes JAX's ``param_partition_spec`` names, and
+    nothing else under the encoder is; a TP step then places one
+    all-reduce after each row product and one per distinct column input
+    of the encoder block (q|k|v, w_1): two of each where the flagship's
+    block, with its macaron FFN, places three."""
+    import jax
+    import jax.numpy as jnp
+
+    from chip_smoke import variant_config
+    from promptttspp_tpu.nn.conformer import ConformerEncoder as JaxEnc
+
+    cfg = variant_config(tiny_model_config())
+    enc = cfg["encoder"]
+    jenc = JaxEnc(idim=enc["idim"], attention_dim=enc["attention_dim"],
+                  attention_heads=enc["attention_heads"],
+                  linear_units=enc["linear_units"],
+                  num_blocks=enc["num_blocks"])
+    # the specs read names and shapes only
+    params = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype),
+        jax.eval_shape(jenc.init, jax.random.PRNGKey(0),
+                       jnp.zeros((1, 4, enc["idim"])), jnp.array([4])))[
+        "params"]
+    specs, _ = _jax_specs({"params": {"encoder": params}})
+    model = flagship.build_model(cfg, "cpu", 0, TINY_BERT)
+    names = {k: p for k, p in model.named_parameters()
+             if k.startswith("encoder.")}
+    assert set(names) == set(specs)
+    sharded = set()
+    for name, p in names.items():
+        ours = param_partition_spec(name, p)
+        assert (None if ours is None else ours.dim) == specs[name], name
+        if ours is not None:
+            sharded.add(name.split(".", 4)[-1])
+    assert sharded == {f"{m}.{leaf}" for m in (
+        "self_attn.linear_q", "self_attn.linear_k", "self_attn.linear_v",
+        "feed_forward.w_1") for leaf in ("weight", "bias")} | {
+        "self_attn.linear_out.weight", "feed_forward.w_2.weight"}
+    group = CountingGroup()
+    shard_module(model, group)
+    layer = model.encoder.encoder.encoders[0]
+    assert layer.self_attn.h == 1
+    assert layer.feed_forward.w_1.weight.shape[0] * 2 == enc["linear_units"]
+    assert layer.feed_forward.w_2.weight.shape[1] * 2 == enc["linear_units"]
+    assert layer.feed_forward.dropout.shard[0] == -1
+    TrainState(model, seed=0, **OPT)  # the BERT freeze
+    model.train()
+    batch = train_batch(seed=0)
+    batch["energy"] = np.ones_like(batch["vuv"])
+    losses = model(torch_batch(batch),
+                   generator=step_generator(0, 0, torch.device("cpu")))
+    losses["loss"].backward()
+    # test_one_collective_per_product_and_shared_input's 10 and 9, less
+    # the macaron FFN's w_1 and w_2
+    assert group.counts == {"copy": 9, "reduce": 8, "gather": 1}
+
+
+def test_unknown_sharded_layer_raises():
+    """A product JAX's spec shards by its name, held by a module
+    ``shard_module`` does not know, raises, naming it, before anything is
+    cut: a model group never replicates what JAX shards."""
+    from promptttspp_tpu_torch.nn.layers import Linear
+
+    model = flagship.build_model(tiny_model_config(), "cpu", 0, TINY_BERT)
+    model.probe = torch.nn.Module()
+    model.probe.linear_q = Linear(4, 4)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with pytest.raises(ValueError, match=r"probe\.linear_q"):
+        shard_module(model, FakeGroup(0, 2))
+    after = model.state_dict()
+    assert all(torch.equal(before[k], after[k]) for k in before)
+
+
 # ------------------------------------------------------- spawned ranks
 def _slab(batch, data):
     if data is None:

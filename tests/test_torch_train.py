@@ -293,15 +293,24 @@ def test_eval_mode_losses_match_the_golden():
 
     C = 48
     model = PromptTTSMDNDurCFG(
-        PhonemeEmbedding(90, C), ConformerEncoder(C, 2, 96, 2, 9, 7, "new"),
-        VarianceAdaptor(MDNPredictor(C, 1, 3, 2, 4, detach=True),
+        PhonemeEmbedding(90, C, do_scale=False),
+        ConformerEncoder(C, C, 2, 96, 2, 0.0, 0.0, 0.0,
+                         positionwise_layer_type="conv1d",
+                         positionwise_conv_kernel_size=9, macaron_style=True,
+                         pos_enc_layer_type="rel_pos",
+                         selfattention_layer_type="rel_selfattn",
+                         use_cnn_module=True, cnn_module_kernel=7,
+                         rel_pos_type="new"),
+        VarianceAdaptor(MDNPredictor(C, 1, 3, 2, 4, detach=True,
+                                     disable_amp=True),
                         Predictor(C, 2, 5, 5), Conv1d(1, C, 1),
                         FramePriorNetwork(C, 3, 17)),
         StyleEncoder(20, 10, C, 4, 6, (4, 4, 8, 8, 16, 16), 3, 2, 1, C),
         StubPromptEncoder(),
         GaussianDiffusion(DiffNet(20, C, 4, 32, 3, 4), out_dim=20,
                           norm_scale=6.0, K_step=100),
-        MDNLayer(C, C, 4)).eval()
+        MDNLayer(C, C, 4, dim_wise=True), norm_style_emb=True,
+        mdn_disable_amp=True).eval()
     data = dict(np.load(Path(GOLDEN)))
     load_reference_state_dict(model, {k: torch.from_numpy(v) for k, v in
                                       data.items() if k not in IO_KEYS})

@@ -162,6 +162,36 @@ def test_input_pipelines_train_alike(corpus, tmp_path):
             assert torch.equal(_weights(got)[k], v), (p, k)
 
 
+def test_energy_branch_trains_through_the_trainer(corpus, tmp_path):
+    """The tiny model switched as ``chip_smoke.py::variant_config`` (every
+    switch at JAX's default and the energy branch) trains an epoch through
+    the prefetching pipeline (its validation through the inline one): the
+    energy target reaches the model (``model_batch_keys``), and the
+    epoch's loss row has a finite, positive ``energy`` next to the other
+    losses; the flagship's device batches carry no energy."""
+    from chip_smoke import variant_config
+    from promptttspp_tpu_torch.models.bert import WordPieceTokenizer
+    from promptttspp_tpu_torch.train.trainer import (
+        MODEL_BATCH_KEYS, model_batch_keys)
+
+    out = tmp_path / "out"
+    cfg = conf.compose("train", train_args(
+        corpus, out, "train.num_epochs=1", "+train.input_pipeline=prefetch",
+        "+train.tensorboard=false"))
+    cfg["model"] = variant_config(cfg["model"])
+    trainer = TTSTrainer(cfg, tokenizer=WordPieceTokenizer.from_vocab_file(
+        cfg["path"]["bert_vocab_file"]))
+    trainer.run()
+    assert trainer.model_keys == model_batch_keys(trainer.state.model) \
+        == MODEL_BATCH_KEYS + ("energy",)
+    row = _rows(out / "logs/loss.csv")[-1]
+    assert {"loss", "dec", "dur", "cf0", "vuv", "style", "energy"} <= set(row)
+    assert 0 < row["energy"] < float("inf") and row["loss"] > row["energy"]
+    flagship_model = flagship.build_model(conf.compose("train", train_args(
+        corpus, out))["model"], "cpu")
+    assert model_batch_keys(flagship_model) == MODEL_BATCH_KEYS
+
+
 def test_entry_point_needs_a_gpu_unless_told(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = conf.compose("train", [f"output_dir={tmp_path}"])
