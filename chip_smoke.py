@@ -7,7 +7,8 @@ Run from the repository root, with no arguments:
 
 ``python3 chip_smoke.py --phase12`` builds the kernels and runs phase 12
 alone (on every visible GPU where it uses more than one), with no result
-line; ``--phase13`` and ``--phase14`` do the same for phases 13 and 14.
+line; ``--phase13``, ``--phase14`` and ``--phase15`` do the same for
+phases 13, 14 and 15.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -229,7 +230,36 @@ Phases (any failure exits non-zero and prints no result line):
     card against the CPU's within 1e-4 of the largest magnitude, and each
     module's time. None of these modules holds a hand-written kernel; the
     requests of (a) launch K1 and K2-bf16 through the vocoder.
-15. Print the ``kernels`` JSON line, the GPU line and the result line.
+15. The experimental nets and the data-prep command line, under 60 s:
+    each net built from a seed, its weights and injected inputs the same
+    on the card and on the CPU, in float32 without TF32 (the samplers
+    and Glow set it themselves and run with TF32 switched on, so that the
+    comparison holds their setting), at the widths of the published model
+    it comes from (``AUX``): ``ConvNeXt1d`` (256
+    channels, 1024 hidden, 8 layers), ``MRFNet`` (HiFi-GAN's kernels 3, 7,
+    11 and dilations 1, 3, 5 at 256 channels, with ``g``), the local
+    ``Conformer`` (4 layers, 256 channels, 2 heads, kernel 7, with and
+    without ``g``), the VITS ``Transformer`` (VITS's text encoder: 192
+    channels, 2 heads, 6 layers, relative with window 4 and absolute),
+    ``Unet1d`` (Grad-TTS's estimator: dim 64, mults 1, 2, 4, 80 mels, the
+    conditioning at the flagship encoder's 256 channels), ``Glow`` on a
+    [2, 1, 256] style vector (256 channels, 4 flows, 2 blocks; its reverse
+    of its forward must return z within 1e-4 on the card),
+    ``GaussianDiffusionCFG`` over ``DiffNetG`` at its JAX defaults with a
+    256-wide style vector and guidance 2.0 (a training forward, 100
+    ancestral steps and PLMS-10 from an injected x_T without noise),
+    ``CNF`` around the U-Net (a training forward, 10 Euler and 10 RK4
+    steps with guidance) and ``ScoreSDE`` around a U-Net conditioned on
+    the mel prior (its loss and 50 RK4 steps), on batch 2 of 640 frames:
+    a forward within 1e-5 of the largest magnitude of the CPU's, a sampled
+    output within 1e-4; the card's CUDA-event time per call, its peak
+    memory, the parameter count and the CPU's time. Then
+    ``data_prep/compute_utt_stats.py`` over a raw tree of 8 utterances of
+    2-6 s with YIN on the card and on the CPU: every statistic within one
+    rounding step (0.0101), the F0 tracks at phase 11's bars. No kernel
+    lies on this path: the launch counts are set to 0 before the phase and
+    read (all 0) after it.
+16. Print the ``kernels`` JSON line, the GPU line and the result line.
 
 TF32 is switched off for cuDNN convolutions and cuBLAS matrix products, so
 the plain versions are full float32 references; the bf16 plain version
@@ -243,6 +273,7 @@ Exits non-zero without a GPU, or outside the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -385,6 +416,33 @@ ESP_DECODERS = ("selfattn", "lightconv", "lightconv2d", "dynamicconv",
 ESP_CONV_KERNELS = "11_13_15_17_19_21"
 # the corpus of the variant's update: enough rows for one max_tokens batch
 VARIANT_UTTS = 80
+
+
+# phase 15: the experimental nets at the widths of the published models
+# they come from (or the flagship's), on a 640-frame request of batch 2;
+# the conditioning at the flagship encoder's 256 channels, a style vector
+# at its style width (phoneme_embedding.channels); and compute_utt_stats
+# over a raw tree of 8 utterances of 2-6 s. A CPU rehearsal shrinks these
+# with mock.patch.dict.
+AUX = dict(
+    batch=2, frames=640, mels=80, cond=256, style=256,
+    convnext=(256, 1024, 8),            # channels, hidden, layers
+    mrf=(256, (3, 7, 11), (1, 3, 5)),   # HiFi-GAN's MRF
+    conformer=(4, 256, 2, 7),           # layers, channels, heads, kernel
+    vits=(192, 2, 6, 3, 4, 4),          # VITS's text encoder
+    unet_dim=64,                        # Grad-TTS's estimator, (1, 2, 4)
+    glow=(256, 4, 2),                   # channels, flows, blocks
+    diffnet=(256, 20, 256, 4),          # DiffNetG's JAX defaults
+    anc_steps=100, plms=10, cnf_steps=10, sde_steps=50,
+    utts=8, seconds=(2.0, 6.0))
+# card against CPU: one forward within 1e-5 of the largest magnitude, a
+# sampled mel within 1e-4; Glow's reverse of its forward returns z within
+# 1e-4 on the card
+AUX_FORWARD_RTOL, AUX_SAMPLE_RTOL, GLOW_INVERSE_ATOL = 1e-5, 1e-4, 1e-4
+AUX_SPEAKERS = (19, 100, 1001, 26)  # in metadata/libritts_r_f0_stats.yaml
+# compute_utt_stats rounds each statistic to 2 decimals: YIN on the card
+# may move one by a rounding step
+UTT_STATS_ATOL = 0.0101
 
 
 def energy_branch(va):
@@ -839,6 +897,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     variant = phase_variant(k1, k2, vocoder, dev, gpu, failures)
 
+    # -- phase 15: the experimental nets, the data-prep command line ------
+    print(f"phase 15 starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    aux = phase_aux_nets(k1, k2, dev, gpu, failures)
+
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -850,6 +914,7 @@ def main() -> int:
              launches=launches["antialias_snake"], max_abs_err=k1_err,
              launches_pipelined_request=piped["antialias_snake"],
              launches_variant_requests=variant["antialias_snake"],
+             launches_aux_nets=aux["antialias_snake"],
              ms=k1_row["ms"], plain_ms=k1_row["plain_ms"],
              bound_ms=k1_row["bound_ms"], bound_by=k1_row["bound_by"],
              library_ms=None, shape=k1_row["shape"]),
@@ -859,6 +924,7 @@ def main() -> int:
              launches=launches["amp_layer_bf16"],
              launches_pipelined_request=piped["amp_layer_bf16"],
              launches_variant_requests=variant["amp_layer_bf16"],
+             launches_aux_nets=aux["amp_layer_bf16"],
              max_abs_err=k2bf_row["err"], ms=k2bf_row["ms"],
              plain_ms=k2bf_row["plain_ms"], bound_ms=k2bf_row["bound_ms"],
              bound_by=k2bf_row["bound_by"], library_ms=None,
@@ -1408,8 +1474,6 @@ def phase_graphs(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
                  gpu, failures, graph_profile, audio_s):
     """The decode as CUDA graphs: prewarm, capture costs, bits and timings
     against the eager decode, PLMS-10 and bf16 decode storage."""
-    import contextlib
-
     import numpy as np
     import torch
 
@@ -1561,17 +1625,11 @@ def phase_graphs(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
     from promptttspp_tpu_torch.models import diffusion
 
     tf32 = model.decoder.clone()
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        with mock.patch.object(diffusion, "float32_math",
-                               contextlib.nullcontext):
-            tf32_ms = decode_ms(tf32)
-            g = torch.Generator(device=dev).manual_seed(0)
-            mel_tf32 = decode_graph.decode(tf32, cond, generator=g)
-    finally:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    with tf32_on(), mock.patch.object(diffusion, "float32_math",
+                                      contextlib.nullcontext):
+        tf32_ms = decode_ms(tf32)
+        g = torch.Generator(device=dev).manual_seed(0)
+        mel_tf32 = decode_graph.decode(tf32, cond, generator=g)
     g = torch.Generator(device=dev).manual_seed(0)
     mel_f32 = decode_graph.decode(model.decoder, cond, generator=g)
     dev_tf32 = (mel_tf32 - mel_f32).abs().max().item()
@@ -3503,6 +3561,301 @@ def phase_variant(k1, k2, vocoder, dev, gpu, failures):
     return launches
 
 
+def aux_net_entries():
+    """Phase 15's entries: (name, kind, build, run) with build() -> a
+    module on the CPU (seeded) and run(module, inputs) -> its output(s);
+    ``inputs(device)`` comes with each entry. ``kind`` "forward" or
+    "sample" picks the bar."""
+    import numpy as np
+    import torch
+
+    from promptttspp_tpu_torch.models.cnf import CNF
+    from promptttspp_tpu_torch.models.glow import Glow
+    from promptttspp_tpu_torch.models.nnsvs_diffusion import (
+        DiffNetG, GaussianDiffusionCFG)
+    from promptttspp_tpu_torch.models.score_sde import ScoreSDE
+    from promptttspp_tpu_torch.models.unet import Unet1d
+    from promptttspp_tpu_torch.nn.conformer_local import Conformer
+    from promptttspp_tpu_torch.nn.convnext import ConvNeXt1d
+    from promptttspp_tpu_torch.nn.mrf import MRFNet
+    from promptttspp_tpu_torch.nn.transformer import Transformer
+
+    a = AUX
+    B, T, M, H, S = a["batch"], a["frames"], a["mels"], a["cond"], a["style"]
+    rng = np.random.RandomState(15)
+
+    def arr(*shape, scale=1.0):
+        return (scale * rng.randn(*shape)).astype(np.float32)
+
+    mask = np.ones((B, T, 1), np.float32)
+    mask[1, T - T // 5:] = 0.0  # a shorter second row
+    conv_ch, conv_h, conv_n = a["convnext"]
+    mrf_ch, mrf_k, mrf_d = a["mrf"]
+    cf_n, cf_ch, cf_h, cf_k = a["conformer"]
+    v_ch, v_h, v_n, v_k, v_scale, v_w = a["vits"]
+    dim = a["unet_dim"]
+    g_ch, g_flows, g_blocks = a["glow"]
+    d_res, d_layers, d_rc, d_cycle = a["diffnet"]
+    t_unit = np.asarray([0.31, 0.77][:B] + [0.5] * (B - 2), np.float32)
+    steps = np.asarray([7, 93][:B] + [50] * (B - 2), np.int64) % \
+        a["anc_steps"]
+
+    def glow():
+        # the couplings' end layers start at zero (an identity coupling
+        # and a log-determinant of rounding noise): drawn small, as a
+        # trained flow's
+        flow = Glow(g_ch, g_ch, g_flows, g_blocks)
+        for coupling in flow.flows[1::2]:
+            torch.nn.init.normal_(coupling.end.weight, std=0.02)
+            torch.nn.init.normal_(coupling.end.bias, std=0.02)
+        return flow
+
+    def cfg_diffusion(pndm=None):
+        return GaussianDiffusionCFG(
+            H, M, DiffNetG(M, H, d_layers, d_rc, d_cycle, gin_channels=S),
+            K_step=a["anc_steps"], norm_scale=6.0, pndm_speedup=pndm,
+            do_classifier_free_guidance=True, guidance_scale=2.0)
+
+    x_conv, x_mrf = arr(B, T, conv_ch), arr(B, T, mrf_ch)
+    x_cf, x_v = arr(B, T, cf_ch), arr(B, T, v_ch)
+    g_mrf, g_cf = arr(B, 1, mrf_ch, scale=0.3), arr(B, 1, cf_ch, scale=0.3)
+    mel, cond, style = arr(B, T, M, scale=2.0), arr(B, T, H), arr(B, 1, S)
+    x_T, x0 = arr(B, T, M), arr(B, T, M)
+    mu = arr(B, T, M, scale=2.0)
+    z_glow = arr(B, 1, g_ch)
+    return [
+        ("ConvNeXt1d", "forward", lambda: ConvNeXt1d(conv_ch, conv_h, conv_n),
+         lambda m, i: m(i[0], i[1]), (x_conv, mask)),
+        ("MRFNet+g", "forward",
+         lambda: MRFNet(M, mrf_ch, M, mrf_k, mrf_d),
+         lambda m, i: m(i[0], i[1], g=i[2]), (x_mrf, mask, g_mrf)),
+        ("Conformer(local)+g", "forward",
+         lambda: Conformer(cf_n, cf_ch, cf_h, cf_k, 0.0),
+         lambda m, i: m(i[0], i[1], g=i[2]), (x_cf, mask, g_cf)),
+        ("Conformer(local)", "forward",
+         lambda: Conformer(cf_n, cf_ch, cf_h, cf_k, 0.0),
+         lambda m, i: m(i[0], i[1]), (x_cf, mask)),
+        ("Transformer(VITS, relative)", "forward",
+         lambda: Transformer(v_ch, v_h, v_n, v_k, 0.0, v_scale, v_w, True),
+         lambda m, i: m(i[0], i[1]), (x_v, mask)),
+        ("Transformer(VITS, absolute)", "forward",
+         lambda: Transformer(v_ch, v_h, v_n, v_k, 0.0, v_scale),
+         lambda m, i: m(i[0], i[1]), (x_v, mask)),
+        ("Unet1d", "forward", lambda: Unet1d(M, H, M, dim),
+         lambda m, i: m(i[0], i[1], i[2], i[3]), (mel, t_unit, cond, mask)),
+        ("Glow", "forward", glow, lambda m, i: m(i[0]), (z_glow,)),
+        ("GaussianDiffusionCFG training forward", "forward", cfg_diffusion,
+         lambda m, i: m(i[0], i[1], g=i[2], t=i[3], noise=i[4])[1],
+         (cond, mel, style, steps, x_T)),
+        (f"GaussianDiffusionCFG {a['anc_steps']}-step ancestral", "sample",
+         cfg_diffusion,
+         lambda m, i: m.inference(i[0], g=i[1], x_T=i[2], zero_noise=True),
+         (cond, style, x_T)),
+        (f"GaussianDiffusionCFG PLMS-{a['plms']}", "sample",
+         lambda: cfg_diffusion(a["plms"]),
+         lambda m, i: m.inference(i[0], g=i[1], x_T=i[2], zero_noise=True),
+         (cond, style, x_T)),
+        ("CNF training forward", "forward",
+         lambda: CNF(Unet1d(M, H, M, dim), M),
+         lambda m, i: m(i[0], i[1], i[2], t=i[3], x0=i[4])[1],
+         (mel, cond, mask, t_unit, x0)),
+        (f"CNF {a['cnf_steps']} Euler steps, CFG", "sample",
+         lambda: CNF(Unet1d(M, H, M, dim), M),
+         lambda m, i: m.sample(i[0], a["cnf_steps"] + 1, "euler", True,
+                               x0=i[1]), (cond, x0)),
+        (f"CNF {a['cnf_steps']} RK4 steps, CFG", "sample",
+         lambda: CNF(Unet1d(M, H, M, dim), M),
+         lambda m, i: m.sample(i[0], a["cnf_steps"] + 1, "rk4", True,
+                               x0=i[1]), (cond, x0)),
+        ("ScoreSDE loss", "forward",
+         lambda: ScoreSDE(M, Unet1d(M, M, M, dim)),
+         lambda m, i: m.compute_loss(i[0], i[1], i[2], t=i[3], z=i[4]),
+         (mel, mu, mask, t_unit, x0)),
+        (f"ScoreSDE {a['sde_steps']} RK4 steps", "sample",
+         lambda: ScoreSDE(M, Unet1d(M, M, M, dim)),
+         lambda m, i: m(i[0], i[1], i[2], a["sde_steps"] + 1),
+         (x_T, mu, mask)),
+    ]
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 switched on for cuDNN and cuBLAS, as torch's default leaves
+    cuDNN; off again after, as this script runs."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def phase_aux_nets(k1, k2, dev, gpu, failures):
+    """The experimental nets and the data-prep command line on the card
+    (phase 15 of the module docstring). Returns the launch counts of the
+    phase, which holds no kernel."""
+    import copy
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from promptttspp_tpu_torch.data import yaml_lite
+    from promptttspp_tpu_torch.data_prep import compute_utt_stats
+    from promptttspp_tpu_torch.data_prep.common import read_wav_any
+    from promptttspp_tpu_torch.models.diffusion import float32_math
+    from promptttspp_tpu_torch.ops.f0 import extract_f0
+    from promptttspp_tpu_torch.tools.synthetic_corpus import (
+        raw_rows, write_raw_corpus)
+
+    t_phase = time.perf_counter()
+    _zero_counts(k1, k2)
+    a = AUX
+    for name, kind, build, run, inputs in aux_net_entries():
+        torch.manual_seed(0)
+        cpu_mod = build().eval().requires_grad_(False)
+        dev_mod = copy.deepcopy(cpu_mod).to(dev)
+        n_params = sum(p.numel() for p in cpu_mod.parameters())
+        to = lambda d: tuple(torch.from_numpy(v).to(d) for v in inputs)
+        cpu_in, dev_in = to("cpu"), to(dev)
+        # the samplers and Glow set float32 themselves: they run with TF32
+        # on, so that the comparison holds their own setting; the nets
+        # under float32_math
+        own = kind == "sample" or name == "Glow"
+        with torch.no_grad(), (tf32_on() if own else float32_math()):
+            t0 = time.perf_counter()
+            want = _outputs(run(cpu_mod, cpu_in))
+            cpu_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats(dev)
+            if kind == "sample":
+                # hundreds of denoiser calls: the compared run is timed
+                # (its first call meets the shapes an earlier entry ran)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                got = _outputs(run(dev_mod, dev_in))
+                end.record()
+                end.synchronize()
+                ms = start.elapsed_time(end)
+            else:
+                got = _outputs(run(dev_mod, dev_in))
+                ms = cuda_ms(lambda: run(dev_mod, dev_in), iters=3,
+                             warmup=0, kernel=False)
+            peak = torch.cuda.max_memory_allocated(dev)
+            inverse = None
+            if name == "Glow":
+                zr, _ = dev_mod.reverse(got[0])
+                inverse = float((zr - dev_in[0]).abs().max())
+        bar = AUX_FORWARD_RTOL if kind == "forward" else AUX_SAMPLE_RTOL
+        errs = [_rel_err(g_, w) for g_, w in zip(got, want)]
+        finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
+        ok = max(errs) <= bar and finite and \
+            [g_.shape for g_ in got] == [w.shape for w in want]
+        extra = ""
+        if inverse is not None:
+            ok = ok and inverse <= GLOW_INVERSE_ATOL
+            extra = (f"; reverse of its forward within {inverse:.3g} of z "
+                     f"(bar {GLOW_INVERSE_ATOL})")
+        print(f"[{gpu}] phase 15: {name} ({n_params / 1e6:.3f} M params) "
+              f"{list(got[0].shape)}: card vs CPU {max(errs):.3g} of the "
+              f"largest magnitude (bar {bar}){extra}; card {ms:.3f} ms per "
+              f"call, peak {peak / 2**20:.1f} MiB; CPU {cpu_s * 1e3:.1f} ms "
+              f"({'ok' if ok else 'FAIL'})", flush=True)
+        if not ok:
+            failures.append(f"phase 15 {name}: card vs CPU {errs}, finite "
+                            f"{finite}{extra}")
+        del cpu_mod, dev_mod
+    torch.cuda.empty_cache()
+
+    # the data-prep command line: compute_utt_stats with YIN on the card
+    # and on the CPU over one raw tree
+    root = OUT_DIR / "aux_nets"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    f0_stats_file = ROOT / "metadata/libritts_r_f0_stats.yaml"
+    f0_stats = yaml_lite.load(f0_stats_file)
+    spks = AUX_SPEAKERS
+    per_spk = -(-a["utts"] // len(spks))
+    prompts = {"M_p-normal_s-normal_e-normal": ["a calm male voice"],
+               "F_p-high_s-fast_e-normal": ["a bright female voice"]}
+    rows = raw_rows({s: per_spk for s in spks}, prompts,
+                    seconds=a["seconds"], f0_stats=f0_stats, seed=15)
+    rows = rows[:a["utts"]]
+    write_raw_corpus(root, rows, prompts, {s: ["calm"] for s in spks},
+                     f0_stats_file=f0_stats_file, seed=15)
+    cleaned = root / "data_prep/out/libritts_r_per_spk_cleaned"
+    (root / "speakers.tsv").write_text("READER\tGENDER\tSUBSET\tNAME\n"
+                                       + "".join(
+        f"{s}\t{'MF'[i % 2]}\ttrain-clean-100\tr{s}\n"
+        for i, s in enumerate(spks)))
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        walls = {}
+        card_type = torch.device(dev).type
+        for device in (card_type, "cpu"):
+            t0 = time.perf_counter()
+            compute_utt_stats.main([
+                str(cleaned), str(f0_stats_file), "--out_filename",
+                str(root / f"utt_{device}.yaml"), "--num_jobs", "8",
+                "--speakers_tsv", str(root / "speakers.tsv"), "--device",
+                device])
+            walls[device] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    card = yaml_lite.load(root / f"utt_{card_type}.yaml")
+    host = yaml_lite.load(root / "utt_cpu.yaml")
+    worst = max(abs(card[u][k] - v) for u, st in host.items()
+                for k, v in st.items()) if host else 0.0
+    # the F0 tracks under the statistics, as phase 11 holds YIN
+    agree, f0_err = 1.0, 0.0
+    for row in rows:
+        spk = str(row["spk_id"])
+        wav, sr = read_wav_any(cleaned / spk / "wav24k"
+                               / f"{row['item_name']}.wav")
+        st = f0_stats[spk]
+        tracks = []
+        for d in (dev, "cpu"):
+            with torch.inference_mode():
+                f0, vuv = extract_f0(
+                    torch.from_numpy(wav.astype(np.float32)[None]).to(d),
+                    sample_rate=sr, hop_length=int(sr * 0.005),
+                    f0_floor=st["f0_floor"], f0_ceil=st["f0_ceil"])
+            tracks += [f0[0].cpu().numpy(), vuv[0].cpu().numpy()]
+        ag, err = _f0_agreement(*tracks)
+        agree, f0_err = min(agree, ag), max(f0_err, err)
+    ok = (sorted(card) == sorted(host) and len(host) == len(rows)
+          and worst <= UTT_STATS_ATOL and agree >= RECIPE_VUV_AGREEMENT
+          and f0_err <= RECIPE_F0_RTOL)
+    secs = [r["seconds"] for r in rows]
+    print(f"[{gpu}] phase 15: compute_utt_stats over {len(rows)} utterances "
+          f"of {min(secs):.1f}-{max(secs):.1f} s: card "
+          f"{walls[card_type]:.2f} s, CPU {walls['cpu']:.2f} s (host walls "
+          "of the command line); "
+          f"statistics card vs CPU within {worst:.3g} (bar "
+          f"{UTT_STATS_ATOL}), F0 voicing agreement {agree:.4f} (bar "
+          f"{RECIPE_VUV_AGREEMENT}), F0 rel err {f0_err:.3g} (bar "
+          f"{RECIPE_F0_RTOL}) ({'ok' if ok else 'FAIL'})", flush=True)
+    if not ok:
+        failures.append(f"phase 15 compute_utt_stats: {sorted(card)} vs "
+                        f"{sorted(host)}, worst {worst}, voicing {agree}, "
+                        f"F0 {f0_err}")
+    shutil.rmtree(root, ignore_errors=True)
+    launches = _counts(k1, k2)
+    total = time.perf_counter() - t_phase
+    print(f"[{gpu}] phase 15: {total:.1f} s in all; launches {launches} (no "
+          "kernel lies on this phase's path)", flush=True)
+    return launches
+
+
 def profile_busy(prof, wall_s) -> str:
     """The device-busy share of a torch.profiler window: the sum of its
     kernels' device times over its wall time."""
@@ -3596,7 +3949,7 @@ def request_inputs():
 
 
 def phase_only(phase: int) -> int:
-    """Build the kernels and run phase 12, 13 or 14 alone."""
+    """Build the kernels and run phase 12, 13, 14 or 15 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3614,8 +3967,14 @@ def phase_only(phase: int) -> int:
     _build.build(_build.KERNELS)
     for name in _build.KERNELS:
         _build.load(name)
-    vocoder = flagship.build_vocoder(dev, seed=1)
     failures = []
+    if phase == 15:
+        phase_aux_nets(k1, k2, dev, gpu_line(), failures)
+        if failures:
+            print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
+            return 1
+        return 0
+    vocoder = flagship.build_vocoder(dev, seed=1)
     if phase == 14:
         phase_variant(k1, k2, vocoder, dev, gpu_line(), failures)
     else:
@@ -3631,6 +3990,7 @@ def phase_only(phase: int) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["--phase12"], ["--phase13"], ["--phase14"]):
+    if sys.argv[1:] in (["--phase12"], ["--phase13"], ["--phase14"],
+                        ["--phase15"]):
         sys.exit(phase_only(int(sys.argv[1][-2:])))
     sys.exit(main())

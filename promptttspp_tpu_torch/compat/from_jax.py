@@ -8,7 +8,11 @@ names to tensors.
 
 Path rules: flax list modules ``name_N`` become ``name.N`` for the
 reference's ModuleList and Sequential names (the ESPnet suite's
-``decoders``, ``embed``, ``conv`` and ``out`` among them); the flagship's
+``decoders``, ``embed``, ``conv`` and ``out`` among them), the U-Net's
+nested ``downs_I_J`` / ``ups_I_J`` become ``downs.I.J``, and the names
+that flax joins with an underscore where the reference nests two modules
+(``mid_attn_fn``, the VITS block's ``attention_norm`` ...) are split; the
+flagship's
 two renamed subtrees are the phoneme embedding (``phoneme_embedding`` ->
 ``phoneme_emb``) and BERT (flat flax names -> Hugging Face
 ``bert.model.*`` names, under a prompt encoder or either half of
@@ -18,7 +22,9 @@ two renamed subtrees are the phoneme embedding (``phoneme_embedding`` ->
 - Conv1d ``kernel [K, in/g, out]`` -> ``weight [out, in/g, K]``
 - Conv2d ``kernel [kh, kw, in, out]`` -> ``weight [out, in, kh, kw]``
 - ConvTranspose ``kernel_t [K, in, out]`` -> ``weight [in, out, K]``
-- LayerNorm/BatchNorm ``scale`` -> ``weight``; ``embedding`` -> ``weight``
+- LayerNorm/BatchNorm/GroupNorm ``scale`` -> ``weight`` (a ``scale``
+  beside submodules, ConvNeXt's layer scale, keeps its name);
+  ``embedding`` -> ``weight``
 - batch_stats ``mean``/``var`` -> ``running_mean``/``running_var`` (plus
   torch's ``num_batches_tracked``)
 - everything else (bias, gamma, beta, alpha, pos_bias_u/v, the GRU's
@@ -35,7 +41,16 @@ import torch
 # the reference's ModuleList names among the ported modules
 _LIST_MODULES = {"encoders", "layers", "convs", "norms", "upsamples", "mrfs",
                  "noise_convs", "mlp", "adaptor", "residual_layers",
-                 "decoders", "embed", "conv", "out"}
+                 "decoders", "embed", "conv", "out", "blocks", "flows",
+                 "in_block", "mid_block", "out_block", "net", "time_mlp",
+                 "to_out"}
+# the U-Net's lists of lists: downs_0_3_fn -> downs.0.3.fn
+_NESTED_LISTS = ("downs_", "ups_")
+# flax names that join two of the reference's module names
+_JOINED = {"mid_attn_fn": "mid_attn.fn",
+           "attention_attention_layer": "attention.attention_layer",
+           "attention_norm": "attention.norm", "ffn_ffn": "ffn.ffn",
+           "ffn_norm": "ffn.norm"}
 # the modules that hold a BERT as ``bert`` (the prompt encoder, and the two
 # halves of ``SepPromptEncoder``)
 _BERT_OWNERS = {"prompt_encoder", "style_enc", "spk_enc"}
@@ -53,6 +68,10 @@ _BERT_PARTS = {
 
 
 def _part(p: str) -> str:
+    if p in _JOINED:
+        return _JOINED[p]
+    if p.startswith(_NESTED_LISTS) and p.split("_")[1].isdigit():
+        return p.replace("_", ".")
     head, _, tail = p.rpartition("_")
     if tail.isdigit() and head in _LIST_MODULES:
         return f"{head}.{tail}"
@@ -83,17 +102,24 @@ def torch_module_key(path: Tuple[str, ...]) -> str:
     return ".".join(_part(p) for p in parts)
 
 
-def _leaves(tree, path=()) -> Iterable[Tuple[Tuple[str, ...], np.ndarray]]:
+def _leaves(tree, path=(), parent=None
+            ) -> Iterable[Tuple[Tuple[str, ...], np.ndarray, Mapping]]:
+    """(path, array, the mapping that holds it) of every leaf."""
     if isinstance(tree, Mapping):
         for k, v in tree.items():
             if not path and k in NOT_PORTED:
                 continue
-            yield from _leaves(v, path + (str(k),))
+            yield from _leaves(v, path + (str(k),), tree)
     else:
-        yield path, np.asarray(tree)
+        yield path, np.asarray(tree), parent
 
 
-def _param(name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+def _param(name: str, arr: np.ndarray,
+           parent: Mapping = None) -> Tuple[str, np.ndarray]:
+    """The torch name and layout of the leaf ``name`` of ``parent``."""
+    if name == "scale" and parent is not None and any(
+            isinstance(v, Mapping) for v in parent.values()):
+        return name, arr  # beside submodules: ConvNeXt's layer scale
     if name == "kernel":
         if arr.ndim == 2:
             return "weight", arr.T
@@ -113,11 +139,11 @@ def jax_params_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     """{"params": ..., "batch_stats": ...} (flax trees) -> port state_dict.
     Subtrees the port does not have yet (``NOT_PORTED``) are left out."""
     sd = {}
-    for path, arr in _leaves(variables.get("params", {})):
-        name, val = _param(path[-1], arr)
+    for path, arr, parent in _leaves(variables.get("params", {})):
+        name, val = _param(path[-1], arr, parent)
         sd[f"{torch_module_key(path[:-1])}.{name}".lstrip(".")] = \
             torch.from_numpy(np.array(val))
-    for path, arr in _leaves(variables.get("batch_stats", {})):
+    for path, arr, _ in _leaves(variables.get("batch_stats", {})):
         base = torch_module_key(path[:-1])
         names = {"mean": "running_mean", "var": "running_var"}
         if path[-1] not in names:

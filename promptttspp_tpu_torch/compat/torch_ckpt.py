@@ -15,7 +15,9 @@ carry the reference's ``state_dict`` names, so a checkpoint loads by name:
   the port's own values and then dropped: the anti-aliasing ``filter``
   taps, the diffusion tables (``decoder.betas`` ...) and BERT's
   ``position_ids``. A disagreement raises.
-- Dropped without a check: BERT's pooler, which inference does not read.
+- Dropped without a check: the entries a module names in its ``UNREAD``
+  (BERT's pooler, which inference does not read, and ``MRFNet``'s
+  ``in_conv`` / ``out_conv``, which the reference's forward never runs).
   BatchNorm's ``num_batches_tracked`` loads where present; a file without
   it keeps the port's.
 - A parameter or buffer of the port that the file lacks raises, naming the
@@ -42,7 +44,7 @@ import numpy as np
 import torch
 
 from promptttspp_tpu_torch.compat.from_jax import jax_params_to_state_dict
-from promptttspp_tpu_torch.models.bert import BertEmbeddings, BertModel
+from promptttspp_tpu_torch.models.bert import BertEmbeddings
 from promptttspp_tpu_torch.models.diffusion import (
     GaussianDiffusion, schedule_tables)
 from promptttspp_tpu_torch.vocoders.activations import (
@@ -133,9 +135,11 @@ def derived_buffers(module: torch.nn.Module) -> Dict[str, np.ndarray]:
 
 
 def _unread_prefixes(module: torch.nn.Module):
-    return tuple(f"{prefix}.pooler." if prefix else "pooler."
-                 for prefix, m in module.named_modules()
-                 if isinstance(m, BertModel))
+    out = []
+    for prefix, m in module.named_modules():
+        p = f"{prefix}." if prefix else ""
+        out.extend(p + name for name in getattr(m, "UNREAD", ()))
+    return tuple(out)
 
 
 def _squeezed(shape):

@@ -5,7 +5,11 @@
   statistics (``mel63/stats.yaml``: ``max``, ``mean``, ``min``, ``std``,
   ``var``).
 - A mapping of such flat mappings under bare or quoted keys, as
-  ``metadata/libritts_r_f0_stats.yaml`` holds the per-speaker F0 bounds.
+  ``metadata/libritts_r_f0_stats.yaml`` holds the per-speaker F0 bounds
+  and ``data_prep/compute_utt_stats.py`` writes the per-utterance
+  statistics (``dumps``: keys sorted, a key that YAML would read as
+  something other than that string single-quoted, as ``yaml.dump``
+  writes them).
 
 Numbers are read as ``yaml.safe_load`` reads them (YAML 1.1: a float has a
 dot, an exponent has a sign, ``.inf`` and ``.nan``), and written as
@@ -107,3 +111,42 @@ def dumps_flat(mapping: Mapping[str, Number]) -> str:
 
 def dump_flat(path, mapping: Mapping[str, Number]):
     Path(path).write_text(dumps_flat(mapping))
+
+
+# a bare key that YAML 1.1 reads as a number, a bool or null
+_NOT_A_STRING = re.compile(
+    r"^(?:[-+]?[0-9][0-9_]*|0x[0-9a-fA-F_]+|0b[01_]+|"
+    r"y|Y|yes|Yes|YES|n|N|no|No|NO|true|True|TRUE|false|False|FALSE|"
+    r"on|On|ON|off|Off|OFF|null|Null|NULL)$")
+
+
+def format_key(key: str) -> str:
+    """``key`` bare where YAML reads it back as that string, else
+    single-quoted."""
+    if not isinstance(key, str) or not key or "'" in key or "\n" in key:
+        raise ValueError(f"key {key!r} is not written")
+    if re.fullmatch(r"[A-Za-z0-9_]+", key) and not _NOT_A_STRING.match(key):
+        return key
+    return f"'{key}'"
+
+
+def dumps(mapping: Mapping[str, object]) -> str:
+    """A mapping of numbers and of flat mappings of numbers (one level
+    of nesting) as ``yaml.dump`` writes it: keys sorted, two spaces of
+    indent."""
+    lines = []
+    for key in sorted(mapping):
+        value = mapping[key]
+        if isinstance(value, Mapping):
+            if not value:
+                raise ValueError(f"{key!r}: an empty mapping is not written")
+            lines.append(f"{format_key(key)}:")
+            lines.extend(f"  {format_key(k)}: {format_number(value[k])}"
+                         for k in sorted(value))
+        else:
+            lines.append(f"{format_key(key)}: {format_number(value)}")
+    return "".join(line + "\n" for line in lines)
+
+
+def dump(path, mapping: Mapping[str, object]):
+    Path(path).write_text(dumps(mapping))

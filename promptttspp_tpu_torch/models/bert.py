@@ -152,6 +152,8 @@ class BertEncoder(nn.Module):
 
 class BertModel(nn.Module):
     """[B, T] ids (+ attention mask) -> last_hidden_state [B, T, hidden]."""
+    # the reference's pooler, which inference does not read
+    UNREAD = ("pooler.",)
 
     def __init__(self, cfg: BertConfig = BertConfig()):
         super().__init__()

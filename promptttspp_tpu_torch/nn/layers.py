@@ -34,6 +34,17 @@ def swish(x):
     return x * torch.sigmoid(x)
 
 
+def mish(x):
+    return x * torch.tanh(F.softplus(x))
+
+
+class Mish(nn.Module):
+    """``mish`` as a module, as JAX computes it."""
+
+    def forward(self, x):
+        return mish(x)
+
+
 def promoted(*tensors):
     """``tensors`` cast to their common dtype, as JAX promotes the operands
     of an operation (bfloat16 with float32 gives float32); ``None`` passes

@@ -121,17 +121,18 @@ def select(cfg: Mapping, dotted: str, default=None):
     return node
 
 
+# keys JAX's trainer takes that have no effect in the port, each with why
+IGNORED = {
+    "train.per_epoch_scheduler": "JAX's trainer never reads it; the Noam "
+                                 "schedule steps once per update",
+    "train.compilation_cache_dir": "it sets XLA's compilation cache, which "
+                                   "torch does not have",
+}
+
+
 def check_supported(cfg: Mapping):
     """Raise, naming the key, where ``cfg`` asks for what the port's
     trainer does not implement."""
-    refused = {
-        "train.compilation_cache_dir": "the XLA compilation cache has no "
-                                       "counterpart in the port",
-        "train.per_epoch_scheduler": "the per-epoch scheduler is not ported",
-    }
-    for key, why in refused.items():
-        if select(cfg, key):
-            raise ValueError(f"{key}={select(cfg, key)!r}: {why}")
     for key in ("train.mesh.model", "train.mesh.pipeline_microbatches"):
         value = select(cfg, key)
         if value is not None and (not isinstance(value, int) or value < 0):
@@ -174,6 +175,10 @@ class TTSTrainer:
 
     def __init__(self, cfg: Mapping, tokenizer=None, train_ds=None):
         check_supported(cfg)
+        for key, why in IGNORED.items():
+            if select(cfg, key):
+                logging.getLogger("promptttspp_tpu_torch.train").warning(
+                    f"{key}={select(cfg, key)!r} is ignored: {why}")
         self.cfg = cfg
         self.train_ds = train_ds
         self.valid_ds = None
@@ -206,6 +211,10 @@ class TTSTrainer:
         self.n_data = self.data.world if self.data else 1
         # the rows of a global batch are a multiple of this
         self.batch_multiple = self.n_data * max(1, self.microbatches)
+        # the prompts' padded length under more than one process, as JAX's
+        # host_batches pads and cuts them; None: the bucket of the longest
+        self.prompt_pad_to = (select(cfg, "train.prompt_pad_to", 64)
+                              if self.world > 1 else None)
         self.is_main = self.rank == 0
         self.output_dir = Path(cfg.get("output_dir", "./out"))
         self.log_dir = self.output_dir / "logs"
@@ -316,18 +325,26 @@ class TTSTrainer:
 
     def _rank_batches(self, sampler, ds):
         """This rank's entries of ``sampler`` (``host_batches``: the
-        global batch's buckets, the prompts padded to its longest's, rows
+        global batch's buckets, the prompts padded and cut to
+        ``train.prompt_pad_to`` under more than one process, else to the
+        bucket of the global batch's longest, rows
         padded to a multiple of the batch multiple, the same rows on every
         rank of a model group), or ``sampler`` itself in one process
         without microbatches."""
         if self.batch_multiple == 1:
-            return sampler
+            if self.prompt_pad_to is None:
+                return sampler
+            # one data shard over several processes (a model axis): every
+            # rank takes every row, the prompts padded as JAX pads them
+            return [(list(idx), dict(prompt_pad_to=self.prompt_pad_to))
+                    for idx in sampler]
         if not hasattr(ds, "item_meta"):
             raise ValueError("data parallelism and pipeline microbatches "
                              "need a dataset with item_meta and "
                              "load_item_features")
         return host_batches(sampler, ds, rank=self.data.rank if self.data
-                            else 0, world=self.n_data, prompt_pad_to=None,
+                            else 0, world=self.n_data,
+                            prompt_pad_to=self.prompt_pad_to,
                             row_multiple=self.batch_multiple)
 
     def _barrier(self):

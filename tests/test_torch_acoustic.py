@@ -50,13 +50,14 @@ def jax_variables_from(shapes, state_dict, root=()):
 
     stats = {"mean": "running_mean", "var": "running_var"}
 
-    def rec(node, path, is_stats):
+    def rec(node, path, is_stats, parent=None):
         if hasattr(node, "items"):
-            return {k: rec(v, path + (k,), is_stats) for k, v in node.items()}
+            return {k: rec(v, path + (k,), is_stats, node)
+                    for k, v in node.items()}
         base = torch_module_key(root + path[:-1])
         index = np.arange(int(np.prod(node.shape))).reshape(node.shape)
         name, moved = (stats[path[-1]], index) if is_stats \
-            else _param(path[-1], index)
+            else _param(path[-1], index, parent)
         out = np.empty(index.size, np.float32)
         out[np.asarray(moved).ravel()] = \
             state_dict[f"{base}.{name}".lstrip(".")].numpy().ravel()

@@ -10,6 +10,7 @@ package, so it runs on a machine without them; from the repository root:
         tests/test_torch_cuda.py
 """
 
+import contextlib
 import copy
 import dataclasses
 import math
@@ -1400,3 +1401,84 @@ def test_one_process_pipelined_training_on_the_card(dev):
                           for n, p in diffnet.named_parameters()})
     for n, v in grads[0].items():
         assert float((grads[1][n] - v).norm()) <= 1e-4 * float(v.norm()), n
+
+
+@contextlib.contextmanager
+def _tf32_on():
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _experimental_nets():
+    """(name, build, run, inputs) of each experimental net at a small
+    width, with a guided PLMS decode and Glow's reverse."""
+    from promptttspp_tpu_torch.models.cnf import CNF
+    from promptttspp_tpu_torch.models.glow import Glow
+    from promptttspp_tpu_torch.models.nnsvs_diffusion import (
+        DiffNetG, GaussianDiffusionCFG)
+    from promptttspp_tpu_torch.models.score_sde import ScoreSDE
+    from promptttspp_tpu_torch.models.unet import Unet1d
+    from promptttspp_tpu_torch.nn.conformer_local import Conformer
+    from promptttspp_tpu_torch.nn.convnext import ConvNeXt1d
+    from promptttspp_tpu_torch.nn.mrf import MRFNet
+    from promptttspp_tpu_torch.nn.transformer import Transformer
+
+    g = torch.Generator().manual_seed(4)
+    r = lambda *s: torch.randn(s, generator=g)  # noqa: E731
+    mask = torch.ones(2, 50, 1)
+    mask[1, 40:] = 0.0
+    x, cond, mel, style = r(2, 50, 32), r(2, 50, 24), r(2, 50, MEL), \
+        r(2, 1, 16)
+    t = torch.tensor([0.3, 0.8])
+    return [
+        ("convnext", lambda: ConvNeXt1d(32, 64, 3),
+         lambda m, i: m(*i), (x, mask)),
+        ("mrf", lambda: MRFNet(32, 32, 32, (3, 7), (1, 3)),
+         lambda m, i: m(i[0], i[1], g=i[2]), (x, mask, r(2, 1, 32))),
+        ("conformer_local", lambda: Conformer(2, 32, 2, 7, 0.0),
+         lambda m, i: m(i[0], i[1], g=i[2]), (x, mask, r(2, 1, 32))),
+        ("vits", lambda: Transformer(32, 2, 2, 3, 0.0, 4, 4, True),
+         lambda m, i: m(*i), (x, mask)),
+        ("unet", lambda: Unet1d(MEL, 24, MEL, 16),
+         lambda m, i: m(*i), (mel, t, cond, mask)),
+        ("glow", lambda: Glow(16, 32, 2, 2),
+         lambda m, i: m.reverse(m(i[0])[0])[0], (style,)),
+        ("nnsvs_plms", lambda: GaussianDiffusionCFG(
+            24, MEL, DiffNetG(MEL, 24, 4, 16, 2, gin_channels=16), K_step=20,
+            pndm_speedup=5, do_classifier_free_guidance=True,
+            guidance_scale=2.0),
+         lambda m, i: m.inference(i[0], g=i[1], x_T=i[2], zero_noise=True),
+         (cond, style, mel)),
+        ("cnf_rk4", lambda: CNF(Unet1d(MEL, 24, MEL, 16), MEL),
+         lambda m, i: m.sample(i[0], 4, "rk4", True, x0=i[1]), (cond, mel)),
+        ("score_sde", lambda: ScoreSDE(MEL, Unet1d(MEL, MEL, MEL, 16)),
+         lambda m, i: m(i[0], i[1], i[2], 4), (mel, mel, mask)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_experimental_net_on_the_card(dev, case):
+    """Each experimental net (``chip_smoke.py`` phase 15 at a small width)
+    on the card against the CPU within 1e-5 of the largest magnitude,
+    float32 without TF32; Glow's reverse of its forward returns z. Glow
+    and the samplers set float32 themselves, so they run with TF32
+    switched on."""
+    from promptttspp_tpu_torch.models.diffusion import float32_math
+
+    name, build, run, inputs = _experimental_nets()[case]
+    torch.manual_seed(0)
+    cpu = build().eval()
+    card = copy.deepcopy(cpu).to(dev)
+    own = name in ("glow", "nnsvs_plms", "cnf_rk4", "score_sde")
+    with torch.no_grad(), (_tf32_on() if own else float32_math()):
+        want = run(cpu, inputs)
+        got = run(card, tuple(a.to(dev) for a in inputs)).cpu()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale, name
+    if name == "glow":
+        torch.testing.assert_close(got, inputs[0], atol=1e-4, rtol=0)

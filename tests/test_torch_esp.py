@@ -20,6 +20,7 @@ Tolerances are the JAX tests' against the goldens, and float32 summation
 order against JAX.
 """
 
+import functools
 from pathlib import Path
 
 import jax
@@ -48,14 +49,16 @@ def _golden(name, prefix=""):
     return sd, data
 
 
-def _twins(jmodule, make_port, *args, seed=0):
+def _twins(jmodule, make_port, *args, seed=0, **init_kw):
     """-> (JAX variables, the port's module on them): the port's module
     built under a seeded RNG, its weights laid out in JAX's tree (no JAX
-    init compiles) and perturbed."""
+    init compiles) and perturbed. ``init_kw`` go to the JAX init (its
+    ``method``)."""
     with torch.random.fork_rng():
         torch.manual_seed(seed)
         module = make_port()
-    shapes = jax.eval_shape(jmodule.init, jax.random.PRNGKey(seed), *args)
+    shapes = jax.eval_shape(functools.partial(jmodule.init, **init_kw),
+                            jax.random.PRNGKey(seed), *args)
     variables = perturbed(jax_variables_from(shapes, module.state_dict()),
                           seed)
     return variables, _port(module, variables)

@@ -22,6 +22,16 @@ PORT = REPO / "promptttspp_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "promptttspp_tpu")
 
 
+EXPERIMENTAL_MODULES = (
+    "nn.convnext", "nn.mrf", "nn.conformer_local", "nn.transformer",
+    "models.unet", "models.glow", "models.nnsvs_diffusion", "models.cnf",
+    "models.score_sde")
+DATA_PREP_MODULES = (
+    "utils", "utils.host", "utils.progress", "data_prep.common",
+    "data_prep.compute_utt_stats", "data_prep.add_style_prompt_tags",
+    "data_prep.prepare_mfa", "data_prep.run_mfa", "data_prep.finalize_mfa")
+
+
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
@@ -33,10 +43,11 @@ def test_port_modules_import_without_jax():
             for p in sorted(PORT.rglob("*.py"))]
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m
             for m in mods] + ["chip_smoke"]
-    # the serving and reference-audio modules of the second slice
+    # the serving and reference-audio modules of the second slice, and
+    # the experimental nets, host helpers and data-prep command lines
     assert {f"promptttspp_tpu_torch.{m}" for m in (
         "vocoders.streaming", "models.style_encoder", "nn.gru", "ops.stft",
-        "ops.mel")} <= set(mods)
+        "ops.mel", *EXPERIMENTAL_MODULES, *DATA_PREP_MODULES)} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -57,7 +68,7 @@ RECIPE_MODULES = [f"promptttspp_tpu_torch.{m}" for m in (
     "preprocess.textgrid", "preprocess.duration", "data.yaml_lite",
     "data_prep.audio_metrics", "data_prep.stats", "eval.metrics",
     "bin.preprocess", "bin.compute_mel", "bin.split_df", "bin.filter_eval",
-    "bin.eval", "tools.synthetic_corpus")]
+    "bin.eval", "tools.synthetic_corpus", *DATA_PREP_MODULES)]
 
 
 def test_recipe_modules_import_without_pandas_or_yaml():

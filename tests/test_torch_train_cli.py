@@ -84,14 +84,105 @@ def _rows(path):
      "train.mesh.pipeline_microbatches"),
     ("+train.distributed.num_processes=2",
      "train.distributed.num_processes"),
-    ("+train.compilation_cache_dir=/tmp/xla",
-     "train.compilation_cache_dir"),
-    ("+train.input_pipeline=threads", "train.input_pipeline"),
-    ("train.per_epoch_scheduler=true", "train.per_epoch_scheduler")])
+    ("+train.input_pipeline=threads", "train.input_pipeline")])
 def test_unported_settings_raise_naming_the_key(tmp_path, override, key):
     cfg = conf.compose("train", train_args(tmp_path, tmp_path, override))
     with pytest.raises(ValueError, match=key.replace(".", r"\.")):
         TTSTrainer(cfg)
+
+
+@pytest.mark.parametrize("override,key", [
+    ("+train.compilation_cache_dir=/tmp/xla", "train.compilation_cache_dir"),
+    ("train.per_epoch_scheduler=true", "train.per_epoch_scheduler")])
+def test_settings_without_effect_are_taken_and_logged(tmp_path, caplog,
+                                                      override, key):
+    """JAX's trainer takes both keys: it never reads
+    ``per_epoch_scheduler``, and ``compilation_cache_dir`` sets XLA's
+    cache. The port builds its trainer and logs each key as ignored."""
+    cfg = conf.compose("train", train_args(tmp_path, tmp_path, override))
+    with caplog.at_level("WARNING", logger="promptttspp_tpu_torch.train"):
+        TTSTrainer(cfg)
+    assert any(key in r.getMessage() and "ignored" in r.getMessage()
+               for r in caplog.records), caplog.text
+
+
+class _FakeDataGroup:
+    rank = 0
+
+    def __init__(self, world):
+        self.world = world
+
+
+def _two_process_trainer(monkeypatch, cfg, data_ranks):
+    """A trainer that sees two processes, ``data_ranks`` of them on the
+    data axis (1: one data shard over a model axis of two), as rank 0 of a
+    torch.distributed group would, without starting a group."""
+    from promptttspp_tpu_torch.train import trainer as trainer_mod
+
+    monkeypatch.setattr(trainer_mod, "init_distributed", lambda *a: True)
+    monkeypatch.setattr(trainer_mod, "process_groups",
+                        lambda *a: (_FakeDataGroup(data_ranks), None))
+    monkeypatch.setattr(trainer_mod, "rank_device",
+                        lambda kind: torch.device("cpu"))
+    monkeypatch.setattr(trainer_mod.dist, "get_rank", lambda: 0)
+    monkeypatch.setattr(trainer_mod.dist, "get_world_size", lambda: 2)
+    return TTSTrainer(cfg)
+
+
+LONG_PROMPT = " ".join(["a", "calm", "deep", "voice"] * 20)  # 80 words
+
+
+@pytest.mark.parametrize("world,data_ranks", [(1, 1), (2, 2), (2, 1)])
+def test_prompts_pad_to_the_key_under_several_processes(corpus, monkeypatch,
+                                                        world, data_ranks):
+    """Under two processes (two data ranks, or one data shard over a model
+    axis of two) a rank's prompts are padded and cut to
+    ``train.prompt_pad_to`` (default 64) as JAX's ``collate(...,
+    prompt_pad_to=64)`` pads them: a prompt of 82 WordPiece tokens loses
+    its tail and its closing [SEP]. One process pads to the bucket of the
+    longest prompt, and cuts nothing, as JAX does."""
+    from promptttspp_tpu.data.collate import PromptTTSCollator as JaxCollator
+    from promptttspp_tpu.models.bert import WordPieceTokenizer as JaxTok
+    from promptttspp_tpu_torch.data.collate import PromptTTSCollator
+    from promptttspp_tpu_torch.models.bert import WordPieceTokenizer
+
+    vocab = corpus / "metadata/bert-base-uncased-vocab.txt"
+    cfg = conf.compose("train", train_args(corpus, corpus / "unused"))
+    trainer = (_two_process_trainer(monkeypatch, cfg, data_ranks)
+               if world == 2 else TTSTrainer(cfg))
+    assert trainer.prompt_pad_to == (64 if world == 2 else None)
+    trainer._build_datasets()
+    ds = trainer.train_ds
+    drawn = ds.item_meta
+    monkeypatch.setattr(ds, "item_meta", lambda i: {
+        **drawn(i), **({"prompt": LONG_PROMPT} if i % 2 == 0 else {})})
+    tok = WordPieceTokenizer.from_vocab_file(vocab)
+    sampler = trainer.batches(ds, shuffle=False)
+    entries = list(trainer._rank_batches(sampler, ds))
+    batches = [b for b, _ in trainer._sync_batches(
+        entries, PromptTTSCollator(tokenizer=tok))]
+    ref = JaxCollator(JaxTok.from_vocab_file(str(vocab)))
+    n_long = 0
+    assert len(batches) == len(list(sampler))
+    for batch in batches:
+        real = batch["batch_weight"] > 0
+        items = [{**ds.load_item_features(drawn(0)), "prompt": p}
+                 for p in batch["prompts"]]
+        want = ref(items, prompt_pad_to=trainer.prompt_pad_to)
+        for k in ("prompt_ids", "prompt_mask"):
+            np.testing.assert_array_equal(batch[k][real], want[k][real],
+                                          err_msg=k)
+        lengths = batch["prompt_mask"].sum(1)
+        long = np.array([p == LONG_PROMPT for p in batch["prompts"]]) & real
+        n_long += int(long.sum())
+        if world == 2:
+            assert batch["prompt_ids"].shape[1] == 64
+            assert (lengths[long] == 64).all()
+            assert (batch["prompt_ids"][long, -1] != tok.sep_id).all()
+        else:
+            assert (lengths[long] == 82).all()
+            assert not long.any() or batch["prompt_ids"].shape[1] >= 82
+    assert n_long > 0
 
 
 @pytest.mark.parametrize("override,bf16,pipeline", [
