@@ -7,8 +7,8 @@ Run from the repository root, with no arguments:
 
 ``python3 chip_smoke.py --phase12`` builds the kernels and runs phase 12
 alone (on every visible GPU where it uses more than one), with no result
-line; ``--phase13``, ``--phase14`` and ``--phase15`` do the same for
-phases 13, 14 and 15.
+line; ``--phase6``, ``--phase13``, ``--phase14`` and ``--phase15`` do the
+same for phases 6, 13, 14 and 15.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -18,7 +18,8 @@ Phases (any failure exits non-zero and prints no result line):
    phase 3 times) and print each kernel's registers
    and shared memory (``-Xptxas -v``), the counts of bf16 and of TF32
    tensor-core MMA instructions (HMMA) in the ``mma.sync`` K2's SASS and
-   of HGMMA (``wgmma``) in K2-bf16's (``cuobjdump -sass``; none of any
+   of HGMMA (``wgmma``) in K2-bf16's, and of HGMMA (K3-bf16) and TF32
+   HMMA (the float32 K3) in K3's (``cuobjdump -sass``; none of any
    fails).
 2. Hold kernel K1 (``antialias_snake``) against its plain PyTorch version at
    the ``act_post`` shape [1, 153600, 32], at C=256 and at four small,
@@ -53,12 +54,15 @@ Phases (any failure exits non-zero and prints no result line):
 5. Print request wall time and real-time factor and a device-time profile
    of one request (its decode replayed as a CUDA graph), and one of the
    same request with the vocoder at ``conv_precision="highest"``.
-6. Hold kernel K3 (``amp_block``, a whole AMPBlock in one launch) against
-   its plain version at the 12 AMPBlock shapes of a 640-frame request, and
-   time it beside three float32 ``amp_layer`` calls (3xTF32, equal to it
-   within the float32 tolerance), three K2-bf16 calls (what the serving
-   path makes for the same block) and its bound. The serving path does not
-   call K3.
+6. Hold both precisions of kernel K3 (``amp_block``, a whole AMPBlock in
+   one launch) bit for bit against the chain of three ``amp_layer`` launches
+   of the same precision and against its plain version (float32 at K2's
+   tolerance, bf16 at the JAX package's bf16 one),
+   at the 12 AMPBlock shapes of a 640-frame request and at two shapes
+   beyond the flagship's (C = 16, k = 5, dilations (2, 4); C = 256, k = 3,
+   four layers); time it at the 12 shapes beside those three K2 calls (the
+   serving path's way for the same block; K2-bf16 for bf16), its plain
+   version and its bound. The serving path does not call K3.
 7. Serving paths, each driven with the launch counts set to 0 just before
    and read just after: speculative requests (bucket predicted at 10
    frames per phone, no mispredict); a forced mispredict (5 frames per
@@ -298,6 +302,9 @@ TF32_TC_FLOP_PER_S = 494.7e12
 AA_FLOPS = 2 * (13 + 21) + 24
 
 K1_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_pallas_snake.py:34
+# K3 beyond the flagship's blocks, at shapes JAX's fused_amp_block takes:
+# (C, T, k, dilations)
+K3_NEW_SHAPES = ((16, 1000, 5, (2, 4)), (256, 1000, 3, (1, 3, 5, 7)))
 K2_TOL = dict(atol=5e-5, rtol=1e-3)  # tests/test_pallas_amp.py:51
 # K2-bf16 against the bf16 plain version: both round AA's output to bf16,
 # but AA computed in another order can round to the neighbouring bf16 value
@@ -305,6 +312,13 @@ K2_TOL = dict(atol=5e-5, rtol=1e-3)  # tests/test_pallas_amp.py:51
 # the output by at most 2.4e-3 at the 36 shapes of phase 3 (H100)
 K2_BF16_TOL = dict(atol=1e-2, rtol=1e-3)
 K2_BF16_F32_TOL = dict(atol=3e-2, rtol=1e-2)  # tests/test_pallas_amp.py:70
+# K3-bf16 against the bf16 plain block: a chain compounds K2_BF16_TOL's
+# flips (a flipped operand moves the next layer's AA inputs by ~1e-3, where
+# many of its bf16 operands then round the other way), and the chain of
+# K2-bf16 launches itself leaves K2_BF16_TOL at the flagship's widths
+# (phase 6 prints its distance); so the block is held at the JAX
+# package's bf16 bar, and bit for bit to that chain
+K3_BF16_TOL = K2_BF16_F32_TOL
 # kernel vs plain wav of a whole request: float32 with another summation
 # order in each of 36 AMPLayers and the final activation; tanh-bounded
 WAV_ATOL = 1e-3
@@ -568,11 +582,20 @@ def k2_f32_tc_bound(B, T, C, k):
             fp32 / FP32_FLOP_PER_S)
 
 
-def k3_cost(B, T, C, k, n_layers):
-    """A whole AMPBlock: x read and y written once, every layer's two conv
-    weights and four per-channel vectors; the layers' operations."""
-    nbytes = (2 * B * T * C + n_layers * (2 * k * C * C + 4 * C)) * 4
-    return nbytes, n_layers * k2_cost(B, T, C, k)[1]
+def k3_bound(B, T, C, k, n_layers, bf16):
+    """A whole AMPBlock in one precision: x read and y written once in
+    float32, every layer's two conv weights (bf16 or float32) and four
+    per-channel vectors; the layers' mixes at the tensor-core peak of the
+    precision (three TF32 passes for float32), AA, bias and the residual
+    add at the float32 peak. Returns the three times in seconds (bytes,
+    mix, float32)."""
+    nbytes = 2 * B * T * C * 4 + n_layers * (
+        2 * k * C * C * (2 if bf16 else 4) + 4 * C * 4)
+    mix = n_layers * 2 * 2 * k * C * C * B * T
+    t_mix = mix / BF16_TC_FLOP_PER_S if bf16 else \
+        3 * mix / TF32_TC_FLOP_PER_S
+    fp32 = n_layers * (2 * B * T * C * AA_FLOPS + 3 * B * T * C)
+    return nbytes / HBM_BYTES_PER_S, t_mix, fp32 / FP32_FLOP_PER_S
 
 
 def stage_shapes(voc_cfg, frames):
@@ -654,13 +677,18 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
     n_mma = tensor_core_mmas(_build, "amp_layer_tc")
     n_gmma = tensor_core_mmas(_build, "amp_layer_wgmma")
+    n_k3 = tensor_core_mmas(_build, "amp_block")
     print(f"phase 1: tensor-core MMA instructions in K2's SASS: "
           f"amp_layer_tc HMMA {n_mma['bf16']} bf16 (the mma.sync K2-bf16), "
           f"{n_mma['tf32']} TF32 (the float32 K2); amp_layer_wgmma HGMMA "
-          f"{n_gmma['hgmma']} ({n_gmma['bf16']} bf16, K2-bf16)", flush=True)
-    if not (n_mma["bf16"] and n_mma["tf32"] and n_gmma["hgmma"]):
-        print(f"chip_smoke: K2's SASS lacks bf16 or TF32 HMMA or bf16 HGMMA "
-              f"instructions: {n_mma}, {n_gmma}", file=sys.stderr)
+          f"{n_gmma['hgmma']} ({n_gmma['bf16']} bf16, K2-bf16); in K3's: "
+          f"amp_block HGMMA {n_k3['hgmma']} (K3-bf16), HMMA {n_k3['tf32']} "
+          "TF32 (the float32 K3)", flush=True)
+    if not (n_mma["bf16"] and n_mma["tf32"] and n_gmma["hgmma"]
+            and n_k3["hgmma"] and n_k3["tf32"]):
+        print(f"chip_smoke: K2's or K3's SASS lacks bf16 or TF32 HMMA or "
+              f"bf16 HGMMA instructions: {n_mma}, {n_gmma}, {n_k3}",
+              file=sys.stderr)
         return 1
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -752,7 +780,7 @@ def main() -> int:
     # conv_precision: K2-bf16, not the float32 K2
     expect = {"antialias_snake": N_REQUESTS,
               "amp_layer_bf16": 72 * N_REQUESTS, "amp_layer": 0,
-              "amp_block": 0}
+              "amp_block": 0, "amp_block_bf16": 0}
     print(f"phase 4: {N_REQUESTS} requests, launches {launches} "
           f"(expected {expect})", flush=True)
     if launches != expect:
@@ -784,7 +812,7 @@ def main() -> int:
     finally:
         set_conv_precision(vocoder, "default")
     expect_f = {"antialias_snake": 1, "amp_layer_bf16": 0, "amp_layer": 72,
-                "amp_block": 0}
+                "amp_block": 0, "amp_block_bf16": 0}
     print(f"phase 4: conv_precision=\"highest\" request, launches "
           f"{launches_f} (expected {expect_f})", flush=True)
     if launches_f != expect_f:
@@ -846,7 +874,7 @@ def main() -> int:
     # -- phase 6: K3 against its plain version ------------------------------
     print(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    k3_row = phase_k3(k2, randn, voc_cfg, gpu, failures)
+    k3_rows = phase_k3(k2, randn, voc_cfg, gpu, failures)
 
     # -- phase 7: the serving paths --------------------------------------------
     print(f"phase 7 starts at {time.perf_counter() - t_start:.1f} s",
@@ -948,18 +976,25 @@ def main() -> int:
              per=f"{per_request} (72 launches), mxu_bf16=False as 3xTF32; "
                  "serving runs it only for a conv_precision=\"highest\" "
                  "vocoder"),
-        dict(name="amp_block", route="cuda",
-             source="promptttspp_tpu_torch/csrc/amp_block.cu",
-             replaces="promptttspp_tpu/ops/pallas/amp.py:348",
-             launches=launches["amp_block"], max_abs_err=k3_row["err"],
-             ms=k3_row["ms"],
-             plain_ms=k3_row["plain_ms"], bound_ms=k3_row["bound_ms"],
-             bound_by=k3_row["bound_by"], library_ms=None,
-             amp_layer_x3_ms=k3_row["layers_ms"],
-             amp_layer_bf16_x3_ms=k3_row["layers_bf16_ms"],
-             per=f"sum over the 12 AMPBlocks of one {FRAMES}-frame request "
-                 "(12 launches); the serving path does not call it"),
     ]
+    for bf16, row in k3_rows.items():
+        name = "amp_block_bf16" if bf16 else "amp_block"
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="promptttspp_tpu_torch/csrc/amp_block.cu",
+            replaces="promptttspp_tpu/ops/pallas/amp.py:348",
+            launches=launches[name], max_abs_err=row["err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None,
+            amp_layer_x3_ms=row["layers_ms"],
+            max_abs_diff_from_k2_chain=row["chain_diff"],
+            k2_chain_max_abs_err=row["chain_err"],
+            faster_than_k2_chain_at=row["wins"],
+            slower_than_k2_chain_at=row["losses"],
+            per=f"sum over the 12 AMPBlocks of one {FRAMES}-frame request "
+                f"(12 launches), mxu_bf16={bf16}; amp_layer_x3_ms is the "
+                "chain of three K2 launches of the same precision in "
+                "alternated turns; the serving path does not call it"))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu)
@@ -1150,72 +1185,113 @@ def phase_k2(k2, k2_variants, mix_only, randn, voc_cfg, gpu, failures):
 
 
 def phase_k3(k2, randn, voc_cfg, gpu, failures):
-    """K3 at every AMPBlock shape of a request against its plain version,
-    timed beside the three amp_layer calls of the serving path."""
+    """Both K3 precisions at every AMPBlock shape of a request and at
+    ``K3_NEW_SHAPES``: bit for bit against the chain of K2 launches of the
+    precision and against the plain version (float32 at K2's tolerance,
+    bf16 at ``K3_BF16_TOL``, beside the K2 chain's own distance from it);
+    at the request's shapes timed in alternated turns beside the chain
+    (K3, chain, chain, K3), with the plain version and the bound. Returns
+    one row per precision (False: float32, True: bf16)."""
     import math
 
     import torch
 
-    row = dict(err=0.0, ms=0.0, plain_ms=0.0, layers_ms=0.0,
-               layers_bf16_ms=0.0, bound_ms=0.0, bytes_ms=0.0)
-    for C, T in stage_shapes(voc_cfg, FRAMES):
-        for k, dils in zip(voc_cfg["resblock_kernel_sizes"],
-                           voc_cfg["resblock_dilations"]):
-            dils = tuple(dils)
-            # conv gain capped at 1 (tests/test_torch_cuda.py::_block_args)
-            ws = min(0.05, 1.0 / math.sqrt(k * C))
-            x = 0.3 * randn(1, T, C)
-            params = tuple((0.2 * randn(C), ws * randn(C, C, k),
-                            0.1 * randn(C), 0.2 * randn(C),
-                            ws * randn(C, C, k), 0.1 * randn(C))
-                           for _ in dils)
+    rows = {bf16: dict(err=0.0, chain_diff=0.0, chain_err=0.0, ms=0.0,
+                       plain_ms=0.0,
+                       layers_ms=0.0, bound_ms=0.0, t_bytes=0.0,
+                       t_mix=0.0, t_fp32=0.0, wins=[], losses=[])
+            for bf16 in (False, True)}
+    shapes = [(C, T, k, tuple(dils)) for C, T in stage_shapes(voc_cfg, FRAMES)
+              for k, dils in zip(voc_cfg["resblock_kernel_sizes"],
+                                 voc_cfg["resblock_dilations"])]
+    for C, T, k, dils in shapes + list(K3_NEW_SHAPES):
+        # conv gain capped at 1 (tests/test_torch_cuda.py::_block_args)
+        ws = min(0.05, 1.0 / math.sqrt(k * C))
+        x = 0.3 * randn(1, T, C)
+        params = tuple((0.2 * randn(C), ws * randn(C, C, k),
+                        0.1 * randn(C), 0.2 * randn(C),
+                        ws * randn(C, C, k), 0.1 * randn(C))
+                       for _ in dils)
+        for bf16 in (False, True):
+            row = rows[bf16]
+            name = "K3-bf16" if bf16 else "K3"
+            label = f"{name} C={C} T={T} k={k} d={dils}"
 
-            def layers(bf16=False):
+            def block():
+                return k2.amp_block(x, params, dils, bf16=bf16)
+
+            def layers():
                 h = x
                 for p, d in zip(params, dils):
                     h = k2.amp_layer(h, *p, d, bf16=bf16)
                 return h
 
-            y = k2.amp_block(x, params, dils)
-            ref = k2.amp_block_plain(x, params, dils)
+            y, chain = block(), layers()
+            ref = k2.amp_block_plain(x, params, dils, bf16=bf16)
             torch.cuda.synchronize()
+            diff = (y - chain).abs().max().item()
             err = (y - ref).abs().max().item()
+            chain_err = (chain - ref).abs().max().item()
+            row["chain_diff"] = max(row["chain_diff"], diff)
             row["err"] = max(row["err"], err)
-            if not torch.allclose(y, ref, **K2_TOL):
-                failures.append(f"K3 C={C} T={T} k={k}: max abs err "
-                                f"{err:.3g}")
-            ms = cuda_ms(lambda: k2.amp_block(x, params, dils), iters=5)
+            row["chain_err"] = max(row["chain_err"], chain_err)
+            if not torch.equal(y, chain):
+                failures.append(f"{label}: differs from the chain of K2 "
+                                f"launches by {diff:.3g}")
+            if not torch.allclose(y, ref,
+                                  **(K3_BF16_TOL if bf16 else K2_TOL)):
+                failures.append(f"{label}: max abs err {err:.3g}")
+            if (C, T, k, dils) not in shapes:
+                print(f"[{gpu}] phase 6: {label} (beyond the flagship's): vs "
+                      f"the K2 chain {diff:.3g}, err {err:.3g} (the chain's "
+                      f"{chain_err:.3g})", flush=True)
+                continue
+            ms = cuda_ms(block, iters=5)
             lms = cuda_ms(layers, iters=5)
-            lbms = cuda_ms(lambda: layers(True), iters=5)
-            plain = cuda_ms(lambda: k2.amp_block_plain(x, params, dils),
+            lms = (lms + cuda_ms(layers, iters=5)) / 2
+            ms = (ms + cuda_ms(block, iters=5)) / 2
+            plain = cuda_ms(lambda: k2.amp_block_plain(x, params, dils,
+                                                       bf16=bf16),
                             iters=2, kernel=False)
-            nbytes, flops = k3_cost(1, T, C, k, len(dils))
-            bms, by = bound_ms(nbytes, flops)
+            times = k3_bound(1, T, C, k, len(dils), bf16)
             for key, v in (("ms", ms), ("plain_ms", plain),
-                           ("layers_ms", lms), ("layers_bf16_ms", lbms),
-                           ("bound_ms", bms),
-                           ("bytes_ms", nbytes / HBM_BYTES_PER_S * 1e3)):
+                           ("layers_ms", lms),
+                           ("bound_ms", max(times) * 1e3),
+                           ("t_bytes", times[0] * 1e3),
+                           ("t_mix", times[1] * 1e3),
+                           ("t_fp32", times[2] * 1e3)):
                 row[key] += v
-            print(f"[{gpu}] phase 6: K3 amp_block C={C} T={T} k={k} "
-                  f"d={dils}: err {err:.3g}; kernel {ms:.4f} ms, 3 x "
-                  f"amp_layer {lms:.4f} ms (bf16: {lbms:.4f} ms), plain "
-                  f"{plain:.4f} ms, bound "
-                  f"{bms:.4f} ms ({by})", flush=True)
-    row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["bound_ms"]
-                       else "operations")
-    print(f"[{gpu}] phase 6: K3, 12 AMPBlocks of a {FRAMES}-frame request: "
-          f"kernel {row['ms']:.3f} ms, 3 x amp_layer {row['layers_ms']:.3f} "
-          f"ms (bf16: {row['layers_bf16_ms']:.3f} ms), plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
-          f"ms ({row['bound_by']}), max abs err {row['err']:.3g}",
-          flush=True)
-    return row
+            (row["wins"] if ms < lms else row["losses"]).append(
+                f"C={C} k={k}")
+            print(f"[{gpu}] phase 6: {label}: vs the K2 chain {diff:.3g}, "
+                  f"err {err:.3g} (the chain's {chain_err:.3g}); kernel "
+                  f"{ms:.4f} ms, 3 x amp_layer "
+                  f"{lms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{max(times) * 1e3:.4f} ms", flush=True)
+    for bf16, row in rows.items():
+        parts = {"bytes": row["t_bytes"],
+                 "operations": max(row["t_mix"], row["t_fp32"])}
+        row["bound_by"] = max(parts, key=parts.get)
+        print(f"[{gpu}] phase 6: {'K3-bf16' if bf16 else 'K3 (float32)'}, "
+              f"12 AMPBlocks of a {FRAMES}-frame request: kernel "
+              f"{row['ms']:.3f} ms ({row['bound_ms'] / row['ms']:.0%} of "
+              f"its bound), 3 x amp_layer {row['layers_ms']:.3f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+              f"(sums of bytes {row['t_bytes']:.3f}, mix {row['t_mix']:.3f}, "
+              f"float32 {row['t_fp32']:.3f} ms; {row['bound_by']}); faster "
+              f"than the K2 chain at {row['wins']}, slower at "
+              f"{row['losses']}; largest difference from the K2 chain "
+              f"{row['chain_diff']:.3g}, max abs err {row['err']:.3g} (the "
+              f"K2 chain's {row['chain_err']:.3g})", flush=True)
+    return rows
 
 
 def _counts(k1, k2):
     return {"antialias_snake": k1.antialias_snake.launches,
             "amp_layer_bf16": k2.amp_layer.launches_bf16,
             "amp_layer": k2.amp_layer.launches,
-            "amp_block": k2.amp_block.launches}
+            "amp_block": k2.amp_block.launches,
+            "amp_block_bf16": k2.amp_block.launches_bf16}
 
 
 def _zero_counts(k1, k2):
@@ -1223,6 +1299,7 @@ def _zero_counts(k1, k2):
     k2.amp_layer.launches = 0
     k2.amp_layer.launches_bf16 = 0
     k2.amp_block.launches = 0
+    k2.amp_block.launches_bf16 = 0
 
 
 def _reference_wav(seconds=3.0, sr=24000, seed=5):
@@ -1250,7 +1327,7 @@ def phase_serving(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
 
     samples = FRAMES * 240
     per_request = {"antialias_snake": 1, "amp_layer_bf16": 72,
-                   "amp_layer": 0, "amp_block": 0}
+                   "amp_layer": 0, "amp_block": 0, "amp_block_bf16": 0}
     tok = synth.tokenizer
     kw = dict(use_max=True, noise_scale=0.0)
 
@@ -1719,7 +1796,7 @@ def phase_cli(Synthesizer, k1, k2, vocoder, synth, seqs, prompts, gpu,
         os.chdir(cwd)
     launches = _counts(k1, k2)
     expect = {"antialias_snake": 4, "amp_layer_bf16": 4 * 72,
-              "amp_layer": 0, "amp_block": 0}
+              "amp_layer": 0, "amp_block": 0, "amp_block_bf16": 0}
     served = built[0]
     requests = [w for kind, w in walls if kind == "request"]
     print(f"[{gpu}] phase 9: synthesize CLI (demo model): load "
@@ -2010,7 +2087,7 @@ def phase_train(k1, k2, vocoder, dev, gpu, failures, model_cfg=None,
         os.chdir(cwd)
     launches = _counts(k1, k2)
     expect = {"antialias_snake": 2, "amp_layer_bf16": 2 * 72,
-              "amp_layer": 0, "amp_block": 0}
+              "amp_layer": 0, "amp_block": 0, "amp_block_bf16": 0}
     from scipy.io import wavfile
     files = sorted(wavs.rglob("*.wav"))
     lengths = [len(wavfile.read(p)[1]) for p in files]
@@ -2241,7 +2318,7 @@ def phase_train_options(k1, k2, vocoder, dev, gpu, failures, model_cfg=None,
         os.chdir(cwd)
     launches = _counts(k1, k2)
     expect = {"antialias_snake": 2, "amp_layer_bf16": 2 * 72,
-              "amp_layer": 0, "amp_block": 0}
+              "amp_layer": 0, "amp_block": 0, "amp_block_bf16": 0}
     from scipy.io import wavfile
     files = sorted(wavs.rglob("*.wav"))
     lengths = [len(wavfile.read(p)[1]) for p in files]
@@ -2527,7 +2604,7 @@ def phase_recipe(k1, k2, vocoder, dev, gpu, failures, cli_overrides=(),
         synth_s = time.perf_counter() - t0
         expect = {"antialias_snake": 2 * n_eval,
                   "amp_layer_bf16": 2 * 72 * n_eval, "amp_layer": 0,
-                  "amp_block": 0}
+                  "amp_block": 0, "amp_block_bf16": 0}
         print(f"[{gpu}] phase 11 (c): synthesize CLI on ckpt/last for "
               f"{n_eval} eval_filtered utterances (ref + prompt) in "
               f"{synth_s:.1f} s; launches {launches} (expected {expect}: K1 "
@@ -3015,7 +3092,7 @@ def phase_parallel(k1, k2, model, vocoder, seqs, prompts, dev, gpu,
         chunks = -(-(-(-FRAMES // CHUNK)) // n_shards) * n_shards
         expect = {"antialias_snake": n_shards,
                   "amp_layer_bf16": 72 * n_shards, "amp_layer": 0,
-                  "amp_block": 0}
+                  "amp_block": 0, "amp_block_bf16": 0}
         print(f"[{gpu}] phase 12 (b): {FRAMES}-frame request, "
               f"frame_sharded_decode over {[str(d) for d in devices]}, "
               f"sharded vocoder ({chunks} chunks of {CHUNK}): wall "
@@ -3241,7 +3318,7 @@ def phase_model_axis(k1, k2, model, vocoder, seqs, prompts, dev, gpu,
         wav_err = max(float(np.abs(a - b).max())
                       for a, b in zip(wav, ref_wav))
         expect = {"antialias_snake": 1, "amp_layer_bf16": 72,
-                  "amp_layer": 0, "amp_block": 0}
+                  "amp_layer": 0, "amp_block": 0, "amp_block_bf16": 0}
         _, _, rq = plain._request(s_, p_, None, None, True, 0.0, 4)
         with torch.inference_mode():
             cond = model.infer_cond(
@@ -3362,7 +3439,7 @@ def phase_variant(k1, k2, vocoder, dev, gpu, failures):
     launches = _counts(k1, k2)
     expect = {"antialias_snake": N_REQUESTS,
               "amp_layer_bf16": 72 * N_REQUESTS, "amp_layer": 0,
-              "amp_block": 0}
+              "amp_block": 0, "amp_block_bf16": 0}
     if launches != expect:
         failures.append(f"variant requests: launch counts {launches} != "
                         f"{expect}")
@@ -3949,7 +4026,7 @@ def request_inputs():
 
 
 def phase_only(phase: int) -> int:
-    """Build the kernels and run phase 12, 13, 14 or 15 alone."""
+    """Build the kernels and run phase 6, 12, 13, 14 or 15 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3968,16 +4045,17 @@ def phase_only(phase: int) -> int:
     for name in _build.KERNELS:
         _build.load(name)
     failures = []
-    if phase == 15:
+    if phase == 6:
+        g = torch.Generator(device=dev).manual_seed(0)
+        phase_k3(k2, lambda *s: torch.randn(s, generator=g, device=dev),
+                 flagship.VOCODER, gpu_line(), failures)
+    elif phase == 15:
         phase_aux_nets(k1, k2, dev, gpu_line(), failures)
-        if failures:
-            print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
-            return 1
-        return 0
-    vocoder = flagship.build_vocoder(dev, seed=1)
-    if phase == 14:
-        phase_variant(k1, k2, vocoder, dev, gpu_line(), failures)
+    elif phase == 14:
+        phase_variant(k1, k2, flagship.build_vocoder(dev, seed=1), dev,
+                      gpu_line(), failures)
     else:
+        vocoder = flagship.build_vocoder(dev, seed=1)
         model = flagship.build_flagship_model(dev, seed=0,
                                               frames_per_phone=10.0)
         seqs, prompts = request_inputs()
@@ -3990,7 +4068,7 @@ def phase_only(phase: int) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["--phase12"], ["--phase13"], ["--phase14"],
-                        ["--phase15"]):
-        sys.exit(phase_only(int(sys.argv[1][-2:])))
+    if sys.argv[1:] in (["--phase6"], ["--phase12"], ["--phase13"],
+                        ["--phase14"], ["--phase15"]):
+        sys.exit(phase_only(int(sys.argv[1][len("--phase"):])))
     sys.exit(main())

@@ -40,31 +40,38 @@ edge rules without masks: AA clamps its input to [0, T) (edge replication,
 which for the second launch is exactly "conv1's output replicated before
 AA2"), and the conv reads zeros outside [0, T).
 
-K3, ``amp_block``: the chained form of ``fused_amp_block`` (n_layers > 1),
-a whole AMPBlock in one launch of ``csrc/amp_block.cu``, in float32 on the
-CUDA cores. It equals the chain of float32 AMPLayers (``amp_block_plain``)
-within float32 rounding: it sums in another order than the float32 K2's
-3xTF32. A block keeps its time tile plus the summed halo of the chain, the
-running layer output and conv1's output in shared memory (or an
-L2-resident global scratch where they do not fit), narrows the valid region
-stage by stage and writes only its tile. Like the JAX package, the vocoder
-does not call it: ``vocoders/bigvgan.py::AMPBlock`` runs one K2 call per
-layer.
+K3, ``amp_block``: ``fused_amp_block`` with any number of layers, a whole
+AMPBlock in one launch of ``csrc/amp_block.cu``, in both precisions
+(``bf16`` is ``mxu_bf16``). Each layer runs the mix of the K2 of its
+precision on the tensor cores in K2's summation order (bf16 on ``wgmma``
+with K2-bf16's weight layout, float32 as 3xTF32 on ``mma.sync`` with the
+float32 K2's), so K3's output equals the chain of K2 launches of that
+precision bit for bit. A block keeps its time tile plus the summed halo of
+the chain, the running layer output and conv1's output, in float32 in an
+L2-resident global scratch (in shared memory for float32 at C = 32),
+narrows the valid region stage by stage and writes only its tile. A chain longer than the kernel's
+``amp_block_max_layers()`` runs as consecutive launches. Like the JAX
+package, the vocoder does not call it: ``vocoders/bigvgan.py::AMPBlock``
+runs one K2 call per layer.
 
 What bounds them: the channel mix, 4*k*C^2 flops per time step and layer
 (~2.6e11 flops per 640-frame request over the 36 layers) against ~1 GB of
-x/y traffic. K3, in float32 on the CUDA cores, is bound by operations;
-K2-bf16 by AA's float32 work and the bytes about as much as by its mix;
-the float32 K2 by its three TF32 passes. All take the conv weights in a
-kernel layout prepared once per weight tensor (``kernel_weight`` for K3,
-``kernel_weight_wgmma`` and ``kernel_weight_tf32x3`` for K2; change
-weights under ``torch.no_grad()``, not through ``w.data``).
+x/y traffic. K2-bf16 and K3-bf16 are bound by AA's float32 work and the
+bytes about as much as by the mix; the float32 K2 and K3 by their three
+TF32 passes. All take the conv weights in a kernel layout prepared once per
+weight tensor (``kernel_weight_wgmma`` for K2-bf16 and K3-bf16,
+``kernel_weight_tf32x3`` for the float32 K2 and K3; change weights under
+``torch.no_grad()``, not through ``w.data``).
 
 ``amp_layer`` and ``amp_block`` launch their kernels for a CUDA tensor and
-run the plain float32 PyTorch versions only for a tensor on the CPU. Their
-launch counts go up by one per kernel launch: two per layer for K2
-(``amp_layer.launches`` for the float32 K2, ``amp_layer.launches_bf16``
-for K2-bf16), one per block for K3.
+run the plain PyTorch versions only for a tensor on the CPU (``amp_layer``
+the float32 one whatever ``bf16`` says, as JAX on the CPU runs the
+unfused float32 layer; ``amp_block`` the one of its precision, as JAX's
+fused block does). Their launch counts go up by one per kernel launch: two
+per layer for K2 (``amp_layer.launches`` for the float32 K2,
+``amp_layer.launches_bf16`` for K2-bf16), one per block (of at most
+``amp_block_max_layers()`` layers) for K3 (``amp_block.launches``,
+``amp_block.launches_bf16``).
 """
 
 from __future__ import annotations
@@ -77,12 +84,6 @@ import torch
 from promptttspp_tpu_torch.nn.layers import conv1d_same
 from promptttspp_tpu_torch.ops.kernels import _build
 from promptttspp_tpu_torch.ops.kernels.snake import antialias_snake_plain
-
-# the shapes K3 takes: every AMPBlock of the flagship vocoder and of
-# tests/test_pallas_amp.py's block cases
-AMP_BLOCK_CHANNELS = (32, 64, 128, 256)
-AMP_BLOCK_KERNEL_SIZES = (3, 7, 11)
-AMP_BLOCK_DILATIONS = ((1, 3, 5), (1, 3))
 
 # K2-bf16 (csrc/amp_layer_wgmma.cu): the configurations compiled there, as
 # (N output channels per pass, KS k16 steps per weight chunk, NWG consumer
@@ -121,16 +122,22 @@ def amp_layer_plain(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int,
     return x + h
 
 
-def amp_block_plain(x, layer_params, dilations):
-    """Plain PyTorch version: the chain of ``amp_layer_plain`` calls."""
+def amp_block_plain(x, layer_params, dilations, bf16: bool = False):
+    """Plain PyTorch version: the chain of ``amp_layer_plain`` calls of
+    precision ``bf16``."""
     for params, d in zip(layer_params, dilations):
-        x = amp_layer_plain(x, *params, d)
+        x = amp_layer_plain(x, *params, d, bf16=bf16)
     return x
 
 
 def _prepared(w: torch.Tensor, attr: str, make) -> torch.Tensor:
-    """``make(w.detach())``, kept on ``w`` under ``attr`` until ``w``'s
-    version counter or storage shows a change."""
+    """``make(w.detach())``, a kernel's layout of the conv weight ``w``,
+    kept on ``w`` under ``attr``. Computed once per weight tensor, and
+    again after every change that ``w``'s version counter or storage shows:
+    an in-place op on ``w`` (under ``torch.no_grad()`` too, as
+    ``load_state_dict`` makes), a new ``w.data``, a move. An in-place write
+    into ``w.data`` (``w.data.copy_(...)``) bypasses the version counter
+    and is not seen: change weights under ``torch.no_grad()`` instead."""
     key = (None if w.is_inference() else w._version, w.data_ptr(), w.device)
     cached = getattr(w, attr, None)
     if cached is not None and cached[0] == key and key[0] is not None:
@@ -138,19 +145,6 @@ def _prepared(w: torch.Tensor, attr: str, make) -> torch.Tensor:
     w_k = make(w.detach())
     setattr(w, attr, (key, w_k))
     return w_k
-
-
-def kernel_weight(w: torch.Tensor) -> torch.Tensor:
-    """Torch conv weight [C_out, C_in, k] -> K3's [k, C_in, C_out] (one
-    tap's weights for a run of output channels are contiguous). Computed
-    once per weight tensor and kept on it. It is computed again after every
-    change that ``w``'s version counter or storage shows: an in-place op
-    on ``w`` (under ``torch.no_grad()`` too, as ``load_state_dict`` makes),
-    a new ``w.data``, a move. An in-place write into ``w.data``
-    (``w.data.copy_(...)``) bypasses the version counter and is not seen:
-    change weights under ``torch.no_grad()`` instead."""
-    return _prepared(w, "_kernel_layout",
-                     lambda v: v.permute(2, 1, 0).contiguous())
 
 
 def tc_weight(v: torch.Tensor, rows: int, cols: int,
@@ -174,18 +168,19 @@ def _tc_layout(w: torch.Tensor, attr: str, dtype: torch.dtype):
 
 
 def kernel_weight_bf16(w: torch.Tensor) -> torch.Tensor:
-    """Torch conv weight [C_out, C_in, k] on a GPU -> K2-bf16's bf16
-    [k, NP, CP] (``tc_weight``), zero-padded to the kernel's tiling (CP = C
-    rounded up to 16, NP = C rounded up to whole output passes, both from
-    the built library). Kept on ``w`` under ``kernel_weight``'s rules."""
+    """Torch conv weight [C_out, C_in, k] on a GPU -> the bf16 [k, NP, CP]
+    of the ``mma.sync`` K2-bf16 (``tc_weight``), zero-padded
+    to the kernels' tiling (CP = C rounded up to 16, NP = C rounded up to
+    whole output passes, both from the built library). Kept on ``w`` as
+    ``_prepared`` says."""
     return _tc_layout(w, "_kernel_layout_bf16", torch.bfloat16)
 
 
 def kernel_weight_tf32x3(w: torch.Tensor) -> torch.Tensor:
-    """Torch conv weight [C_out, C_in, k] on a GPU -> the float32 K2's
-    float32 [k, NP, CP], the layout of ``kernel_weight_bf16`` with the
-    weights unrounded (the kernel splits them for 3xTF32). Kept on ``w``
-    under ``kernel_weight``'s rules."""
+    """Torch conv weight [C_out, C_in, k] on a GPU -> the float32 [k, NP,
+    CP] of the float32 K2 and K3, the layout of ``kernel_weight_bf16`` with
+    the weights unrounded (the kernels split them for 3xTF32). Kept on
+    ``w`` as ``_prepared`` says."""
     return _tc_layout(w, "_kernel_layout_tf32x3", torch.float32)
 
 
@@ -274,8 +269,8 @@ def wgmma_weight(v: torch.Tensor, n: int, cp: int) -> torch.Tensor:
 
 def kernel_weight_wgmma(w: torch.Tensor) -> torch.Tensor:
     """Torch conv weight [C_out, C_in, k] -> K2-bf16's ``wgmma_weight`` for
-    ``wgmma_plan``'s N and CP at this C. Kept on ``w`` under
-    ``kernel_weight``'s rules."""
+    ``wgmma_plan``'s N and CP at this C. Kept on ``w`` as ``_prepared``
+    says."""
     n, _, cp, _ = _wgmma_shape(w.shape[0])
     return _prepared(w, "_kernel_layout_wgmma",
                      lambda v: wgmma_weight(v, n, cp))
@@ -327,16 +322,36 @@ def _tc_lib():
 
 @functools.lru_cache(maxsize=None)
 def _block_lib():
-    lib = _build.load("amp_block")
+    return block_argtypes(_build.load("amp_block"))
+
+
+def block_argtypes(lib):
+    """Set the ctypes signatures of K3's entry points in ``lib``."""
+    lib.amp_block_max_layers.argtypes = []
+    lib.amp_block_max_layers.restype = ctypes.c_int
+    lib.amp_block_weight_shape.argtypes = [ctypes.c_int, ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_int)]
+    lib.amp_block_weight_shape.restype = None
     lib.amp_block_scratch_floats.argtypes = [ctypes.c_int] * 4 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)]
     lib.amp_block_scratch_floats.restype = ctypes.c_longlong
     lib.amp_block.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)] \
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int),
+                                ctypes.c_void_p]
     lib.amp_block.restype = ctypes.c_int
     return lib
+
+
+def _check_odd_k(name, k):
+    if k % 2 == 0:
+        raise ValueError(
+            f"{name} kernel needs an odd k, got k={k} "
+            "(vocoder.resblock_kernel_sizes): at an even k JAX's TPU kernel "
+            "centres the taps at (k-1)//2 and its CPU path pads as XLA's "
+            "SAME; the port's plain version, on the CPU, follows the latter")
 
 
 def _check_layer(C, k, alpha1, w1, b1, alpha2, w2, b2, device):
@@ -399,49 +414,70 @@ def amp_layer(x, alpha1, w1, b1, alpha2, w2, b2, dilation: int,
     B, T, C = x.shape
     _build.check(x, "x", (B, T, C), x.device)
     k = w1.shape[-1]
-    if k % 2 == 0:
-        raise ValueError(
-            f"amp_layer kernel needs an odd k, got k={k} "
-            "(vocoder.resblock_kernel_sizes): at an even k JAX's TPU kernel "
-            "centres the taps at (k-1)//2 and its CPU path pads as XLA's "
-            "SAME; the port's plain version, on the CPU, follows the latter")
+    _check_odd_k("amp_layer", k)
     _check_layer(C, k, alpha1, w1, b1, alpha2, w2, b2, x.device)
     h = _aa_conv(x, alpha1, w1, b1, None, dilation, bf16)
     return _aa_conv(h, alpha2, w2, b2, x, 1, bf16)
 
 
-def amp_block(x, layer_params, dilations):
+def amp_block(x, layer_params, dilations, bf16: bool = False):
     """x [B, T, C] float32; ``layer_params`` one tuple (alpha1, w1, b1,
-    alpha2, w2, b2) per layer as for ``amp_layer``, all of one kernel size
-    k; ``dilations`` the layers' conv1 dilations -> [B, T, C]. On CUDA, C
-    must be one of ``AMP_BLOCK_CHANNELS``, k one of
-    ``AMP_BLOCK_KERNEL_SIZES`` and the dilations one of
-    ``AMP_BLOCK_DILATIONS``."""
+    alpha2, w2, b2) per layer as for ``amp_layer``, all of one odd kernel
+    size k; ``dilations`` the layers' conv1 dilations (one or more, each
+    >= 1) -> [B, T, C]. ``bf16`` is the JAX kernel's ``mxu_bf16``: on a
+    CUDA tensor it selects K3-bf16, else the float32 (3xTF32) K3, which
+    take any C >= 1 and any number of layers, and equal the chain of K2
+    launches of their precision bit for bit. On a CPU tensor the plain
+    version of that precision runs."""
     dilations = tuple(int(d) for d in dilations)
     if len(layer_params) != len(dilations):
         raise ValueError(f"{len(layer_params)} layers but "
                          f"{len(dilations)} dilations")
+    if not dilations or min(dilations) < 1:
+        raise ValueError(f"amp_block takes one layer or more, each of "
+                         f"dilation >= 1; got dilations={dilations}")
     if x.device.type == "cpu":
-        return amp_block_plain(x, layer_params, dilations)
+        return amp_block_plain(x, layer_params, dilations, bf16)
     B, T, C = x.shape
     _build.check(x, "x", (B, T, C), x.device)
     k = layer_params[0][1].shape[-1]
-    if (C not in AMP_BLOCK_CHANNELS or k not in AMP_BLOCK_KERNEL_SIZES
-            or dilations not in AMP_BLOCK_DILATIONS):
-        raise ValueError(
-            f"amp_block kernel takes C in {AMP_BLOCK_CHANNELS}, k in "
-            f"{AMP_BLOCK_KERNEL_SIZES} and dilations in "
-            f"{AMP_BLOCK_DILATIONS}; got C={C}, k={k}, dilations={dilations}")
+    _check_odd_k("amp_block", k)
+    for params in layer_params:
+        _check_layer(C, k, *params, x.device)
+    lib = _block_lib()
+    step = lib.amp_block_max_layers()
+    for i in range(0, len(dilations), step):
+        x = _block_launch(lib, x, layer_params[i:i + step],
+                          dilations[i:i + step], bf16)
+    return x
+
+
+def _block_launch(lib, x, layer_params, dilations, bf16, hints=None):
+    """One launch of K3 over up to ``amp_block_max_layers()`` layers;
+    ``hints`` = (tt, mode, resident, split, gk, abufs) overrides its plan's
+    tile, buffers, resident weights, blocks per tile, weight chunks per
+    slot and A buffers (``csrc/amp_block.cu::make_plan``;
+    ``tools/k3_variants.py`` times them)."""
+    B, T, C = x.shape
+    k = layer_params[0][1].shape[-1]
+    layout = kernel_weight_wgmma if bf16 else kernel_weight_tf32x3
     ptrs = []
     for a1, w1, b1, a2, w2, b2 in layer_params:
-        _check_layer(C, k, a1, w1, b1, a2, w2, b2, x.device)
-        ptrs += [t.data_ptr() for t in (a1, kernel_weight(w1), b1, a2,
-                                        kernel_weight(w2), b2)]
-    lib = _block_lib()
+        w_k = layout(w1)
+        ptrs += [t.data_ptr() for t in (a1, w_k, b1, a2, layout(w2), b2)]
+    want = (ctypes.c_int * 2)()
+    lib.amp_block_weight_shape(C, int(bf16), want)
+    got = ((w_k.shape[3] * 8, w_k.shape[2] * 16) if bf16
+           else tuple(w_k.shape[1:]))
+    if got != tuple(want):
+        raise RuntimeError(f"amp_block takes weights of shape {tuple(want)} "
+                           f"at C={C}, the layout gives {got}")
     n = len(dilations)
     dils = (ctypes.c_int * n)(*dilations)
+    hints = None if hints is None else (ctypes.c_int * 6)(*hints)
     with torch.cuda.device(x.device):
-        floats = lib.amp_block_scratch_floats(B, T, C, k, dils, n)
+        floats = lib.amp_block_scratch_floats(B, T, C, k, dils, n, int(bf16),
+                                              hints)
     if floats < 0:
         raise RuntimeError(f"amp_block_scratch_floats failed: CUDA error "
                            f"{-floats}")
@@ -450,11 +486,16 @@ def amp_block(x, layer_params, dilations):
     y = torch.empty_like(x)
     _build.launch(lib.amp_block, x.device, x.data_ptr(), y.data_ptr(),
                   scratch.data_ptr(), floats,
-                  (ctypes.c_void_p * len(ptrs))(*ptrs), dils, n, B, T, C, k)
-    amp_block.launches += 1
+                  (ctypes.c_void_p * len(ptrs))(*ptrs), dils, n, B, T, C, k,
+                  int(bf16), hints)
+    if bf16:
+        amp_block.launches_bf16 += 1
+    else:
+        amp_block.launches += 1
     return y
 
 
 amp_layer.launches = 0
 amp_layer.launches_bf16 = 0
 amp_block.launches = 0
+amp_block.launches_bf16 = 0

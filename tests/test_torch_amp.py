@@ -4,7 +4,7 @@ version) against the JAX package's fused Pallas kernels in interpret mode
 and its unfused XLA composition, on the CPU.
 
 The CUDA kernels are held to their plain versions on a GPU in
-``tests/test_torch_cuda.py``; ``kernel_weight``'s refresh rules are checked
+``tests/test_torch_cuda.py``; the weight layouts' refresh rules are checked
 here, on CPU tensors."""
 
 import jax
@@ -80,16 +80,34 @@ def test_plain_bf16_matches_fused_pallas_bf16(T, C, k, dil, tile):
     assert not torch.equal(out, k2.amp_layer_plain(*args))
 
 
-@pytest.mark.parametrize("T,C,k,dils,tile", [
-    # tests/test_pallas_amp.py:74-79
+# tests/test_pallas_amp.py:74-79
+BLOCK_SHAPES = [
     (400, 32, 3, (1, 3, 5), 128),
     (200, 64, 7, (1, 3, 5), 64),
     (300, 128, 3, (1, 3), 128),
     (150, 256, 3, (1, 3, 5), 64),
+]
+
+
+@pytest.mark.parametrize("bf16,T,C,k,dils,tile", [
+    *((False, *shape) for shape in BLOCK_SHAPES),
+    *((True, *shape) for shape in BLOCK_SHAPES),
+    # shapes JAX takes that K3 refused before it took every C, k and chain
+    (False, 200, 16, 3, (1, 3, 5), 128),   # C = 16 (8 samples per row)
+    (False, 300, 32, 7, (3,), 128),        # one layer
+    (False, 150, 64, 3, (1, 3, 5, 7), 64),  # four layers
+    (False, 250, 32, 5, (2, 4), 128),      # k = 5, dilations (2, 4)
 ])
-def test_block_plain_matches_fused_pallas_block(T, C, k, dils, tile):
-    """K3's CPU path (the chain of plain AMPLayers) against the JAX package's
-    chained kernel, which applies the edge rules between layers itself."""
+def test_block_plain_matches_fused_pallas_block(bf16, T, C, k, dils, tile):
+    """K3's CPU path (the chain of plain AMPLayers of its precision)
+    against the JAX package's chained kernel, which applies the edge rules
+    between layers itself. With ``bf16`` at the JAX package's bf16
+    tolerance: against ``mxu_bf16=True`` at C >= 128, where the Pallas
+    kernel rounds only the channel mix, as the port does; at C < 128 it
+    also rounds AA's FIR operands to bf16 (the port does not), which alone
+    takes its block 0.034 beyond its float32 block at C = 64, k = 7, so
+    there the port is held against the float32 block, as
+    tests/test_pallas_amp.py:70 holds the bf16 layer."""
     from promptttspp_tpu.ops.pallas.amp import fused_amp_block
 
     rng = np.random.RandomState(7)
@@ -102,27 +120,37 @@ def test_block_plain_matches_fused_pallas_block(T, C, k, dils, tile):
     ref = fused_amp_block(jnp.asarray(x),
                           tuple(tuple(jnp.asarray(a) for a in p)
                                 for p in layers), dils, tile=tile,
-                          interpret=True)
+                          interpret=True, mxu_bf16=bf16 and C >= 128)
     params = tuple((torch.from_numpy(a1), _torch_w(w1), torch.from_numpy(b1),
                     torch.from_numpy(a2), _torch_w(w2), torch.from_numpy(b2))
                    for a1, w1, b1, a2, w2, b2 in layers)
-    launches = k2.amp_block.launches
-    out = k2.amp_block(torch.from_numpy(x), params, dils)
-    assert k2.amp_block.launches == launches  # the plain version on the CPU
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    launches = (k2.amp_block.launches, k2.amp_block.launches_bf16)
+    out = k2.amp_block(torch.from_numpy(x), params, dils, bf16=bf16)
+    # the plain version on the CPU
+    assert (k2.amp_block.launches, k2.amp_block.launches_bf16) == launches
+    torch.testing.assert_close(
+        out, k2.amp_block_plain(torch.from_numpy(x), params, dils, bf16=bf16),
+        atol=0, rtol=0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               **(BF16_TOL if bf16 else TOL))
+    if bf16:  # the rounding is really applied: not the float32 result
+        assert not torch.equal(
+            out, k2.amp_block_plain(torch.from_numpy(x), params, dils))
 
 
 @pytest.mark.parametrize("update", ["no_grad_in_place", "load_state_dict",
                                     "new_data", "move"])
 def test_kernel_weight_is_prepared_again_after_an_update(update):
-    """The kernels' weight layout is kept on the weight and prepared again
-    after each update that its version counter or storage shows."""
+    """The kernels' weight layouts (here K2-bf16's, which the CPU can
+    make) are kept on the weight and prepared again after each update that
+    its version counter or storage shows."""
     layer = AMPLayer(8, 3, 1)
     w = layer.conv1.weight
-    w_k = k2.kernel_weight(w)
-    assert k2.kernel_weight(w) is w_k
-    np.testing.assert_array_equal(w_k.numpy(),
-                                  w.detach().permute(2, 1, 0).numpy())
+    layout = lambda v: k2.wgmma_weight(v.detach(), 16, 16)
+    w_k = k2.kernel_weight_wgmma(w)
+    assert k2.kernel_weight_wgmma(w) is w_k
+    np.testing.assert_array_equal(w_k.float().numpy(),
+                                  layout(w).float().numpy())
     if update == "no_grad_in_place":
         with torch.no_grad():
             w.mul_(2.0)
@@ -134,9 +162,9 @@ def test_kernel_weight_is_prepared_again_after_an_update(update):
     else:
         layer.to(torch.float64)
     w = layer.conv1.weight
-    assert k2.kernel_weight(w) is not w_k
-    np.testing.assert_array_equal(k2.kernel_weight(w).numpy(),
-                                  w.detach().permute(2, 1, 0).numpy())
+    assert k2.kernel_weight_wgmma(w) is not w_k
+    np.testing.assert_array_equal(k2.kernel_weight_wgmma(w).float().numpy(),
+                                  layout(w).float().numpy())
 
 
 @pytest.mark.parametrize("T,C,k,dil", [(120, 16, 11, 5), (64, 8, 3, 1)])

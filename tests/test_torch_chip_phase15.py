@@ -62,7 +62,7 @@ def test_phase15_rehearsal_on_the_cpu(cpu_cuda, capsys):
     out = capsys.readouterr().out
     assert failures == []
     assert launches == {"antialias_snake": 0, "amp_layer_bf16": 0,
-                        "amp_layer": 0, "amp_block": 0}
+                        "amp_layer": 0, "amp_block": 0, "amp_block_bf16": 0}
     lines = [ln for ln in out.splitlines() if "phase 15:" in ln]
     assert len(lines) == len(chip_smoke.aux_net_entries()) + 2
     assert all("(ok)" in ln for ln in lines[:-1]), out

@@ -37,6 +37,13 @@ K2_TOL = dict(atol=5e-5, rtol=1e-3)  # tests/test_pallas_amp.py:51
 # gain-1 weights
 K2_BF16_TOL = dict(atol=1e-2, rtol=1e-3)
 K2_BF16_F32_TOL = dict(atol=3e-2, rtol=1e-2)  # tests/test_pallas_amp.py:70
+# K3-bf16 against the bf16 plain block: a chain compounds K2_BF16_TOL's
+# flips (a flipped operand moves the next layer's AA inputs by ~1e-3, where
+# many of its bf16 operands then round the other way), and the chain of
+# K2-bf16 launches itself leaves K2_BF16_TOL at the flagship's widths; so
+# the block is held at the JAX package's bf16 bar, and bit for bit to that
+# chain
+K3_BF16_TOL = K2_BF16_F32_TOL
 
 pytestmark = pytest.mark.cuda
 
@@ -459,6 +466,11 @@ def _block_args(g, B, T, C, k, dils):
     return x, params
 
 
+def _k3_launches():
+    return k2.amp_block.launches, k2.amp_block.launches_bf16
+
+
+@pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("B,T,C,k,dils", [
     # tests/test_pallas_amp.py:74-79
     (1, 400, 32, 3, (1, 3, 5)), (1, 200, 64, 7, (1, 3, 5)),
@@ -468,43 +480,67 @@ def _block_args(g, B, T, C, k, dils):
     (2, 777, 64, 11, (1, 3, 5)), (1, 5, 32, 7, (1, 3, 5)),
     # more tiles than resident blocks: each block walks over several
     (1, 153600, 32, 11, (1, 3, 5)), (1, 76800, 64, 7, (1, 3, 5))])
-def test_k3_matches_plain(dev, B, T, C, k, dils):
+def test_k3_matches_plain(dev, B, T, C, k, dils, bf16):
     g = torch.Generator(device=dev).manual_seed(2)
     x, params = _block_args(g, B, T, C, k, dils)
-    before = k2.amp_block.launches
-    out = k2.amp_block(x, params, dils)
-    again = k2.amp_block(x, params, dils)
+    before = _k3_launches()
+    out = k2.amp_block(x, params, dils, bf16=bf16)
+    again = k2.amp_block(x, params, dils, bf16=bf16)
     torch.cuda.synchronize()
-    assert k2.amp_block.launches == before + 2
+    assert _k3_launches() == (before[0] + 2 * (not bf16),
+                              before[1] + 2 * bf16)
     torch.testing.assert_close(out, again, atol=0, rtol=0)
-    torch.testing.assert_close(out, k2.amp_block_plain(x, params, dils),
-                               **K2_TOL)
+    torch.testing.assert_close(
+        out, k2.amp_block_plain(x, params, dils, bf16=bf16),
+        **(K3_BF16_TOL if bf16 else K2_TOL))
 
 
-@pytest.mark.parametrize("C,k", [(256, 11), (32, 7)])
-def test_k3_equals_the_chain_of_k2_launches(dev, C, k):
-    """K3 (float32 FMAs on the CUDA cores) against the chain of float32 K2
-    launches (3xTF32 on the tensor cores): the two sum in other orders, so
-    they agree within the float32 tolerance, not bit for bit. The weights
-    have gain 1 at most (``_block_args``): at scale 0.05 the block's output
-    grows to hundreds, and float32 rounding alone leaves that tolerance."""
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
+def test_k3_equals_the_chain_of_k2_launches(dev, C, k, bf16):
+    """K3 sums each layer in the order of the K2 of its precision (3xTF32
+    or bf16 on the tensor cores), so it equals the chain of K2 launches bit
+    for bit, at each of the flagship's widths and kernel sizes."""
     g = torch.Generator(device=dev).manual_seed(2)
     dils = (1, 3, 5)
     x, params = _block_args(g, 1, 1000, C, k, dils)
     chain = x
     for p, d in zip(params, dils):
-        chain = k2.amp_layer(chain, *p, d)
-    torch.testing.assert_close(k2.amp_block(x, params, dils), chain,
-                               **K2_TOL)
+        chain = k2.amp_layer(chain, *p, d, bf16=bf16)
+    torch.testing.assert_close(k2.amp_block(x, params, dils, bf16=bf16),
+                               chain, atol=0, rtol=0)
 
 
 def test_k3_refuses_other_shapes(dev):
+    """The shapes K3 refused before it took every shape of JAX's
+    ``fused_amp_block`` (C = 48 and 512, k = 5, dilations (1, 2), four
+    layers, and a chain longer than one launch takes) compute the plain
+    version's result, equal to the chain of K2 launches; an even k,
+    mismatched layer and dilation lists and a parameter on another device
+    still raise."""
     g = torch.Generator(device=dev).manual_seed(3)
+    longest = k2._block_lib().amp_block_max_layers()
     for C, k, dils in ((48, 3, (1, 3, 5)), (32, 5, (1, 3, 5)),
-                       (32, 3, (1, 2)), (512, 3, (1, 3, 5))):
-        x, params = _block_args(g, 1, 64, C, k, dils)
-        with pytest.raises(ValueError, match="amp_block kernel takes"):
-            k2.amp_block(x, params, dils)
+                       (32, 3, (1, 2)), (512, 3, (1, 3, 5, 7)),
+                       (16, 3, (1, 2) * longest + (3,))):
+        x, params = _block_args(g, 1, 300, C, k, dils)
+        for bf16 in (False, True):
+            before = _k3_launches()
+            out = k2.amp_block(x, params, dils, bf16=bf16)
+            launches = -(-len(dils) // longest)
+            assert _k3_launches() == (before[0] + launches * (not bf16),
+                                      before[1] + launches * bf16)
+            chain = x
+            for p, d in zip(params, dils):
+                chain = k2.amp_layer(chain, *p, d, bf16=bf16)
+            torch.testing.assert_close(out, chain, atol=0, rtol=0)
+            torch.testing.assert_close(
+                out, k2.amp_block_plain(x, params, dils, bf16=bf16),
+                **(K3_BF16_TOL if bf16 else K2_TOL))
+    x, params = _block_args(g, 1, 64, 32, 4, (1, 3, 5))
+    with pytest.raises(ValueError, match="odd k"):
+        k2.amp_block(x, params, (1, 3, 5))
     x, params = _block_args(g, 1, 64, 32, 3, (1, 3, 5))
     with pytest.raises(ValueError, match="dilations"):
         k2.amp_block(x, params, (1, 3))
@@ -515,13 +551,22 @@ def test_k3_refuses_other_shapes(dev):
 
 
 def test_kernel_weight_layout_is_prepared_once(dev):
-    w = torch.randn(32, 32, 3, device=dev)
-    w_k = k2.kernel_weight(w)
-    assert k2.kernel_weight(w) is w_k
-    torch.testing.assert_close(w_k, w.permute(2, 1, 0))
-    w.mul_(2.0)  # an in-place update prepares it again
-    assert k2.kernel_weight(w) is not w_k
-    torch.testing.assert_close(k2.kernel_weight(w), w.permute(2, 1, 0))
+    """K3 takes the weight layouts of the K2 of its precision, prepared
+    once per weight and shared, and again after an in-place update."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x, params = _block_args(g, 1, 64, 32, 3, (1,))
+    w = params[0][1]
+    w_k = {}
+    for bf16, layout in ((False, k2.kernel_weight_tf32x3),
+                         (True, k2.kernel_weight_wgmma)):
+        w_k[bf16] = layout(w)
+        k2.amp_block(x, params, (1,), bf16=bf16)
+        assert layout(w) is w_k[bf16]
+    with torch.no_grad():
+        w.mul_(2.0)  # an in-place update prepares it again
+    assert k2.kernel_weight_tf32x3(w) is not w_k[False]
+    torch.testing.assert_close(k2.kernel_weight_tf32x3(w)[:, :32, :32],
+                               w.permute(2, 0, 1), atol=0, rtol=0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
