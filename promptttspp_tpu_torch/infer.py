@@ -36,11 +36,26 @@ JAX's jitted decode: captured at the first request of a shape, or ahead of
 it by ``prewarm``, as JAX compiles at first use or in its prewarm. The rest
 of the pass (BERT, the conformers, the variance adaptor, the vocoder with
 its kernels) runs eagerly.
+
+Each call of ``synthesize``, ``synthesize_async`` or
+``synthesize_streaming`` gets a request id (a sequence number of the
+``Synthesizer``), which its spans carry (``utils/trace.py``; recorded only
+while a profiler runs or inside ``trace.recording()``): ``synth.request``
+around the dispatch, inside it ``synth.inputs`` (padding and host-to-device
+staging), ``synth.acoustic`` (``infer_cond``, and the duration pre-pass on
+the two-phase path), ``synth.decode`` and ``synth.vocoder`` (the frame
+mask, the F0 post-processing and the vocoder); ``synth.readback`` around
+the readback and the split, in ``result()`` for an async request. A
+mispredict's second pass records its own acoustic, decode and vocoder
+spans. At resolve the counters ``synth.frames_decoded`` (the batch times
+the frame bucket of every pass) and ``synth.frames_useful`` (the frame
+lengths) are recorded.
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -55,6 +70,7 @@ from promptttspp_tpu_torch.parallel.pp import StageDevices
 from promptttspp_tpu_torch.parallel.sp import (
     FrameShardedDenoiser, decode_frames_sharded)
 from promptttspp_tpu_torch.platform import resolve_device
+from promptttspp_tpu_torch.utils import trace
 from promptttspp_tpu_torch.vocoders.streaming import (
     vocode_chunked, vocode_sharded, vocode_streaming)
 
@@ -76,16 +92,18 @@ class _PendingRequest:
     its launches are queued; ``result()`` makes the one readback, checks
     the bucket prediction and re-dispatches on overflow."""
 
-    def __init__(self, synth, n_items, resolve):
+    def __init__(self, synth, n_items, request_id, resolve):
         self._synth = synth
         self._n = n_items
+        self._id = request_id
         self._resolve = resolve
 
     @torch.inference_mode()
     def result(self) -> Tuple[List[np.ndarray], List[np.ndarray]]:
         """-> (wavs, mels) exactly like ``synthesize``."""
         _, host = self._resolve()
-        return self._synth._split(self._n, *host)
+        with trace.span("synth.readback", self._id):
+            return self._synth._split(self._n, *host)
 
 
 class Synthesizer:
@@ -191,6 +209,7 @@ class Synthesizer:
         self.return_int16 = return_int16
         self.spec_requests = 0
         self.spec_mispredicts = 0
+        self._request_ids = itertools.count()  # the id of each API call
         self.frame_sharded_decode = frame_sharded_decode
         self.decode_pipelined = decode_pipelined
         if (vocoder_mode == "sharded" or frame_sharded_decode
@@ -276,27 +295,30 @@ class Synthesizer:
         return self._wav_mels([wav])[0].cpu().numpy()
 
     def _request(self, phoneme_seqs, prompts, reference_mels,
-                 reference_wavs, use_max, noise_scale, seed):
+                 reference_wavs, use_max, noise_scale, seed,
+                 request_id=None):
         """-> (host phonemes, host lengths, request dict of device inputs)
-        for exactly one of prompts / reference_mels / reference_wavs."""
+        for exactly one of prompts / reference_mels / reference_wavs; the
+        dict's ``id`` is ``request_id``, which the passes' spans carry."""
         n_cond = sum(c is not None
                      for c in (prompts, reference_mels, reference_wavs))
         if n_cond != 1:
             raise ValueError("exactly one of prompts / reference_mels / "
                              "reference_wavs must be given")
-        phoneme, plens = self._pad_phonemes_host(phoneme_seqs)
-        req = dict(phoneme=self._to(phoneme), plens=self._to(plens),
-                   prompt_ids=None, prompt_mask=None, ref_mel=None,
-                   ref_lens=None, use_max=use_max, noise_scale=noise_scale,
-                   seed=seed)
-        if prompts is not None:
-            req["prompt_ids"], req["prompt_mask"] = \
-                self._encode_prompts(prompts)
-        else:
-            if reference_wavs is not None:
-                reference_mels = self._wav_mels(reference_wavs)
-            req["ref_mel"], req["ref_lens"] = \
-                self._pad_ref_mels(reference_mels)
+        with trace.span("synth.inputs", request_id):
+            phoneme, plens = self._pad_phonemes_host(phoneme_seqs)
+            req = dict(phoneme=self._to(phoneme), plens=self._to(plens),
+                       prompt_ids=None, prompt_mask=None, ref_mel=None,
+                       ref_lens=None, use_max=use_max,
+                       noise_scale=noise_scale, seed=seed, id=request_id)
+            if prompts is not None:
+                req["prompt_ids"], req["prompt_mask"] = \
+                    self._encode_prompts(prompts)
+            else:
+                if reference_wavs is not None:
+                    reference_mels = self._wav_mels(reference_wavs)
+                req["ref_mel"], req["ref_lens"] = \
+                    self._pad_ref_mels(reference_mels)
         return phoneme, plens, req
 
     def _generator(self, seed: int) -> torch.Generator:
@@ -305,38 +327,45 @@ class Synthesizer:
     # ------------------------------------------------------------ passes
     def _frame_bucket(self, req) -> int:
         """Two-phase: duration pre-pass, one readback, frame bucket."""
-        frame_lens = self.model.infer_frame_lengths(
-            req["phoneme"], req["plens"], req["prompt_ids"],
-            req["prompt_mask"], req["ref_mel"], req["ref_lens"],
-            use_max=req["use_max"], noise_scale=0.0,
-            style_generator=self._generator(req["seed"]))
-        return min(bucket_shape(int(frame_lens.max()), self.frame_quantum),
-                   self.max_frames_cap)
+        with trace.span("synth.acoustic", req["id"]):
+            frame_lens = self.model.infer_frame_lengths(
+                req["phoneme"], req["plens"], req["prompt_ids"],
+                req["prompt_mask"], req["ref_mel"], req["ref_lens"],
+                use_max=req["use_max"], noise_scale=0.0,
+                style_generator=self._generator(req["seed"]))
+            return min(bucket_shape(int(frame_lens.max()),
+                                    self.frame_quantum), self.max_frames_cap)
 
     def _acoustic(self, req, max_frames: int, x_T=None,
                   zero_noise: bool = False):
         """``model.infer`` with the decode as a graph (``decode_graph``),
         or frame-sharded or pipelined (eager), + F0 post + mel
         denormalization -> (mel_denorm, f0, frame_lengths,
-        raw_frame_lengths), all on the device."""
-        cond, flens, fmask, log_cf0, vuv, raw = self.model.infer_cond(
-            req["phoneme"], req["plens"], max_frames, req["prompt_ids"],
-            req["prompt_mask"], req["ref_mel"], req["ref_lens"],
-            use_max=req["use_max"], noise_scale=req["noise_scale"],
-            style_generator=self._generator(req["seed"]))
-        if self.decode_pipelined:
-            mel = self._decoder.inference(cond, x_T, zero_noise,
+        raw_frame_lengths), all on the device. The frame mask and the F0
+        post-processing are the vocoder's span."""
+        rid = req["id"]
+        with trace.span("synth.acoustic", rid):
+            cond, flens, fmask, log_cf0, vuv, raw = self.model.infer_cond(
+                req["phoneme"], req["plens"], max_frames, req["prompt_ids"],
+                req["prompt_mask"], req["ref_mel"], req["ref_lens"],
+                use_max=req["use_max"], noise_scale=req["noise_scale"],
+                style_generator=self._generator(req["seed"]))
+        with trace.span("synth.decode", rid):
+            if self.decode_pipelined:
+                mel = self._decoder.inference(
+                    cond, x_T, zero_noise, self._generator(req["seed"] + 1))
+            elif self.frame_sharded_decode:
+                mel = decode_frames_sharded(
+                    self.mesh, self._decoder, cond, x_T, zero_noise,
+                    self._generator(req["seed"] + 1),
+                    denoiser=self._sharded_denoiser)
+            else:
+                mel = decode_graph.decode(self._decoder, cond, x_T,
+                                          zero_noise,
                                           self._generator(req["seed"] + 1))
-        elif self.frame_sharded_decode:
-            mel = decode_frames_sharded(
-                self.mesh, self._decoder, cond, x_T, zero_noise,
-                self._generator(req["seed"] + 1),
-                denoiser=self._sharded_denoiser)
-        else:
-            mel = decode_graph.decode(self._decoder, cond, x_T, zero_noise,
-                                      self._generator(req["seed"] + 1))
-        mel = mel * fmask[:, :, None].to(mel.dtype)
-        f0, mel_denorm = self._postprocess(mel, log_cf0, vuv)
+        with trace.span("synth.vocoder", rid):
+            mel = mel * fmask[:, :, None].to(mel.dtype)
+            f0, mel_denorm = self._postprocess(mel, log_cf0, vuv)
         return mel_denorm, f0, flens, raw
 
     def _postprocess(self, mel, log_cf0, vuv):
@@ -375,7 +404,9 @@ class Synthesizer:
         frame_lengths, raw_frame_lengths)."""
         mel_denorm, f0, flens, raw = self._acoustic(req, max_frames, x_T,
                                                     zero_noise)
-        wav = None if self.vocoder is None else self._vocode(mel_denorm, f0)
+        with trace.span("synth.vocoder", req["id"]):
+            wav = None if self.vocoder is None else self._vocode(mel_denorm,
+                                                                 f0)
         return wav, mel_denorm, flens, raw
 
     def _readback(self, *tensors):
@@ -386,6 +417,15 @@ class Synthesizer:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         return [None if h is None else h.numpy() for h in host]
+
+    @staticmethod
+    def _count_frames(n_items: int, buckets: Sequence[int], flens_np):
+        """Record a resolved request's frames: those its passes decoded
+        (the batch times each pass's frame bucket) and the useful ones
+        (its frame lengths)."""
+        if trace.active():
+            trace.count("synth.frames_decoded", n_items * sum(buckets))
+            trace.count("synth.frames_useful", int(np.sum(flens_np)))
 
     def _split(self, n_items, wav_np, mel_np, flens_np):
         wavs, mels = [], []
@@ -423,29 +463,33 @@ class Synthesizer:
         return min(bucket_shape(max(1, int(np.ceil(frames))),
                                 self.frame_quantum), self.max_frames_cap)
 
-    def _speculative(self, phoneme, plens, run):
+    def _speculative(self, phoneme, plens, run, request_id):
         """Speculative dispatch. ``run(bucket)`` queues a pass at a frame
         bucket and returns (device outputs, device tensors to read back,
-        the unclipped duration sums last). The pass is queued at once at
-        the predicted bucket, with no readback. Returns ``resolve()``,
-        which makes the one readback and, when the duration sums overflow
-        the prediction, runs the pass again at the true bucket (right, just
-        slower for this request) -> (device outputs, host arrays of the
-        other read-back tensors)."""
+        the frame lengths and the unclipped duration sums last). The pass
+        is queued at once at the predicted bucket, with no readback.
+        Returns ``resolve()``, which makes the one readback and, when the
+        duration sums overflow the prediction, runs the pass again at the
+        true bucket (right, just slower for this request) -> (device
+        outputs, host arrays of the other read-back tensors)."""
         self.spec_requests += 1
         pred = self._predict_frames(phoneme, plens)
         out, back = run(pred)
 
         def resolve():
-            host = self._readback(*back)
+            with trace.span("synth.readback", request_id):
+                host = self._readback(*back)
+            done, buckets = out, [pred]
             true_max = int(host[-1].max())
-            if true_max <= pred or pred >= self.max_frames_cap:
-                return out, host[:-1]
-            self.spec_mispredicts += 1
-            again, back_again = run(min(
-                bucket_shape(true_max, self.frame_quantum),
-                self.max_frames_cap))
-            return again, self._readback(*back_again)[:-1]
+            if true_max > pred and pred < self.max_frames_cap:
+                self.spec_mispredicts += 1
+                buckets.append(min(bucket_shape(true_max, self.frame_quantum),
+                                   self.max_frames_cap))
+                done, back_again = run(buckets[-1])
+                with trace.span("synth.readback", request_id):
+                    host = self._readback(*back_again)
+            self._count_frames(len(plens), buckets, host[-2])
+            return done, host[:-1]
 
         return resolve
 
@@ -456,8 +500,8 @@ class Synthesizer:
             wav, mel, flens, raw = self._full_pass(req, max_frames)
             return None, (wav, mel if return_mels else None, flens, raw)
 
-        return _PendingRequest(self, n_items,
-                               self._speculative(phoneme, plens, run))
+        return _PendingRequest(self, n_items, req["id"], self._speculative(
+            phoneme, plens, run, req["id"]))
 
     # ----------------------------------------------------------- prewarm
     def _speculative_grid(self, max_phones: int):
@@ -535,7 +579,7 @@ class Synthesizer:
                                prompt_ids=self._to(ones),
                                prompt_mask=self._to(ones), ref_mel=None,
                                ref_lens=None, use_max=use_max,
-                               noise_scale=noise_scale, seed=0)
+                               noise_scale=noise_scale, seed=0, id=None)
                     t0 = time.perf_counter()
                     self._readback(self._full_pass(req, f)[2])
                     if streaming:
@@ -593,11 +637,13 @@ class Synthesizer:
             raise ValueError("synthesize_async requires speculative=True, "
                              "a vocoder, vocoder_mode='batched' and "
                              "frame_sharded_decode=False")
-        phoneme, plens, req = self._request(
-            phoneme_seqs, prompts, reference_mels, reference_wavs, use_max,
-            noise_scale, seed)
-        return self._dispatch_speculative(len(phoneme_seqs), phoneme, plens,
-                                          req, return_mels)
+        rid = next(self._request_ids)
+        with trace.span("synth.request", rid):
+            phoneme, plens, req = self._request(
+                phoneme_seqs, prompts, reference_mels, reference_wavs,
+                use_max, noise_scale, seed, rid)
+            return self._dispatch_speculative(len(phoneme_seqs), phoneme,
+                                              plens, req, return_mels)
 
     @torch.inference_mode()
     def synthesize(self, phoneme_seqs: Sequence[Sequence[int]],
@@ -613,24 +659,32 @@ class Synthesizer:
         False). ``x_T`` [B, frame_bucket, n_mels] and ``zero_noise`` make
         the decode deterministic (parity checks); ``x_T`` must match the
         exact frame bucket, so both take the two-phase path."""
-        phoneme, plens, req = self._request(
-            phoneme_seqs, prompts, reference_mels, reference_wavs, use_max,
-            noise_scale, seed)
         n = len(phoneme_seqs)
-        if (self.speculative and self.vocoder is not None
-                and self.vocoder_mode == "batched"
-                and not self.frame_sharded_decode and x_T is None
-                and not zero_noise):
-            return self._dispatch_speculative(n, phoneme, plens, req,
-                                              return_mels).result()
-        max_frames = self._frame_bucket(req)
-        if x_T is not None:
-            x_T = torch.as_tensor(x_T, dtype=torch.float32,
-                                  device=self.device)
-        wav, mel, flens, _ = self._full_pass(req, max_frames, x_T,
-                                             zero_noise)
-        host = self._readback(wav, mel if return_mels else None, flens)
-        return self._split(n, *host)
+        rid = next(self._request_ids)
+        with trace.span("synth.request", rid):
+            phoneme, plens, req = self._request(
+                phoneme_seqs, prompts, reference_mels, reference_wavs,
+                use_max, noise_scale, seed, rid)
+            pending = None
+            if (self.speculative and self.vocoder is not None
+                    and self.vocoder_mode == "batched"
+                    and not self.frame_sharded_decode and x_T is None
+                    and not zero_noise):
+                pending = self._dispatch_speculative(n, phoneme, plens, req,
+                                                     return_mels)
+            else:
+                max_frames = self._frame_bucket(req)
+                if x_T is not None:
+                    x_T = torch.as_tensor(x_T, dtype=torch.float32,
+                                          device=self.device)
+                wav, mel, flens, _ = self._full_pass(req, max_frames, x_T,
+                                                     zero_noise)
+        if pending is not None:
+            return pending.result()
+        with trace.span("synth.readback", rid):
+            host = self._readback(wav, mel if return_mels else None, flens)
+            self._count_frames(n, [max_frames], host[-1])
+            return self._split(n, *host)
 
     def synthesize_streaming(self, phoneme_seqs: Sequence[Sequence[int]],
                              prompts: Optional[Sequence[str]] = None,
@@ -650,22 +704,29 @@ class Synthesizer:
         ``flens[i] * upsample`` samples long."""
         if self.vocoder is None:
             raise ValueError("streaming requires a vocoder")
+        rid = next(self._request_ids)
         with torch.inference_mode():
-            phoneme, plens, req = self._request(
-                phoneme_seqs, prompts, reference_mels, reference_wavs,
-                use_max, noise_scale, seed)
-            if self.speculative:
-                def run(max_frames):
-                    mel_denorm, f0, flens, raw = self._acoustic(req,
-                                                                max_frames)
-                    return (mel_denorm, f0), (flens, raw)
+            with trace.span("synth.request", rid):
+                phoneme, plens, req = self._request(
+                    phoneme_seqs, prompts, reference_mels, reference_wavs,
+                    use_max, noise_scale, seed, rid)
+                if self.speculative:
+                    def run(max_frames):
+                        mel_denorm, f0, flens, raw = self._acoustic(
+                            req, max_frames)
+                        return (mel_denorm, f0), (flens, raw)
 
-                (mel_denorm, f0), (flens_np,) = self._speculative(
-                    phoneme, plens, run)()
+                    resolve = self._speculative(phoneme, plens, run, rid)
+                else:
+                    max_frames = self._frame_bucket(req)
+                    mel_denorm, f0, flens, _ = self._acoustic(req,
+                                                              max_frames)
+            if self.speculative:
+                (mel_denorm, f0), (flens_np,) = resolve()
             else:
-                mel_denorm, f0, flens, _ = self._acoustic(
-                    req, self._frame_bucket(req))
-                flens_np, = self._readback(flens)
+                with trace.span("synth.readback", rid):
+                    flens_np, = self._readback(flens)
+                self._count_frames(len(plens), [max_frames], flens_np)
             chunks = vocode_streaming(
                 self.vocoder, mel_denorm, f0,
                 chunk_frames=self.chunk_frames, halo_frames=self.halo_frames,
@@ -674,10 +735,12 @@ class Synthesizer:
                 deterministic=True)
         while True:
             with torch.inference_mode():
-                wav = next(chunks, None)
+                with trace.span("synth.vocoder", rid):
+                    wav = next(chunks, None)
                 if wav is None:
                     return flens_np
-                wav = wav[:, :, 0].cpu().numpy()
+                with trace.span("synth.readback", rid):
+                    wav = wav[:, :, 0].cpu().numpy()
             yield wav
 
 

@@ -20,8 +20,9 @@ one memory pool; a replay waits for the previous replay of its graph, so
 requests on several streams do not share the buffers at once.
 
 A graph is captured at the first decode of its shape (``Synthesizer.
-prewarm`` captures ahead, as JAX's prewarm compiles ahead); a capture that
-fails raises. On a CPU tensor ``decode`` runs the eager decode.
+prewarm`` captures ahead, as JAX's prewarm compiles ahead), inside the span
+``decode_graph.capture`` (``utils/trace.py``); a capture that fails raises.
+On a CPU tensor ``decode`` runs the eager decode.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from promptttspp_tpu_torch.models.diffusion import GaussianDiffusion
+from promptttspp_tpu_torch.utils import trace
 
 
 class _Graph:
@@ -114,7 +116,8 @@ def decode(decoder: GaussianDiffusion, cond, x_T=None,
         if graph is None:
             if graphs.pool is None:
                 graphs.pool = torch.cuda.graph_pool_handle()
-            graph = _Graph(decoder, B, T, H, cond.device, graphs.pool)
+            with trace.span("decode_graph.capture"):
+                graph = _Graph(decoder, B, T, H, cond.device, graphs.pool)
             graphs.by_shape[key] = graph
         if x_T is not None:
             x_T = x_T.to(device=cond.device, dtype=torch.float32)

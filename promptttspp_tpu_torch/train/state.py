@@ -56,6 +56,12 @@ Counterpart of ``promptttspp_tpu/train/state.py`` (``bert_freeze_mask``,
   each rank of the group but for the card's non-deterministic backward
   (atomic sums), so it is averaged over the group, in the same
   collective: the replicated parameters then stay equal on every rank.
+- Spans (``utils/trace.py``, recorded only while a profiler runs or inside
+  ``trace.recording()``), each carrying ``step``: ``train.step`` around
+  the update, inside it ``train.forward`` (the generator, ``zero_grad`` or
+  the shadow's refresh, the forward pass), ``train.backward`` (the
+  backward pass, the gradients of unused parameters) and
+  ``train.optimizer`` (``_update``: reductions, norm, clip, AdamW).
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ import torch
 
 from promptttspp_tpu_torch.models.diffusion import float32_math
 from promptttspp_tpu_torch.train.schedule import noam_schedule
+from promptttspp_tpu_torch.utils import trace
 
 _BERT_LAYER = re.compile(r"^prompt_encoder\.bert\.model\.encoder\.layer\.(\d+)\.")
 
@@ -173,46 +180,59 @@ class TrainState:
         """One update on ``batch`` (tensors on the model's device) -> the
         losses and the gradients' global norm before clipping, as 0-dim
         float32 tensors (read them without syncing each step)."""
-        if self.shadow is not None:
-            return self._bf16_step(batch)
-        self.model.train()
-        g = step_generator(self.seed, self.step, self.device)
-        self.optimizer.zero_grad(set_to_none=True)
-        with float32_math():
-            losses = self.model(batch, generator=g, data=self.data)
-            losses["loss"].backward()
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        return self._update(losses)
+        step = self.step
+        with trace.span("train.step", step):
+            if self.shadow is not None:
+                return self._bf16_step(batch)
+            with trace.span("train.forward", step):
+                self.model.train()
+                g = step_generator(self.seed, step, self.device)
+                self.optimizer.zero_grad(set_to_none=True)
+                with float32_math():
+                    losses = self.model(batch, generator=g, data=self.data)
+            with trace.span("train.backward", step):
+                with float32_math():
+                    losses["loss"].backward()
+                for p in self.params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            with trace.span("train.optimizer", step):
+                return self._update(losses)
 
     def _bf16_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        with torch.no_grad():
-            if self._frozen is not None:
-                # at the first update, so a restored or warm-started
-                # model's frozen weights are the ones cast
-                torch._foreach_copy_(self._frozen[1], self._frozen[0])
-                self._frozen = None
-            torch._foreach_copy_(self.shadow_params, self.params)
-        batch = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
-                 for k, v in batch.items()}
-        self.shadow.train()
-        g = step_generator(self.seed, self.step, self.device)
-        for p in self.shadow_params:
-            p.grad = None
-        with float32_math():
-            losses = self.shadow(batch, generator=g, data=self.data)
-            losses["loss"].float().backward()
-        pairs = [(g, p.grad) for g, p in zip(self._grads, self.shadow_params)
-                 if p.grad is not None]
-        torch._foreach_copy_([g for g, _ in pairs], [s for _, s in pairs])
-        unused = [g for g, p in zip(self._grads, self.shadow_params)
-                  if p.grad is None]
-        if unused:  # JAX's gradient tree has zeros there
-            torch._foreach_zero_(unused)
-        for p, grad in zip(self.params, self._grads):
-            p.grad = grad
-        return self._update({k: v.float() for k, v in losses.items()})
+        step = self.step
+        with trace.span("train.forward", step):
+            with torch.no_grad():
+                if self._frozen is not None:
+                    # at the first update, so a restored or warm-started
+                    # model's frozen weights are the ones cast
+                    torch._foreach_copy_(self._frozen[1], self._frozen[0])
+                    self._frozen = None
+                torch._foreach_copy_(self.shadow_params, self.params)
+            batch = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                     for k, v in batch.items()}
+            self.shadow.train()
+            g = step_generator(self.seed, step, self.device)
+            for p in self.shadow_params:
+                p.grad = None
+            with float32_math():
+                losses = self.shadow(batch, generator=g, data=self.data)
+        with trace.span("train.backward", step):
+            with float32_math():
+                losses["loss"].float().backward()
+            pairs = [(g, p.grad) for g, p in
+                     zip(self._grads, self.shadow_params)
+                     if p.grad is not None]
+            torch._foreach_copy_([g for g, _ in pairs],
+                                 [s for _, s in pairs])
+            unused = [g for g, p in zip(self._grads, self.shadow_params)
+                      if p.grad is None]
+            if unused:  # JAX's gradient tree has zeros there
+                torch._foreach_zero_(unused)
+            for p, grad in zip(self.params, self._grads):
+                p.grad = grad
+        with trace.span("train.optimizer", step):
+            return self._update({k: v.float() for k, v in losses.items()})
 
     def _update(self, losses: Dict) -> Dict[str, torch.Tensor]:
         """Clip the trainable parameters' gradients by their global norm,

@@ -763,6 +763,39 @@ def test_async_requests_on_one_bucket(dev):
     assert spec.spec_mispredicts == 0
 
 
+def test_decode_span_opens_before_its_device_work(dev):
+    """The program's spans and the profiler's device timestamps share one
+    clock on the card: under a CUDA-only profiler (which turns recording
+    on), every device operation launched inside the ``synth.decode`` span
+    of a request that waits for nothing earlier starts after the span's
+    start, the graph's replay among them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from promptttspp_tpu_torch.utils import trace
+
+    synth = _tiny_synth(dev, speculative=True, spec_frames_per_phone=4.0)
+    synth.synthesize(SEQS, PROMPTS, seed=3)  # captures the decode graph
+    torch.cuda.synchronize()
+    trace.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            synth.synthesize(SEQS, PROMPTS, seed=3)
+        (decode,) = [s for s in trace.spans() if s.name == "synth.decode"]
+    finally:
+        trace.clear()
+    events = list(prof.profiler.kineto_results.events())
+    launched = {e.correlation_id() for e in events
+                if e.device_type() == DeviceType.CPU
+                and e.name().startswith(("cuda", "cu"))
+                and decode.start_ns <= e.start_ns() <= decode.end_ns}
+    device = [e for e in events if e.device_type() == DeviceType.CUDA
+              and e.correlation_id() in launched]
+    assert any(e.name() == "cudaGraphLaunch" for e in events)
+    assert device, "no device operation correlates with a launch in the span"
+    assert min(e.start_ns() for e in device) >= decode.start_ns
+
+
 def test_prewarmed_shape_captures_nothing_new(dev):
     """``prewarm`` captures the decode graph of each grid entry's frame
     bucket; a request on a prewarmed shape then captures nothing."""
