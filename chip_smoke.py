@@ -7,8 +7,8 @@ Run from the repository root, with no arguments:
 
 ``python3 chip_smoke.py --phase12`` builds the kernels and runs phase 12
 alone (on every visible GPU where it uses more than one), with no result
-line; ``--phase6``, ``--phase13``, ``--phase14`` and ``--phase15`` do the
-same for phases 6, 13, 14 and 15.
+line; ``--phase6``, ``--phase13``, ``--phase14``, ``--phase15`` and
+``--phase16`` do the same for phases 6, 13, 14, 15 and 16.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -42,10 +42,15 @@ Phases (any failure exits non-zero and prints no result line):
    phones and a 32-token prompt (640 frames, 6.4 s of audio each) through
    ``Synthesizer.synthesize``. The kernels' launch counts are set to 0
    just before and read just after: the vocoder's default
-   ``conv_precision`` launches K2-bf16 only. Then one deterministic request
-   (fixed x_T, zero diffusion noise, deterministic NSF source, noise_scale
-   0) is run with the kernels and again with every kernel replaced by its
-   plain version of the same precision, and the waveforms are compared;
+   ``conv_precision`` launches K2-bf16 only; the decode's G0-G2 launch
+   only while a graph is captured, and every graph replay counts its
+   2,000 residual blocks, all on the fused block path
+   (``decode.blocks_run`` / ``decode.blocks_fused``). Then one
+   deterministic request (fixed x_T, zero diffusion noise, deterministic
+   NSF source, noise_scale 0) is run with the kernels and again with every
+   kernel replaced by its plain version of the same precision and the
+   decode eager on the block-by-block path (``DiffNet.fuses`` false), and
+   the waveforms are compared, the mels bit for bit;
    the same request with the vocoder at ``conv_precision="highest"``
    launches only the float32 K2 (72 launches), is held against its float32
    plain versions and gives the bf16 wav's deviation from float32. With
@@ -64,7 +69,8 @@ Phases (any failure exits non-zero and prints no result line):
    serving path's way for the same block; K2-bf16 for bf16), its plain
    version and its bound. The serving path does not call K3.
 7. Serving paths, each driven with the launch counts set to 0 just before
-   and read just after: speculative requests (bucket predicted at 10
+   and read just after, every decode's blocks all on the fused block path
+   (the replays' counters): speculative requests (bucket predicted at 10
    frames per phone, no mispredict); a forced mispredict (5 frames per
    phone: one re-dispatch, the two-phase wav); a request's input staging
    (every host -> device copy) behind a spin kernel, which must still run
@@ -82,7 +88,9 @@ Phases (any failure exits non-zero and prints no result line):
    captured graph's capture time and memory, the largest frame bucket's
    (2048) included; requests with the decode as
    graphs against the same requests with the eager decode, bit for bit
-   (noise from the generator, and x_T with zero noise); eager and graph
+   (noise from the generator, and x_T with zero noise; the graph replay
+   counts 2,000 fused blocks, the eager decode launches G0 100 times and
+   G1 and G2 2,000 times each); eager and graph
    two-phase requests in alternated turns (wall, RTF); a profile of an
    eager request beside phase 5's graph request (device time, device-busy
    share, host-issued launches); a PLMS-10 request (``pndm_speedup=10``,
@@ -176,8 +184,10 @@ Phases (any failure exits non-zero and prints no result line):
     ``Synthesizer(frame_sharded_decode=True, vocoder_mode="sharded")``
     over the mesh ``[cuda:0, cuda:0]``: its mel within 1e-5 of the
     unsharded eager decode's, its wav's interior within 5e-3 of the
-    batched path's, its K1 and K2-bf16 launches (counts set to 0 just
-    before, read just after), the decode and vocoder times of both paths.
+    batched path's, its K1 and K2-bf16 launches and its G0-G2 launches
+    (each of the two windows' denoiser calls on the fused block path;
+    counts set to 0 just before, read just after), the decode and vocoder
+    times of both paths.
     Where there are two GPUs or more, the request also runs over
     ``[cuda:0, cuda:1]``; with one the lines say so.
 13. The model axis (``parallel/tp.py``, ``parallel/pp.py``), at the
@@ -263,7 +273,15 @@ Phases (any failure exits non-zero and prints no result line):
     rounding step (0.0101), the F0 tracks at phase 11's bars. No kernel
     lies on this path: the launch counts are set to 0 before the phase and
     read (all 0) after it.
-16. Print the ``kernels`` JSON line, the GPU line and the result line.
+16. Hold the decode's kernels G0-G2 (``ops/kernels/diffnet.py``: ``entry``,
+    ``gate``, ``residual``, the DiffNet residual block's elementwise work
+    around its two float32 products) bit for bit against their plain
+    versions at the flagship's R = 256 and the decode's shapes (the
+    offline cell's [16, 1024], an online request's [1, 712]): G1 with the
+    convolution's bias apart and inside, on a float32 and a bf16
+    conditioner projection; G2 for the first, a middle and the last block;
+    G0. Time each (and its plain version) beside its bound.
+17. Print the ``kernels`` JSON line, the GPU line and the result line.
 
 TF32 is switched off for cuDNN convolutions and cuBLAS matrix products, so
 the plain versions are full float32 references; the bf16 plain version
@@ -341,6 +359,9 @@ SPIN_CYCLES = 1_000_000_000
 TIMING_SPIN_CYCLES = 20_000_000
 
 PHONES, PROMPT_LEN, FRAMES, N_REQUESTS, N_TIMED = 64, 32, 640, 3, 7
+# phase 16: the residual channels and (B, T) of the decode's G0-G2: the
+# offline cell's batch at its frame bucket, an online request's
+DIFFNET_R, DIFFNET_SHAPES = 256, ((16, 1024), (1, 712))
 # phase 10: the training corpus (utterances, phones and frames per phone
 # [lo, hi)); one epoch at max_tokens 10000 then takes about 25 updates
 TRAIN_UTTS, TRAIN_PHONES, TRAIN_FPP, MAX_TOKENS = 720, (20, 80), (3, 12), \
@@ -598,6 +619,21 @@ def k3_bound(B, T, C, k, n_layers, bf16):
     return nbytes / HBM_BYTES_PER_S, t_mix, fp32 / FP32_FLOP_PER_S
 
 
+def diffnet_cost(kernel, B, T, R, cond_bytes=4):
+    """One launch of G0 (``entry``), G1 (``gate``) or G2 (``residual``, a
+    middle block's) at [B, T] with R residual channels: each input read
+    once, each output written once (bytes); per output element its adds,
+    the relu, and G1's sigmoid (negate, exp, add, divide) and tanh, each
+    counted as one operation (operations)."""
+    n = B * T * R
+    if kernel == "entry":  # h, dp -> x, the next convolution input
+        return (3 * n + B * R) * 4, 2 * n
+    if kernel == "gate":  # c, bias, cond_proj -> z
+        return (3 * n + 2 * R) * 4 + 2 * n * cond_bytes, 10 * n
+    # o, bias, x, skip, dp -> x, skip, the next convolution input
+    return (7 * n + 2 * R + B * R) * 4, 6 * n
+
+
 def stage_shapes(voc_cfg, frames):
     """(C, T) of each upsample stage's AMPLayers for ``frames`` mel frames."""
     shapes, T = [], frames
@@ -638,10 +674,13 @@ def main() -> int:
     try:
         from promptttspp_tpu_torch import flagship
         from promptttspp_tpu_torch.infer import Synthesizer
+        from promptttspp_tpu_torch.models import decode_graph
+        from promptttspp_tpu_torch.models.diffusion import DiffNet
         from promptttspp_tpu_torch.ops.kernels import _build
         from promptttspp_tpu_torch.ops.kernels import amp as k2
         from promptttspp_tpu_torch.ops.kernels import snake as k1
         from promptttspp_tpu_torch.tools import k2_bits, k2_variants
+        from promptttspp_tpu_torch.utils import trace
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}",
               file=sys.stderr)
@@ -764,17 +803,36 @@ def main() -> int:
     audio_s = samples / flagship.VOCODER["sampling_rate"]
 
     _zero_counts(k1, k2)
+    n_graphs = len(decode_graph.captured(synth._decoder))
     walls = []
-    for i in range(N_REQUESTS):
-        t0 = time.perf_counter()
-        wavs, mels = synth.synthesize(seqs, prompts, use_max=True,
-                                      noise_scale=0.0, seed=i)
-        walls.append(time.perf_counter() - t0)
-        w = wavs[0]
-        if w.shape != (samples,) or not np.isfinite(w).all():
-            failures.append(f"request {i}: wav shape {w.shape}, finite "
-                            f"{bool(np.isfinite(w).all())}")
+    trace.clear()
+    with trace.recording():
+        for i in range(N_REQUESTS):
+            t0 = time.perf_counter()
+            wavs, mels = synth.synthesize(seqs, prompts, use_max=True,
+                                          noise_scale=0.0, seed=i)
+            walls.append(time.perf_counter() - t0)
+            w = wavs[0]
+            if w.shape != (samples,) or not np.isfinite(w).all():
+                failures.append(f"request {i}: wav shape {w.shape}, "
+                                f"finite {bool(np.isfinite(w).all())}")
     launches = _counts(k1, k2)
+    decode_launches, blocks = _decode_counts(), _block_counts()
+    per_decode = _per_decode(synth._decoder)
+    # a capture runs the decode's Python twice (its warm-up, the capture);
+    # a replay runs none
+    captures = len(decode_graph.captured(synth._decoder)) - n_graphs
+    expect_decode = {k: 2 * captures * v for k, v in per_decode.items()}
+    n_blocks = N_REQUESTS * per_decode["diffnet_gate"]
+    print(f"phase 4: G0-G2 launches {decode_launches} in {captures} graph "
+          f"capture(s) (expected {expect_decode}); decode blocks run "
+          f"{blocks['run']}, fused {blocks['fused']} (expected {n_blocks} "
+          "each)", flush=True)
+    if decode_launches != expect_decode or blocks != {"run": n_blocks,
+                                                      "fused": n_blocks}:
+        failures.append(f"decode: G0-G2 launches {decode_launches} != "
+                        f"{expect_decode} or blocks {blocks} not all "
+                        f"{n_blocks} fused")
     # the serving path runs an AMPBlock as three amp_layer calls, as the
     # JAX package does (K3 is not on it), at the vocoder's default
     # conv_precision: K2-bf16, not the float32 K2
@@ -790,16 +848,22 @@ def main() -> int:
     det = dict(use_max=True, noise_scale=0.0, seed=7, x_T=x_T,
                zero_noise=True)
     wav_k, mel_k = synth.synthesize(seqs, prompts, **det)
-    before = _counts(k1, k2)
+    before = _counts(k1, k2), _decode_counts()
     with mock.patch.object(k2, "amp_layer", k2.amp_layer_plain), \
             mock.patch.object(k1, "antialias_snake",
-                              k1.antialias_snake_plain):
+                              k1.antialias_snake_plain), \
+            mock.patch.object(decode_graph, "decode", _eager_decode), \
+            mock.patch.object(DiffNet, "fuses", _never_fuses):
         wav_p, mel_p = synth.synthesize(seqs, prompts, **det)
-    if _counts(k1, k2) != before:
+    if (_counts(k1, k2), _decode_counts()) != before:
         failures.append("a kernel launched while its plain version was "
                         "patched in")
     wav_err = float(np.abs(wav_k[0] - wav_p[0]).max())
     mel_err = float(np.abs(mel_k[0] - mel_p[0]).max())
+    if mel_err != 0:
+        failures.append(f"deterministic mel: the fused graph decode is "
+                        f"{mel_err:.3g} from the block path's, not bit for "
+                        "bit")
     set_conv_precision(vocoder, "highest")
     try:
         _zero_counts(k1, k2)
@@ -823,7 +887,8 @@ def main() -> int:
     print(f"[{gpu}] phase 4: deterministic request, kernels vs plain "
           f"versions: bf16 (K2-bf16) wav max abs err {wav_err:.3g} (tol "
           f"{WAV_BF16_ATOL}), float32 (K2) wav {wav_f_err:.3g} (tol "
-          f"{WAV_ATOL}), mel max abs err {mel_err:.3g}; bf16 wav vs float32 "
+          f"{WAV_ATOL}), mel (fused graph decode vs the block path's eager "
+          f"one) max abs err {mel_err:.3g} (tol 0); bf16 wav vs float32 "
           f"wav max abs dev {bf16_dev:.3g}; wav rms "
           f"{np.sqrt(np.mean(wav_k[0] ** 2)):.4f}", flush=True)
     if not (wav_err <= WAV_BF16_ATOL and np.isfinite(wav_k[0]).all()):
@@ -931,6 +996,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     aux = phase_aux_nets(k1, k2, dev, gpu, failures)
 
+    # -- phase 16: the decode's kernels G0-G2 -----------------------------
+    print(f"phase 16 starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    g_rows = phase_diffnet(randn, gpu, failures)
+
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -995,6 +1065,20 @@ def main() -> int:
                 f"(12 launches), mxu_bf16={bf16}; amp_layer_x3_ms is the "
                 "chain of three K2 launches of the same precision in "
                 "alternated turns; the serving path does not call it"))
+    for name, row in g_rows.items():
+        kernels.append(dict(
+            name=f"diffnet_{name}", route="cuda",
+            source="promptttspp_tpu_torch/csrc/diffnet_block.cu",
+            replaces=None, replaces_glue_of="promptttspp_tpu_torch/models/"
+            "diffusion.py::ResidualBlock.forward (XLA fuses it in JAX)",
+            launches=decode_launches[f"diffnet_{name}"],
+            launches_per_decode=per_decode[f"diffnet_{name}"],
+            max_abs_err=row["err"], library_ms=None,
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "shape", "at_online_shape")},
+            per=f"one launch at [B, T, R] = {row['shape']}; launches are "
+                "phase 4's (a graph capture runs the decode twice, a replay "
+                "none), launches_per_decode an eager decode's"))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu)
@@ -1286,6 +1370,78 @@ def phase_k3(k2, randn, voc_cfg, gpu, failures):
     return rows
 
 
+def phase_diffnet(randn, gpu, failures):
+    """G0-G2 against their plain versions, bit for bit, at the decode's
+    shapes, and their CUDA-event times beside their bounds. Returns a row
+    per kernel, its times at the first shape."""
+    import torch
+
+    from promptttspp_tpu_torch.ops.kernels import diffnet as kd
+
+    R, rows = DIFFNET_R, {}
+    for B, T in DIFFNET_SHAPES:
+        c, cp, o = randn(B, 2 * R, T), randn(B, T, 2 * R), randn(B, T, 2 * R)
+        bias, dp = 0.1 * randn(2 * R), randn(B, R)
+        h, x, skip = randn(B, T, R), randn(B, T, R), randn(B, T, R)
+        h[0, 0, :3] = torch.tensor([0.0, -0.0, -1.0])
+        cp16 = cp.to(torch.bfloat16)
+        # (kernel, plain) output pairs: G1 with the bias apart and inside,
+        # on float32 and bf16 projections; G2 for the first, a middle and
+        # the last block (it updates x and the skip sum in place)
+        pairs = {
+            "entry": [(kd.entry(h, dp), kd.entry_plain(h, dp))],
+            "gate": [(kd.gate(c, bias, p), kd.gate_plain(c, bias, p))
+                     for p in (cp, cp16)] + [
+                (kd.gate(c + bias[:, None], None, cp),
+                 kd.gate_plain(c, bias, cp))],
+            "residual": [
+                (kd.residual(o, bias, x.clone(), s_in, d),
+                 kd.residual_plain(o, bias, x, s_ref, d))
+                for s_in, s_ref, d in ((None, None, dp),
+                                       (skip.clone(), skip, dp),
+                                       (skip.clone(), skip, None))],
+        }
+        xs, ss = x.clone(), skip.clone()  # G2's timed calls update them
+        calls = {
+            "entry": (lambda: kd.entry(h, dp), lambda: kd.entry_plain(h, dp)),
+            "gate": (lambda: kd.gate(c, bias, cp),
+                     lambda: kd.gate_plain(c, bias, cp)),
+            "residual": (lambda: kd.residual(o, bias, xs, ss, dp),
+                         lambda: kd.residual_plain(o, bias, xs, ss, dp)),
+        }
+        torch.cuda.synchronize()
+        for name, (kernel, plain) in calls.items():
+            err = 0.0
+            for got, want in pairs[name]:
+                if torch.is_tensor(got):  # G1's one output
+                    got, want = (got,), (want,)
+                for a, b in zip(got, want):
+                    if (a is None) != (b is None):
+                        err = float("inf")
+                    elif a is not None:
+                        err = max(err, float((a - b).abs().max()))
+            ms = cuda_ms(kernel, iters=50)
+            plain_ms = cuda_ms(plain, iters=20, kernel=False)
+            nbytes, flops = diffnet_cost(name, B, T, R)
+            bms, by = bound_ms(nbytes, flops)
+            print(f"[{gpu}] phase 16: {name} [{B}, {T}, {R}] max_abs_err "
+                  f"{err:.3g} ({'ok' if err == 0 else 'FAIL'}, tol 0); "
+                  f"kernel {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e12:.2f} "
+                  f"TB/s, {bms / ms:.0%} of the bound), plain {plain_ms:.4f}"
+                  f" ms, bound {bms:.4f} ms ({by})", flush=True)
+            if err != 0:
+                failures.append(f"G0-G2 {name} [{B}, {T}]: max abs err "
+                                f"{err:.3g} from its plain version")
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       shape=[B, T, R])
+            if name in rows:
+                rows[name]["err"] = max(rows[name]["err"], err)
+                rows[name]["at_online_shape"] = row
+            else:
+                rows[name] = dict(row, err=err)
+    return rows
+
+
 def _counts(k1, k2):
     return {"antialias_snake": k1.antialias_snake.launches,
             "amp_layer_bf16": k2.amp_layer.launches_bf16,
@@ -1295,11 +1451,52 @@ def _counts(k1, k2):
 
 
 def _zero_counts(k1, k2):
+    from promptttspp_tpu_torch.ops.kernels import diffnet as kd
+
     k1.antialias_snake.launches = 0
     k2.amp_layer.launches = 0
     k2.amp_layer.launches_bf16 = 0
     k2.amp_block.launches = 0
     k2.amp_block.launches_bf16 = 0
+    kd.entry.launches = kd.gate.launches = kd.residual.launches = 0
+
+
+def _decode_counts():
+    """The launches of the decode's G0-G2 (``_zero_counts`` zeroes them)."""
+    from promptttspp_tpu_torch.ops.kernels import diffnet as kd
+
+    return {"diffnet_entry": kd.entry.launches,
+            "diffnet_gate": kd.gate.launches,
+            "diffnet_residual": kd.residual.launches}
+
+
+def _per_decode(decoder):
+    """G0-G2 launches of one eager decode on the fused block path: G0 once
+    a denoiser call, G1 and G2 once a residual block."""
+    calls = decoder.n_denoiser_calls()
+    blocks = calls * len(decoder.denoise_fn.residual_layers)
+    return {"diffnet_entry": calls, "diffnet_gate": blocks,
+            "diffnet_residual": blocks}
+
+
+def _block_counts():
+    """The decode graph replays' ``decode.blocks_run`` and
+    ``decode.blocks_fused`` recorded since the last call (or
+    ``trace.clear``), summed; clears the record."""
+    from promptttspp_tpu_torch.utils import trace
+
+    n = {"run": 0, "fused": 0}
+    for c in trace.counts():
+        key = c.name[len("decode.blocks_"):]
+        if c.name.startswith("decode.blocks_") and key in n:
+            n[key] += c.n
+    trace.clear()
+    return n
+
+
+def _never_fuses(self, x, mask=None):
+    """``DiffNet.fuses`` patched out: every call runs block by block."""
+    return False
 
 
 def _reference_wav(seconds=3.0, sr=24000, seed=5):
@@ -1324,6 +1521,7 @@ def phase_serving(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
     import torch
 
     from promptttspp_tpu_torch.ops.mel import MelSpectrogramTransform
+    from promptttspp_tpu_torch.utils import trace
 
     samples = FRAMES * 240
     per_request = {"antialias_snake": 1, "amp_layer_bf16": 72,
@@ -1333,14 +1531,20 @@ def phase_serving(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
 
     def run(label, fn, expect):
         _zero_counts(k1, k2)
+        trace.clear()
         t0 = time.perf_counter()
-        out = fn()
+        with trace.recording():
+            out = fn()
         wall = time.perf_counter() - t0
-        got = _counts(k1, k2)
+        got, blocks = _counts(k1, k2), _block_counts()
         print(f"[{gpu}] phase 7: {label}: wall {wall * 1e3:.1f} ms, "
-              f"launches {got}", flush=True)
+              f"launches {got}, decode blocks fused {blocks['fused']} of "
+              f"{blocks['run']}", flush=True)
         if got != expect:
             failures.append(f"{label}: launches {got} != {expect}")
+        if not 0 < blocks["run"] == blocks["fused"]:
+            failures.append(f"{label}: decode blocks {blocks}, not all "
+                            "fused")
         return out, wall
 
     def times(n):
@@ -1555,6 +1759,7 @@ def phase_graphs(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
     import torch
 
     from promptttspp_tpu_torch.models import decode_graph
+    from promptttspp_tpu_torch.utils import trace
 
     dev, tok = synth.device, synth.tokenizer
     kw = dict(use_max=True, noise_scale=0.0)
@@ -1609,14 +1814,28 @@ def phase_graphs(Synthesizer, k1, k2, model, vocoder, synth, seqs, prompts,
     cases = {"noise from the generator": dict(seed=5, **kw),
              "x_T and zero noise": dict(seed=7, x_T=x_T, zero_noise=True,
                                         **kw)}
+    per_decode = _per_decode(synth._decoder)
+    n_blocks = per_decode["diffnet_gate"]
     for label, args in cases.items():
-        got = synth.synthesize(seqs, prompts, **args)
+        trace.clear()
+        with trace.recording():
+            got = synth.synthesize(seqs, prompts, **args)
+        blocks = _block_counts()
+        _zero_counts(k1, k2)
         with eager():
             want = synth.synthesize(seqs, prompts, **args)
+        launches = _decode_counts()
         ok = same_bits(f"request with {label}", got, want)
         print(f"[{gpu}] phase 8: request with {label}: graph decode vs "
               f"eager decode {'equal bit for bit' if ok else 'DIFFER'} "
-              "(mel and wav)", flush=True)
+              f"(mel and wav); the graph replay's decode blocks fused "
+              f"{blocks['fused']} of {blocks['run']} (expected {n_blocks} "
+              f"of {n_blocks}); the eager decode's G0-G2 launches "
+              f"{launches} (expected {per_decode})", flush=True)
+        if blocks != {"run": n_blocks, "fused": n_blocks} \
+                or launches != per_decode:
+            failures.append(f"request with {label}: graph decode blocks "
+                            f"{blocks}, eager G0-G2 launches {launches}")
 
     # eager and graph requests in turns
     walls = {"eager": [], "graph": []}
@@ -3093,6 +3312,10 @@ def phase_parallel(k1, k2, model, vocoder, seqs, prompts, dev, gpu,
         expect = {"antialias_snake": n_shards,
                   "amp_layer_bf16": 72 * n_shards, "amp_layer": 0,
                   "amp_block": 0, "amp_block_bf16": 0}
+        # each window's replica call on the fused block path
+        launches.update(_decode_counts())
+        expect.update({k: n_shards * v for k, v in
+                       _per_decode(plain._decoder).items()})
         print(f"[{gpu}] phase 12 (b): {FRAMES}-frame request, "
               f"frame_sharded_decode over {[str(d) for d in devices]}, "
               f"sharded vocoder ({chunks} chunks of {CHUNK}): wall "
@@ -4026,7 +4249,7 @@ def request_inputs():
 
 
 def phase_only(phase: int) -> int:
-    """Build the kernels and run phase 6, 12, 13, 14 or 15 alone."""
+    """Build the kernels and run phase 6, 12, 13, 14, 15 or 16 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4051,6 +4274,10 @@ def phase_only(phase: int) -> int:
                  flagship.VOCODER, gpu_line(), failures)
     elif phase == 15:
         phase_aux_nets(k1, k2, dev, gpu_line(), failures)
+    elif phase == 16:
+        g = torch.Generator(device=dev).manual_seed(0)
+        phase_diffnet(lambda *s: torch.randn(s, generator=g, device=dev),
+                      gpu_line(), failures)
     elif phase == 14:
         phase_variant(k1, k2, flagship.build_vocoder(dev, seed=1), dev,
                       gpu_line(), failures)
@@ -4069,6 +4296,6 @@ def phase_only(phase: int) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:] in (["--phase6"], ["--phase12"], ["--phase13"],
-                        ["--phase14"], ["--phase15"]):
+                        ["--phase14"], ["--phase15"], ["--phase16"]):
         sys.exit(phase_only(int(sys.argv[1][len("--phase"):])))
     sys.exit(main())

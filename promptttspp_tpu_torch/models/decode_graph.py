@@ -23,6 +23,12 @@ A graph is captured at the first decode of its shape (``Synthesizer.
 prewarm`` captures ahead, as JAX's prewarm compiles ahead), inside the span
 ``decode_graph.capture`` (``utils/trace.py``); a capture that fails raises.
 On a CPU tensor ``decode`` runs the eager decode.
+
+Each replay records two counters (``utils/trace.py``), since no Python runs
+inside it: ``decode.blocks_run``, the DiffNet residual blocks the graph
+runs (the decoder's denoiser calls x its L blocks), and
+``decode.blocks_fused``, those of them captured on the fused block path
+(``DiffNet.fuses`` at the capture): the same number, or 0.
 """
 
 from __future__ import annotations
@@ -63,6 +69,11 @@ class _Graph:
                 self.out = decoder.sample(self.cond, self.draws)
         finally:  # a capture that fails to end leaves its stream current
             torch.cuda.set_stream(stream)
+        net = decoder.denoise_fn
+        self.blocks_run = decoder.n_denoiser_calls() * len(
+            net.residual_layers)
+        fused = decoder.pipeline is None and net.fuses(self.cond)
+        self.blocks_fused = self.blocks_run if fused else 0
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         self.done = torch.cuda.Event()
@@ -80,6 +91,8 @@ class _Graph:
         self.graph.replay()
         out = self.out.clone()
         self.done.record()
+        trace.count("decode.blocks_run", self.blocks_run)
+        trace.count("decode.blocks_fused", self.blocks_fused)
         return out
 
 

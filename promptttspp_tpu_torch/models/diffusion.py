@@ -18,6 +18,14 @@ conditioner projections depend only on the conditioning, so they are
 computed once per decode (``precompute_cond``). Schedule tables are float32
 numpy constants, as in the JAX package, used as Python scalars per step;
 training indexes them by a step per row, from one device copy of each.
+
+A DiffNet call that ``fuses`` (a CUDA tensor, autograd off, no mask,
+every block's products plain ``Conv1d`` modules: every decode but the
+pipelined and TP-sharded ones) runs each residual block as its two float32
+library products around the kernels of ``ops/kernels/diffnet.py``, which
+do the block's elementwise work and layout changes with the block-by-block
+forward's bits; every other call, training's among them, runs the blocks
+one by one.
 """
 
 from __future__ import annotations
@@ -30,8 +38,11 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from promptttspp_tpu_torch.nn.layers import Conv1d, Linear, conv1d_btc, draw
+from promptttspp_tpu_torch.nn.layers import (
+    Conv1d, Linear, conv1d_btc, draw, same_padding)
+from promptttspp_tpu_torch.ops.kernels import diffnet as kernels
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int, scale: float = 1.0):
@@ -115,18 +126,65 @@ class DiffNet(nn.Module):
         return [conv1d_btc(cond, proj.weight).to(io_dtype)
                 + proj.bias.to(io_dtype) for proj in layers]
 
+    def fuses(self, x, mask=None) -> bool:
+        """Whether a call on ``x`` takes the fused block path: a CUDA
+        tensor, autograd off, no mask, and each block's dilated convolution
+        and output projection exactly a ``Conv1d`` with no hooks, since the
+        path calls their products itself (a block sharded over a model
+        group, ``parallel/tp.py``, has another class)."""
+        return (x.is_cuda and mask is None and not torch.is_grad_enabled()
+                and all(type(m) is Conv1d and not m._forward_hooks
+                        and not m._forward_pre_hooks
+                        for b in self.residual_layers
+                        for m in (b.dilated_conv, b.output_projection)))
+
     def forward(self, x, diffusion_step, cond_projs, mask=None):
         """cond_projs: ``precompute_cond(cond)``; mask [B,T,1] or None (see
-        ``ResidualBlock``)."""
-        x = torch.relu(self.input_projection(x))
+        ``ResidualBlock``). A call that ``fuses`` runs the blocks as
+        ``_fused_blocks`` does, with the same bits."""
+        h = self.input_projection(x)
         t_emb = self.mlp(sinusoidal_pos_emb(
             diffusion_step, self.residual_channels, self.scale))
-        skip_sum = 0.0
-        for block, cp in zip(self.residual_layers, cond_projs):
-            x, skip = block(x, cp, t_emb, mask)
-            skip_sum = skip_sum + skip
+        if self.fuses(x, mask):
+            skip_sum = self._fused_blocks(h, t_emb, cond_projs)
+        else:
+            x = torch.relu(h)
+            skip_sum = 0.0
+            for block, cp in zip(self.residual_layers, cond_projs):
+                x, skip = block(x, cp, t_emb, mask)
+                skip_sum = skip_sum + skip
         x = skip_sum / math.sqrt(len(self.residual_layers))
         return self.output_projection(torch.relu(self.skip_projection(x)))
+
+    def _fused_blocks(self, h, t_emb, cond_projs):
+        """The residual stack's skip sum from the input projection's output
+        h, each block as its two float32 library products (the dilated
+        convolution on a [B, R, T] input, the output projection without its
+        bias) and the kernels of ``ops/kernels/diffnet.py`` around them.
+        Every block's diffusion projection is computed first, by the same
+        calls as ``ResidualBlock.forward``'s."""
+        blocks = self.residual_layers
+        dps = [b.diffusion_projection(t_emb) for b in blocks]
+        x, u = kernels.entry(h, dps[0])
+        # cuDNN's caller adds a convolution's bias in a pass of its own, so
+        # the gate kernel adds it with the same rounding; the CPU's
+        # convolution adds it inside, in another order
+        bias_apart = h.is_cuda
+        skip_sum = None
+        for i, (block, cp) in enumerate(zip(blocks, cond_projs)):
+            conv = block.dilated_conv
+            left, right = same_padding(conv.kernel_size[0], conv.dilation[0])
+            if left != right:
+                u, left = F.pad(u, (left, right)), 0
+            c = F.conv1d(u, conv.weight, None if bias_apart else conv.bias,
+                         1, left, conv.dilation[0])
+            z = kernels.gate(c, conv.bias if bias_apart else None, cp)
+            proj = block.output_projection
+            o = torch.matmul(z, proj.weight[:, :, 0].t())
+            x, skip_sum, u = kernels.residual(
+                o, proj.bias, x, skip_sum,
+                dps[i + 1] if i + 1 < len(blocks) else None)
+        return skip_sum
 
 
 def linear_beta_schedule(timesteps: int, min_beta=1e-4, max_beta=0.06):
@@ -375,6 +433,14 @@ class GaussianDiffusion(nn.Module):
         return x
 
     # -------------------------------------------------------- sampling
+    def n_denoiser_calls(self) -> int:
+        """Denoiser calls in one decode: one per ancestral step, or PLMS's
+        one per ``pndm_speedup`` steps and its first step's second."""
+        if self.pndm_speedup:
+            return len(range(self.K_step - self.pndm_speedup, -1,
+                             -self.pndm_speedup)) + 1
+        return self.K_step
+
     def n_draws(self) -> int:
         """Slots of the decode's random input: the initial state, then
         (ancestral) the noise of steps 1 .. K-1."""

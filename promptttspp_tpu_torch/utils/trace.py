@@ -22,8 +22,11 @@ Names in use: ``synth.request``, ``synth.inputs``, ``synth.acoustic``,
 ``synth.decode`` (``decode_graph.capture`` inside it where a graph is
 captured), ``synth.vocoder``, ``synth.readback`` and the counters
 ``synth.frames_decoded`` and ``synth.frames_useful`` (``infer.py``,
-``models/decode_graph.py``); ``train.step`` around ``train.forward``,
-``train.backward`` and ``train.optimizer`` (``train/state.py``).
+``models/decode_graph.py``); the counters ``decode.blocks_run`` and
+``decode.blocks_fused``, each decode graph replay's DiffNet residual blocks
+and those of them on the fused block path (``models/decode_graph.py``);
+``train.step`` around ``train.forward``, ``train.backward`` and
+``train.optimizer`` (``train/state.py``).
 """
 
 from __future__ import annotations

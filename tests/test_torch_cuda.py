@@ -1560,3 +1560,154 @@ def test_experimental_net_on_the_card(dev, case):
     assert float((got - want).abs().max()) <= 1e-5 * scale, name
     if name == "glow":
         torch.testing.assert_close(got, inputs[0], atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------- the DiffNet's fused blocks
+DIFFNET_SHAPES = [(16, 1024), (1, 712), (2, 301)]  # (B, T)
+
+
+def _diffnet_kernels():
+    from promptttspp_tpu_torch.ops.kernels import diffnet as kd
+
+    return kd
+
+
+@pytest.mark.parametrize("cp_dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bf16"])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("B,T", DIFFNET_SHAPES)
+def test_diffnet_gate_matches_plain(dev, B, T, d, cp_dtype):
+    """G1 against the plain expression it replaces, bit for bit, at the
+    flagship's R = 256: on the dilated convolution's output without its
+    bias (the bias added in the kernel) and with it (none given); a
+    conditioner projection of float32 or bf16, whole or a window of frames
+    of a longer one (the frame-sharded decode's)."""
+    kd = _diffnet_kernels()
+    R = 256
+    g = torch.Generator(device=dev).manual_seed(20 + d)
+    u = _randn(g, B, R, T)
+    w, bias = _randn(g, 2 * R, R, 3, scale=0.05), _randn(g, 2 * R, scale=0.1)
+    c = torch.nn.functional.conv1d(u, w, None, 1, d, d)
+    whole = _randn(g, B, T + 9, 2 * R).to(cp_dtype)
+    for cp in (whole[:, :T].contiguous(), whole[:, 5:5 + T]):
+        before = kd.gate.launches
+        got = kd.gate(c, bias, cp)
+        with_bias = kd.gate(c + bias[:, None], None, cp)
+        torch.cuda.synchronize()
+        assert kd.gate.launches == before + 2
+        want = kd.gate_plain(c, bias, cp)
+        assert got.shape == (B, T, R)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+        torch.testing.assert_close(with_bias, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+@pytest.mark.parametrize("B,T", DIFFNET_SHAPES)
+def test_diffnet_residual_and_entry_match_plain(dev, B, T, where):
+    """G2 (the first block's skip from 0, a later block's sum, the last
+    block without a next convolution input) and G0 against the plain
+    expressions they replace, bit for bit; G2 updates x and the skip sum
+    in place."""
+    kd = _diffnet_kernels()
+    R = 256
+    g = torch.Generator(device=dev).manual_seed(30)
+    o, bias = _randn(g, B, T, 2 * R), _randn(g, 2 * R, scale=0.1)
+    x, skip, dp = _randn(g, B, T, R), _randn(g, B, T, R), _randn(g, B, R)
+    skip = None if where == "first" else skip
+    dp = None if where == "last" else dp
+    want = kd.residual_plain(o, bias, x, skip, dp)
+    x_in = x.clone()
+    skip_in = None if skip is None else skip.clone()
+    got = kd.residual(o, bias, x_in, skip_in, dp)
+    torch.cuda.synchronize()
+    assert got[0] is x_in and (skip is None or got[1] is skip_in)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            torch.testing.assert_close(a, b, atol=0, rtol=0)
+    h, dp0 = _randn(g, B, T, R), _randn(g, B, R)
+    h[0, 0, :4] = torch.tensor([0.0, -0.0, float("nan"), -1.0])
+    for a, b in zip(kd.entry(h, dp0), kd.entry_plain(h, dp0)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0, equal_nan=True)
+
+
+def _flagship_decoder(dev):
+    """The flagship's 100-step decoder (20 blocks of R = 256), seeded
+    torch initialisation, on the card."""
+    from promptttspp_tpu_torch.models.diffusion import (
+        DiffNet, GaussianDiffusion)
+
+    torch.manual_seed(0)
+    dn = flagship.MODEL["decoder"]["denoise_fn"]
+    net = DiffNet(dn["in_dim"], dn["encoder_hidden_dim"],
+                  dn["residual_layers"], dn["residual_channels"],
+                  dn["kernel_size"], dn["dilation_cycle_length"])
+    return GaussianDiffusion(net, out_dim=80, norm_scale=6.0,
+                             K_step=100).to(dev).eval().requires_grad_(False)
+
+
+def _block_path():
+    """The DiffNet's block-by-block path for every call."""
+    from promptttspp_tpu_torch.models.diffusion import DiffNet
+
+    return mock.patch.object(DiffNet, "fuses",
+                             lambda self, x, mask=None: False)
+
+
+@pytest.mark.parametrize("B,T", [(16, 1024), (1, 712)])
+def test_fused_decode_equals_the_block_path(dev, B, T):
+    """The flagship's 100-step graph decode on the fused block path equals
+    the graph decode of the block-by-block path bit for bit; every replay
+    counts its 2,000 blocks, all fused or none."""
+    from promptttspp_tpu_torch.models import decode_graph
+    from promptttspp_tpu_torch.utils import trace
+
+    kd = _diffnet_kernels()
+    decoder = _flagship_decoder(dev)
+    cond = _randn(torch.Generator(device=dev).manual_seed(8), B, T, 256)
+    gen = lambda: torch.Generator(device=dev).manual_seed(9)
+    outs, counts = [], []
+    for path in (contextlib.nullcontext(), _block_path()):
+        dec = decoder.clone()
+        launches = kd.residual.launches
+        with path:
+            decode_graph.decode(dec, cond, generator=gen())  # the capture
+        fused = kd.residual.launches - launches
+        trace.clear()
+        with trace.recording():
+            outs.append(decode_graph.decode(dec, cond, generator=gen()))
+        n = {}
+        for c in trace.counts():
+            n[c.name] = n.get(c.name, 0) + c.n
+        trace.clear()
+        counts.append((fused, n.get("decode.blocks_run"),
+                       n.get("decode.blocks_fused")))
+    assert counts == [(4000, 2000, 2000), (0, 2000, 0)]
+    assert torch.isfinite(outs[0]).all()
+    torch.testing.assert_close(outs[0], outs[1], atol=0, rtol=0)
+
+
+def test_frame_sharded_decode_on_the_fused_path(dev):
+    """The frame-sharded decode over [cuda:0, cuda:0] (flagship widths, its
+    replicas' calls on window shapes): on the fused path it equals the
+    sharded decode of the block path bit for bit, and the unsharded decode
+    within chip_smoke's sharded bar (1e-5)."""
+    from promptttspp_tpu_torch.parallel import make_mesh
+    from promptttspp_tpu_torch.parallel.sp import decode_frames_sharded
+
+    kd = _diffnet_kernels()
+    decoder = _flagship_decoder(dev)
+    cond = _randn(torch.Generator(device=dev).manual_seed(10), 1, 512, 256)
+    gen = lambda: torch.Generator(device=dev).manual_seed(11)
+    mesh = make_mesh(devices=[dev, dev])
+    with torch.inference_mode():
+        launches = kd.gate.launches
+        fused = decode_frames_sharded(mesh, decoder, cond, generator=gen())
+        assert kd.gate.launches - launches == 2 * 100 * 20
+        with _block_path():
+            plain = decode_frames_sharded(mesh, decoder, cond,
+                                          generator=gen())
+        whole = decoder.inference(cond, generator=gen())
+    torch.testing.assert_close(fused, plain, atol=0, rtol=0)
+    torch.testing.assert_close(fused, whole, atol=1e-5, rtol=0)
