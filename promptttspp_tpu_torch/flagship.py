@@ -13,6 +13,13 @@ another value JAX builds; an absent key is JAX's default) with seeded
 random weights; trained weights
 load through ``compat/torch_ckpt.py`` (the reference's torch checkpoints)
 or ``compat/from_jax.py`` (a JAX parameter tree).
+
+F5-TTS v1 Base with Vocos: ``F5TTS_V1_BASE`` and ``VOCOS_MEL_24KHZ`` are
+``conf/torch/model/f5tts_v1_base.yaml`` and
+``conf/torch/vocoder/vocos_mel_24khz.yaml`` as written (the port's own
+configuration groups, which the JAX package does not build), held to
+them by a CPU test; ``build_f5tts`` and ``build_vocos`` build the port's
+models from them, with seeded random weights.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 from promptttspp_tpu_torch.config import resolve
 from promptttspp_tpu_torch.models.bert import BertConfig
 from promptttspp_tpu_torch.models.diffusion import DiffNet, GaussianDiffusion
+from promptttspp_tpu_torch.models.f5tts import DiT, F5TTS
 from promptttspp_tpu_torch.models.frame_prior import FramePriorNetwork
 from promptttspp_tpu_torch.models.phoneme_embedding import PhonemeEmbedding
 from promptttspp_tpu_torch.models.prompt_encoder import PromptEncoder
@@ -38,6 +46,7 @@ from promptttspp_tpu_torch.nn.layers import Conv1d
 from promptttspp_tpu_torch.nn.mdn import MDNLayer
 from promptttspp_tpu_torch.platform import resolve_device
 from promptttspp_tpu_torch.vocoders.bigvgan_f0 import F0AwareBigVGAN
+from promptttspp_tpu_torch.vocoders.vocos import Vocos
 
 # conf/model/prompttts_mdn_v2_wo_erg_final.yaml as written (interpolations
 # kept, so an override of a width moves the widths that follow it)
@@ -110,6 +119,21 @@ VOCODER = {
     "resblock_kernel_sizes": [3, 7, 11],
     "resblock_dilations": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
 }
+
+F5TTS_V1_BASE = {
+    "arch": {"dim": 1024, "depth": 22, "heads": 16, "dim_head": 64,
+             "ff_mult": 2, "text_dim": 512, "conv_layers": 4,
+             "text_num_embeds": 2546},
+    "mel_spec": {"target_sample_rate": 24000, "n_mel_channels": 100,
+                 "hop_length": 256, "win_length": 1024, "n_fft": 1024,
+                 "mel_spec_type": "vocos"},
+    "sampler": {"nfe_step": 32, "cfg_strength": 2.0,
+                "sway_sampling_coef": -1.0},
+    "dtype": "float16",
+}
+
+VOCOS_MEL_24KHZ = {"n_mels": 100, "dim": 512, "intermediate_dim": 1536,
+                   "num_layers": 8, "n_fft": 1024, "hop_length": 256}
 
 # bert-base-uncased (prompt_encoder.model_name)
 BERT_BASE = BertConfig()
@@ -332,3 +356,26 @@ def bias_duration_head(model, frames_per_phone: float = 10.0):
     head.log_sigma.weight.zero_()
     head.log_sigma.bias.fill_(-7.0)
     return model
+
+
+def build_f5tts(cfg: Mapping = F5TTS_V1_BASE, device="cuda", seed: int = 0):
+    """F5-TTS (DiT and sampler) from a config of ``F5TTS_V1_BASE``'s shape,
+    with random weights drawn from ``seed``, the DiT in ``cfg["dtype"]``."""
+    dev = resolve_device(device)
+    arch, smp = cfg["arch"], cfg["sampler"]
+
+    def build():
+        dit = DiT(mel_dim=cfg["mel_spec"]["n_mel_channels"], **arch)
+        return F5TTS(dit, nfe=smp["nfe_step"],
+                     cfg_strength=smp["cfg_strength"],
+                     sway_coef=smp["sway_sampling_coef"])
+
+    model = _seeded(dev, seed, build)
+    model.dit.to(getattr(torch, cfg["dtype"]))
+    return model
+
+
+def build_vocos(device="cuda", seed: int = 1,
+                cfg: Mapping = VOCOS_MEL_24KHZ):
+    """Vocos with random weights drawn from ``seed``, in float32."""
+    return _seeded(resolve_device(device), seed, lambda: Vocos(**cfg))

@@ -50,6 +50,21 @@ mispredict's second pass records its own acoustic, decode and vocoder
 spans. At resolve the counters ``synth.frames_decoded`` (the batch times
 the frame bucket of every pass) and ``synth.frames_useful`` (the frame
 lengths) are recorded.
+
+F5-TTS (``models/f5tts.py``, with Vocos) is a second acoustic front
+behind the same bucketing, graph decode, vocoder stage, readback and
+spans: a request is the ids of the text to speak (``phoneme_seqs``), a
+reference (``reference_mels`` or ``reference_wavs``) and the ids of its
+transcript (``reference_texts``). Its frame count is F5-TTS's duration
+rule, known on the host, so there is no pre-pass and no prediction:
+``synthesize_async`` queues the whole pass at once, its copies to the
+host included, and ``result()`` waits for that request alone, so the
+next one queued keeps the device busy. ``synth.acoustic``
+covers the reference's mel, the ids and the rule, ``synth.decode`` the
+sampler's graph, ``synth.vocoder`` the generated frames' gather and
+Vocos; a request returns only its generated frames (the mel and
+generated frames x ``upsample`` samples), and its useful frames are all
+the frames it decoded, the reference's included.
 """
 
 from __future__ import annotations
@@ -64,6 +79,7 @@ import torch
 
 from promptttspp_tpu_torch.data.batching import bucket_shape
 from promptttspp_tpu_torch.models import decode_graph
+from promptttspp_tpu_torch.models.f5tts import F5TTS, duration
 from promptttspp_tpu_torch.ops.filters import lowpass_filter
 from promptttspp_tpu_torch.parallel.mesh import make_mesh, replicas
 from promptttspp_tpu_torch.parallel.pp import StageDevices
@@ -73,6 +89,13 @@ from promptttspp_tpu_torch.platform import resolve_device
 from promptttspp_tpu_torch.utils import trace
 from promptttspp_tpu_torch.vocoders.streaming import (
     vocode_chunked, vocode_sharded, vocode_streaming)
+
+# F5-TTS decodes a request batch in groups of this many requests, sorted by
+# frame count, each group padded to its own frame bucket and replayed as
+# its own graph: a batch pays the quadratic attention of its groups'
+# buckets, not of its longest request's (frame use 70% -> 94% at batch 16
+# on the H100, PERF.md)
+F5_DECODE_GROUP = 2
 
 
 def _rounded_decoder(decoder, dtype: str):
@@ -176,11 +199,20 @@ class Synthesizer:
         if decode_pipelined and frame_sharded_decode:
             raise ValueError("decode_pipelined and frame_sharded_decode "
                              "exclude each other")
+        self._f5 = isinstance(model, F5TTS)
+        if self._f5 and (decode_param_dtype or decode_pipelined
+                         or frame_sharded_decode or speculative
+                         or vocoder_mode != "batched" or return_int16):
+            raise ValueError("F5TTS is served batched, with its decode as "
+                             "a graph, in float samples")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self._decoder = (model.decoder if decode_param_dtype is None
-                         else _rounded_decoder(model.decoder,
-                                               decode_param_dtype))
+        if self._f5:
+            self._decoder = model
+        else:
+            self._decoder = (model.decoder if decode_param_dtype is None
+                             else _rounded_decoder(model.decoder,
+                                                   decode_param_dtype))
         self.vocoder = (None if vocoder is None
                         else vocoder.to(self.device).eval())
         self.mel_stats = mel_stats or {"mean": 0.0, "std": 1.0}
@@ -437,6 +469,93 @@ class Synthesizer:
                 wavs.append(wav_np[i, : n * self.upsample, 0])
         return wavs, mels
 
+    # ------------------------------------------------------------- F5-TTS
+    def _dispatch_f5(self, text_seqs, reference_texts, reference_mels,
+                     reference_wavs, seed, return_mels,
+                     request_id) -> _PendingRequest:
+        """Queue an F5-TTS request's whole pass; the handle's ``result()``
+        reads it back. ``seed``: one per request, or an int that gives
+        request i the seed ``seed + i``."""
+        B = len(text_seqs)
+        if reference_texts is None or len(reference_texts) != B:
+            raise ValueError("F5TTS takes a reference_texts entry per "
+                             "request")
+        if (reference_mels is None) == (reference_wavs is None):
+            raise ValueError("exactly one of reference_mels / "
+                             "reference_wavs must be given")
+        seeds = ([int(seed) + i for i in range(B)]
+                 if isinstance(seed, (int, np.integer)) else list(seed))
+        with trace.span("synth.inputs", request_id):
+            refs = [self._to(np.asarray(r, np.float32))
+                    for r in (reference_wavs if reference_mels is None
+                              else reference_mels)]
+        with trace.span("synth.acoustic", request_id):
+            if reference_mels is None:
+                refs = [self.to_mel.to_mel(w) for w in refs]
+            ref_lens = [int(m.shape[0]) for m in refs]
+            lens = [duration(r, len(rt), len(t)) for r, rt, t in
+                    zip(ref_lens, reference_texts, text_seqs)]
+            if max(lens) > self.max_frames_cap:
+                raise ValueError(f"{max(lens)} frames exceed the cap "
+                                 f"{self.max_frames_cap}")
+            order = sorted(range(B), key=lambda i: lens[i])
+            groups = [order[j:j + F5_DECODE_GROUP]
+                      for j in range(0, B, F5_DECODE_GROUP)]
+            ref_t = self._to(np.asarray(ref_lens, np.int64))
+        gen = np.asarray([n - r for n, r in zip(lens, ref_lens)], np.int64)
+        G = bucket_shape(int(gen.max()), self.frame_quantum)
+        gen_mel = torch.zeros((B, G, self.model.out_dim), device=self.device)
+        decoded = 0
+        for group in groups:
+            with trace.span("synth.acoustic", request_id):
+                T = bucket_shape(max(lens[i] for i in group),
+                                 self.frame_quantum)
+                decoded += len(group) * T
+                mel = torch.zeros((len(group), T, self.model.out_dim),
+                                  device=self.device)
+                ids = np.zeros((len(group), T), np.int64)
+                for row, i in enumerate(group):
+                    mel[row, : ref_lens[i]] = refs[i]
+                    text = list(reference_texts[i]) + list(text_seqs[i])
+                    text = np.asarray(text[: lens[i]], np.int64) + 1
+                    ids[row, : len(text)] = text
+                rows = self._to(np.asarray(group, np.int64))
+                cond = (mel, self._to(ids), self._to(np.asarray(
+                    [lens[i] for i in group], np.int64)), ref_t[rows])
+                x_T = F5TTS.draw_y0([lens[i] for i in group],
+                                    [seeds[i] for i in group], T,
+                                    self.model.out_dim, self.device)
+            with trace.span("synth.decode", request_id):
+                out = decode_graph.decode(self._decoder, cond, x_T)
+            with trace.span("synth.vocoder", request_id):
+                idx = (cond[3][:, None] + torch.arange(G, device=self.device)
+                       ).clamp(max=T - 1)
+                gen_mel.index_copy_(0, rows, torch.gather(
+                    out, 1, idx[:, :, None].expand(-1, -1, out.shape[-1])))
+        with trace.span("synth.vocoder", request_id):
+            wav = self.vocoder(gen_mel, self._to(gen))[:, :, None]
+        # the copies to the host are queued now, behind this request's own
+        # work, and ``result()`` waits for them alone: a request queued
+        # after this one keeps the device busy meanwhile
+        back = [None if t is None else t.to("cpu", non_blocking=True)
+                for t in (wav, gen_mel if return_mels else None)]
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+
+        def resolve():
+            with trace.span("synth.readback", request_id):
+                if done is not None:
+                    done.synchronize()
+                host = [None if t is None else t.numpy() for t in back]
+            if trace.active():
+                trace.count("synth.frames_decoded", decoded)
+                trace.count("synth.frames_useful", int(sum(lens)))
+            return None, host + [gen]
+
+        return _PendingRequest(self, B, request_id, resolve)
+
     # ------------------------------------------------------- speculative
     def _predict_frames(self, phoneme: np.ndarray, plens: np.ndarray) -> int:
         """Host-side frame-bucket prediction for speculative dispatch.
@@ -623,14 +742,22 @@ class Synthesizer:
                          reference_mels=None, reference_wavs=None,
                          use_max: bool = True, noise_scale: float = 0.5,
                          seed: int = 0,
-                         return_mels: bool = False) -> _PendingRequest:
+                         return_mels: bool = False,
+                         reference_texts=None) -> _PendingRequest:
         """Queue a speculative request without waiting for the device; the
         handle's ``result()`` makes the one readback and returns (wavs,
         mels) like ``synthesize``. Submitting request N+1 before resolving
         request N keeps the device busy while N's audio comes back.
 
         Requires ``speculative=True``, a vocoder,
-        ``vocoder_mode="batched"`` and ``frame_sharded_decode=False``."""
+        ``vocoder_mode="batched"`` and ``frame_sharded_decode=False``; an
+        F5-TTS request (``reference_texts``) needs none of them."""
+        if self._f5:
+            rid = next(self._request_ids)
+            with trace.span("synth.request", rid):
+                return self._dispatch_f5(phoneme_seqs, reference_texts,
+                                         reference_mels, reference_wavs,
+                                         seed, return_mels, rid)
         if not (self.speculative and self.vocoder is not None
                 and self.vocoder_mode == "batched"
                 and not self.frame_sharded_decode):
@@ -651,14 +778,24 @@ class Synthesizer:
                    reference_mels=None, reference_wavs=None,
                    use_max: bool = True, noise_scale: float = 0.5,
                    seed: int = 0, return_mels: bool = True, x_T=None,
-                   zero_noise: bool = False
+                   zero_noise: bool = False, reference_texts=None
                    ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
         """Synthesize with exactly one of style-prompt strings, raw log-mel
         references [T, n_mels] or 24 kHz reference wavs -> (list of wav
         arrays, list of mel [T, n_mels] arrays; [] when ``return_mels`` is
         False). ``x_T`` [B, frame_bucket, n_mels] and ``zero_noise`` make
         the decode deterministic (parity checks); ``x_T`` must match the
-        exact frame bucket, so both take the two-phase path."""
+        exact frame bucket, so both take the two-phase path.
+
+        F5-TTS: ``phoneme_seqs`` are the ids of the text to speak,
+        ``reference_texts`` those of each reference's transcript; the
+        generated part is returned."""
+        if self._f5:
+            return self.synthesize_async(
+                phoneme_seqs, reference_mels=reference_mels,
+                reference_wavs=reference_wavs, seed=seed,
+                return_mels=return_mels,
+                reference_texts=reference_texts).result()
         n = len(phoneme_seqs)
         rid = next(self._request_ids)
         with trace.span("synth.request", rid):

@@ -1711,3 +1711,183 @@ def test_frame_sharded_decode_on_the_fused_path(dev):
         whole = decoder.inference(cond, generator=gen())
     torch.testing.assert_close(fused, plain, atol=0, rtol=0)
     torch.testing.assert_close(fused, whole, atol=1e-5, rtol=0)
+
+
+# F5-TTS at a small size (tests/test_torch_f5tts.py's widths)
+F5_ARCH = dict(dim=64, depth=2, heads=4, dim_head=16, ff_mult=2,
+               text_num_embeds=40, text_dim=32, conv_layers=1)
+
+
+def _f5_tiny(dev, nfe=4):
+    cfg = copy.deepcopy(flagship.F5TTS_V1_BASE)
+    cfg["arch"] = dict(F5_ARCH)
+    cfg["sampler"]["nfe_step"] = nfe
+    return flagship.build_f5tts(cfg, dev, seed=0)
+
+
+def _f5_cond(dev, B=3, T=128):
+    from promptttspp_tpu_torch.models.f5tts import F5TTS
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    lens, refs = [128, 97, 60][:B], [40, 31, 12][:B]
+    ids = torch.randint(1, 40, (B, T), generator=g, device=dev)
+    for i, n in enumerate(lens):
+        ids[i, n - 20:] = 0
+    cond = (_randn(g, B, T, 100), ids, torch.tensor(lens, device=dev),
+            torch.tensor(refs, device=dev))
+    return cond, F5TTS.draw_y0(lens, [7, 8, 9][:B], T, 100, dev)
+
+
+def test_f5_graph_replay_equals_the_eager_fp16_sampler(dev):
+    """The F5-TTS sampler's CUDA graph (the float16 DiT, 4 guided steps,
+    a batch of 3 with padding) gives the eager sampler's bits, twice, and
+    each replay records the counters of its shape."""
+    from promptttspp_tpu_torch.models import decode_graph
+    from promptttspp_tpu_torch.utils import trace
+
+    model = _f5_tiny(dev)
+    assert model.dit.dtype == torch.float16
+    cond, y0 = _f5_cond(dev)
+    with torch.inference_mode():
+        eager = model.sample(cond, y0[None])
+    trace.clear()
+    with trace.recording():
+        first = decode_graph.decode(model, cond, y0)
+        second = decode_graph.decode(model, cond, y0)
+    counts = {}
+    for c in trace.counts():
+        counts[c.name] = counts.get(c.name, 0) + c.n
+    trace.clear()
+    assert torch.isfinite(first).all() and first.dtype == torch.float32
+    torch.testing.assert_close(first, eager, atol=0, rtol=0)
+    torch.testing.assert_close(second, eager, atol=0, rtol=0)
+    B, T, nfe, depth = 3, 128, 4, F5_ARCH["depth"]
+    assert counts == {
+        "decode.passes_run": 2 * 2 * nfe,
+        "decode.blocks_run": 2 * 2 * nfe * depth,
+        "f5.attn_flops": 2 * 4 * (2 * B) * F5_ARCH["heads"] * T * T
+        * F5_ARCH["dim_head"] * depth * nfe}
+    assert [(c["B"], c["T"]) for c in decode_graph.captured(model)] == [
+        (3, 128)]
+
+
+def test_f5_serving_on_the_card_returns_the_generated_frames(dev):
+    """``Synthesizer.synthesize`` of F5-TTS with Vocos on the card returns
+    per request its generated frames x 256 float samples, a batch of two
+    the frames of each alone within the float16 DiT's reach."""
+    from promptttspp_tpu_torch.ops.mel import VOCOS_MEL
+    from promptttspp_tpu_torch.vocoders.vocos import Vocos
+
+    model = _f5_tiny(dev)
+    vocoder = flagship.build_vocos(dev, cfg=dict(
+        flagship.VOCOS_MEL_24KHZ, dim=32, intermediate_dim=48, num_layers=2))
+    assert isinstance(vocoder, Vocos)
+    synth = Synthesizer(model, vocoder, to_mel=VOCOS_MEL, upsample=256,
+                        device=dev)
+    rng = np.random.default_rng(0)
+    wavs = [(0.1 * rng.standard_normal(n * 256)).astype(np.float32)
+            for n in (40, 23)]
+    texts, refs = [[3] * 30, [5] * 11], [[4] * 9, [6] * 7]
+    out, mels = synth.synthesize(texts, reference_wavs=wavs,
+                                 reference_texts=refs, seed=[1, 2])
+    for i, (w, t, r) in enumerate(zip(wavs, texts, refs)):
+        T_ref = len(w) // 256 + 1
+        gen = int(T_ref / len(r) * len(t))
+        assert mels[i].shape == (gen, 100) and out[i].shape == (gen * 256,)
+        assert out[i].dtype == np.float32 and np.isfinite(out[i]).all()
+        alone, alone_mel = synth.synthesize([t], reference_wavs=[w],
+                                            reference_texts=[r],
+                                            seed=[i + 1])
+        scale = float(np.abs(alone_mel[0]).max())
+        assert float(np.abs(mels[i] - alone_mel[0]).max()) <= 2e-2 * scale
+
+
+def _dp4_batch(seed=11, B=8, Tp=12, Tf=64, L=16):
+    """A numpy global batch of ``B`` rows for the tiny model, the
+    diffusion draws given, for four ranks of two rows."""
+    rng = np.random.RandomState(seed)
+    plens = rng.randint(4, Tp + 1, B).astype(np.int32)
+    duration = np.zeros((B, Tp), np.int32)
+    for b in range(B):
+        duration[b, :plens[b]] = rng.randint(1, 5, plens[b])
+    flens = duration.sum(1).astype(np.int32)
+    phoneme = rng.randint(1, 90, (B, Tp)).astype(np.int32)
+    phoneme[np.arange(Tp)[None] >= plens[:, None]] = 0
+    frame = (np.arange(Tf)[None] < flens[:, None])[:, :, None]
+    mask = (np.arange(L)[None] < rng.randint(6, L + 1, B)[:, None])
+    return dict(
+        phoneme=phoneme, duration=duration, phone_lengths=plens,
+        mel=(rng.randn(B, Tf, MEL) * frame).astype(np.float32),
+        log_cf0=(rng.randn(B, Tf, 1) * frame).astype(np.float32),
+        vuv=((rng.rand(B, Tf, 1) > 0.3) * frame).astype(np.float32),
+        frame_lengths=flens,
+        prompt_ids=(rng.randint(1, 60, (B, L)) * mask).astype(np.int32),
+        prompt_mask=mask.astype(np.int32),
+        batch_weight=np.ones(B, np.float32),
+        diffusion_t=rng.randint(0, 10, B).astype(np.int32),
+        diffusion_noise=rng.randn(B, Tf, MEL).astype(np.float32))
+
+
+def _dp4_rank(rank: int, port: int, out_dir: str):
+    """One NCCL rank of four, on its own card: one float32 update of the
+    tiny model on its two rows of ``_dp4_batch``."""
+    import torch.distributed as dist
+
+    from promptttspp_tpu_torch.parallel.distributed import DataGroup
+    from promptttspp_tpu_torch.train.state import TrainState
+
+    torch.cuda.set_device(rank)
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=4)
+    try:
+        dev = torch.device("cuda", rank)
+        data = DataGroup(rank, 4)
+        model = flagship.build_model(zero_dropout_config(), dev, 0,
+                                     ZERO_BERT)
+        state = TrainState(model, seed=0, data=data, **OPT)
+        batch = {k: v[data.rows(2)] for k, v in _dp4_batch().items()}
+        out = state.train_step(torch_batch(batch, dev))
+        torch.save(dict(out={k: float(v) for k, v in out.items()},
+                        grads={n: p.grad.cpu() for n, p in
+                               zip(state.trainable, state.params)}),
+                   f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dp4_update_on_four_cards_matches_one_card(dev, tmp_path):
+    """Four NCCL ranks, one card each, two rows each of an 8-row batch:
+    their gradient (summed over the ranks, each rank's loss over the
+    global counts) is the one card's on the whole batch, as DDP averages
+    a batch's gradients over its ranks: the losses within 1e-5 relative,
+    the whole gradient within 1e-4 relative in L2; the ranks agree."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from promptttspp_tpu_torch.train.state import TrainState
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(_dp4_rank, args=(port, str(tmp_path)), nprocs=4,
+                       join=True, start_method="spawn")
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(4)]
+    model = flagship.build_model(zero_dropout_config(), dev, 0, ZERO_BERT)
+    state = TrainState(model, seed=0, **OPT)
+    out = state.train_step(torch_batch(_dp4_batch(), dev))
+    ref = {n: p.grad.cpu() for n, p in zip(state.trainable, state.params)}
+    for r in ranks[1:]:
+        assert r["out"] == ranks[0]["out"]
+        for n in ref:
+            assert torch.equal(r["grads"][n], ranks[0]["grads"][n]), n
+    np.testing.assert_allclose(ranks[0]["out"]["loss"], float(out["loss"]),
+                               rtol=1e-5)
+    whole = float(torch.stack([g.norm() for g in ref.values()]).norm())
+    gap = float(torch.stack([(ranks[0]["grads"][n] - g).norm()
+                             for n, g in ref.items()]).norm())
+    assert gap <= 1e-4 * whole, (gap, whole)
